@@ -1,0 +1,187 @@
+"""N-body message-passing GNN (port of ``nbody_gnn_hpc_tpu/models/gnn.py``).
+
+Same computation and parameter count as the JAX model (2,550,150 at hidden
+256 / 6 layers):
+
+- node encoder Linear(7->H) -> LayerNorm -> SiLU -> Dropout -> Linear(H->H);
+- n_layers interaction layers, each followed by residual + LayerNorm.  The
+  edge Dense on [h_target, h_source, edge_attr] is decomposed into two node
+  projections (``edge_proj_target`` with the bias, ``edge_proj_source``)
+  and ``edge_proj_attr``; the edge stream (gather, LayerNorm, SiLU, sum at
+  targets) is :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer`;
+  the edge-output Dense is pulled through the sum (``summed @ W + deg*b``);
+  then node MLP on [h, agg];
+- decoder Linear(H->H) -> SiLU -> Dropout -> Linear(H->H/2) -> SiLU ->
+  Linear(H/2->6), the last zero-initialised; output = state + delta.
+
+Every LayerNorm is Flax's: fast variance, clipped at 0, eps 1e-6.  Weights
+start from ``lecun_normal`` (truncated normal, fan-in) as in Flax, so an
+untrained port matches the JAX model in distribution.
+"""
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nbody_gnn_hpc_torch.ops.edges import edge_features
+from nbody_gnn_hpc_torch.ops.fused_edge import fused_edge_layer, target_csr
+
+EDGE_DIM = 5  # distance(1) + direction(3) + inv_dist_sq(1)
+LN_EPS = 1e-6  # flax.linen.LayerNorm default
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm``: var = max(E[x^2] - E[x]^2, 0), eps 1e-6."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        mu = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        return (x - mu) * torch.rsqrt(var + LN_EPS) * self.weight + self.bias
+
+
+def _lecun_normal_(weight: torch.Tensor, generator=None) -> None:
+    """Flax ``lecun_normal``: truncated normal at +-2 std, variance 1/fan_in
+    after truncation (hence the 0.8796 correction)."""
+    fan_in = weight.shape[1]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+class _MLPBlock(nn.Module):
+    """Linear -> LayerNorm -> SiLU -> Dropout -> Linear."""
+
+    def __init__(self, in_dim: int, hidden: int, out: int, dropout: float):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_dim, hidden)
+        self.LayerNorm_0 = LayerNorm(hidden)
+        self.Dense_1 = nn.Linear(hidden, out)
+        self.dropout = dropout
+
+    def forward(self, x):
+        x = F.silu(self.LayerNorm_0(self.Dense_0(x)))
+        x = F.dropout(x, self.dropout, self.training)
+        return self.Dense_1(x)
+
+
+class ParticleInteractionLayer(nn.Module):
+    """Message-passing layer: message for edge (row -> col) from
+    [h[col], h[row], e], summed at the targets, then node_mlp([h, agg])."""
+
+    def __init__(self, node_features: int, hidden_dim: int, dropout: float,
+                 edge_dim: int = EDGE_DIM):
+        super().__init__()
+        self.edge_proj_target = nn.Linear(node_features, hidden_dim)
+        self.edge_proj_source = nn.Linear(node_features, hidden_dim,
+                                          bias=False)
+        self.edge_proj_attr = nn.Linear(edge_dim, hidden_dim, bias=False)
+        self.edge_norm = LayerNorm(hidden_dim)
+        self.edge_out = nn.Linear(hidden_dim, hidden_dim)
+        self.node_mlp = _MLPBlock(node_features + hidden_dim, hidden_dim,
+                                  node_features, dropout)
+        self.dropout = dropout
+
+    def forward(self, h, edge_attr, edges, deg):
+        summed = fused_edge_layer(
+            self.edge_proj_target(h), self.edge_proj_source(h), edge_attr,
+            self.edge_proj_attr.weight.t().contiguous(),
+            self.edge_norm.weight, self.edge_norm.bias, edges,
+            dropout_p=self.dropout, deterministic=not self.training)
+        # Edge-output Dense pulled through the sum: the (E, H) messages
+        # never exist, sum_e (z_e W + b) = (sum_e z_e) W + deg * b.
+        agg = summed @ self.edge_out.weight.t() + deg.unsqueeze(-1) * \
+            self.edge_out.bias
+        return self.node_mlp(torch.cat([h, agg], dim=-1))
+
+
+class NBodyGNN(nn.Module):
+    """GNN predicting the next state as current_state + delta."""
+
+    def __init__(self, node_input_dim: int = 7, hidden_dim: int = 128,
+                 n_layers: int = 3, output_dim: int = 6,
+                 dropout: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.node_input_dim = node_input_dim
+        self.hidden_dim = hidden_dim
+        self.n_layers = n_layers
+        self.output_dim = output_dim
+        self.dropout = dropout
+        self.node_encoder = _MLPBlock(node_input_dim, hidden_dim, hidden_dim,
+                                      dropout)
+        self.layers = nn.ModuleList(
+            ParticleInteractionLayer(hidden_dim, hidden_dim, dropout)
+            for _ in range(n_layers))
+        self.norms = nn.ModuleList(LayerNorm(hidden_dim)
+                                   for _ in range(n_layers))
+        self.decoder_0 = nn.Linear(hidden_dim, hidden_dim)
+        self.decoder_1 = nn.Linear(hidden_dim, hidden_dim // 2)
+        self.decoder_out = nn.Linear(hidden_dim // 2, output_dim)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Flax initialisers: lecun_normal kernels, zero biases, unit
+        LayerNorm scales; ``decoder_out`` all zeros (delta == 0)."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                _lecun_normal_(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        self.decoder_out.weight.zero_()
+        self.decoder_out.bias.zero_()
+
+    def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Args:
+            x: (N, node_input_dim) [norm_pos, norm_vel, norm_mass], or
+               (B, N, node_input_dim) for a batch of graphs.
+            edge_index: (2, E) [source row, target col], shared by the
+               batch, or (B, 2, E) per graph.
+            pos: positions for the edge features; defaults to x[..., :3].
+
+        Returns: (..., N, output_dim) predicted next state.
+        """
+        n = x.shape[-2]
+        if x.dim() == 3 and edge_index.dim() == 2:
+            edge_index = edge_index.expand(x.shape[0], -1, -1)
+        if pos is None:
+            pos = x[..., :3]
+        edge_attr = edge_features(pos, edge_index)  # shared by the layers
+        edges = target_csr(edge_index, n)           # shared by the layers
+        deg = edges.degree if x.dim() == 3 else edges.degree[0]
+        h = self.node_encoder(x)
+        for layer, norm in zip(self.layers, self.norms):
+            h = norm(h + layer(h, edge_attr, edges, deg))
+        d = F.silu(self.decoder_0(h))
+        d = F.dropout(d, self.dropout, self.training)
+        d = F.silu(self.decoder_1(d))
+        return x[..., :6] + self.decoder_out(d)
+
+
+def model_from_config(config: dict) -> NBodyGNN:
+    """NBodyGNN from a persisted ``model_config`` dict (models/config.json).
+
+    The port computes in float32 whatever ``dtype`` the config names (the
+    serving path of the JAX package rebuilds at float32 too); the JAX-only
+    keys ``dtype``, ``remat``, ``edge_impl`` and ``gather_mode`` choose
+    nothing here.
+    """
+    cfg = {k: v for k, v in config.items()
+           if k not in ("dtype", "remat", "edge_impl", "gather_mode")}
+    return NBodyGNN(**cfg)
+
+
+def count_parameters(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

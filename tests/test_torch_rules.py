@@ -1,0 +1,79 @@
+"""Rules of the PyTorch port: it imports no JAX and nothing of the JAX
+package, and it never runs on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nbody_gnn_hpc_tpu"}
+
+
+def _port_sources():
+    files = sorted((REPO / "nbody_gnn_hpc_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, nbody_gnn_hpc_torch.serve, nbody_gnn_hpc_torch.sim, "
+            "nbody_gnn_hpc_torch.client\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_to_run_on_cpu_unasked(no_cuda):
+    from nbody_gnn_hpc_torch import resolve_device
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.predict import Predictor
+    from nbody_gnn_hpc_torch.serve import build_service
+    from nbody_gnn_hpc_torch.sim import make_state
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_service("models/best_rollout_model.pt", "models/config.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(NBodyGNN(hidden_dim=32, n_layers=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_state([[0.0, 0, 0]], [[0.0, 0, 0]], [1.0])
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_serve_cli_refuses_cpu_unasked(no_cuda):
+    from nbody_gnn_hpc_torch.serve import main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--warm-particles", "0", "--port", "0"])
