@@ -1,4 +1,4 @@
-"""Load the JAX package's checkpoints into the port's model.
+"""Checkpoints in the JAX package's format, read and written by the port.
 
 The JAX package writes a pickle of numpy arrays (``format``
 ``nbody_gnn_hpc_tpu.pickle.v1``) whose ``model_state_dict`` is a nested
@@ -7,14 +7,20 @@ dict of Flax parameters, e.g. ``layer_0/edge_proj_target/kernel`` (256,
 and transposes every Dense kernel: Flax stores (in, out), ``nn.Linear``
 stores (out, in).
 
-Only ``model_state_dict`` and ``norm_stats`` are read.  The production
-``models/best_rollout_model.pt`` unpickles with numpy alone; checkpoints
-whose optimizer state holds optax classes cannot be read without optax.
+Only ``model_state_dict`` and ``norm_stats`` are read by ``load_into``.
+The production ``models/best_rollout_model.pt`` unpickles with numpy
+alone; checkpoints whose optimizer state holds optax classes cannot be read
+without optax.  :func:`save_checkpoint` writes the same keys with
+:func:`params_to_jax` parameters, and the port's optimizer state as numpy
+arrays, so its files load in the JAX package and unpickle with numpy
+alone.
 """
 
+import os
 import pickle
 import re
-from typing import Dict, Optional
+from pathlib import Path
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -62,6 +68,105 @@ def params_from_jax(state_dict: dict) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unexpected parameter {path!r}")
         out[".".join(parts)] = torch.tensor(arr)  # a writable copy
     return out
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """``NBodyGNN`` state dict -> Flax parameter tree of numpy arrays (the
+    inverse of :func:`params_from_jax`): ``layers.i`` -> ``layer_i``, a 2-D
+    ``weight`` -> ``kernel`` transposed, a 1-D (LayerNorm) ``weight`` ->
+    ``scale``."""
+    tree: dict = {}
+    for name, val in state_dict.items():
+        arr = val.detach().cpu().numpy().astype(np.float32)
+        parts = name.split(".")
+        if parts[0] in ("layers", "norms"):
+            parts[:2] = [f"{parts[0][:-1]}_{parts[1]}"]
+        if parts[-1] == "weight":
+            if arr.ndim == 2:
+                parts[-1], arr = "kernel", np.ascontiguousarray(arr.T)
+            else:
+                parts[-1] = "scale"
+        elif parts[-1] != "bias":
+            raise ValueError(f"unexpected parameter {name!r}")
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def _to_numpy(tree: Any) -> Any:
+    """Nested dicts/lists of tensors -> the same of numpy arrays."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree
+
+
+def save_checkpoint(filepath, *, params, opt_state=None, scheduler_state=None,
+                    best_val_loss=None, history=None, norm_stats=None,
+                    model_config=None) -> str:
+    """Write a checkpoint with the JAX package's keys (reference
+    ``train.py:540-547``): ``params`` is a Flax tree (:func:`params_to_jax`),
+    ``opt_state`` the optimizer's ``state_dict()``; tensors are stored as
+    numpy arrays.  Written to a temporary file and renamed, so a crash never
+    leaves a torn checkpoint at ``filepath``."""
+    filepath = Path(filepath)
+    filepath.parent.mkdir(parents=True, exist_ok=True)
+    ckpt = {
+        "model_state_dict": _to_numpy(params),
+        "optimizer_state_dict": _to_numpy(opt_state),
+        "scheduler_state_dict": _to_numpy(scheduler_state),
+        "best_val_loss": best_val_loss,
+        "history": history,
+        "norm_stats": _to_numpy(norm_stats),
+        "model_config": model_config,
+        "format": "nbody_gnn_hpc_tpu.pickle.v1",
+    }
+    tmppath = filepath.with_name(filepath.name + ".tmp")
+    with open(tmppath, "wb") as f:
+        pickle.dump(ckpt, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmppath, filepath)
+    return str(filepath)
+
+
+# The training loop's own files; resume ignores inference promotions such
+# as best_rollout_model.pt.
+_TRAIN_CKPT_RE = re.compile(
+    r"^(final_model|best_model|checkpoint_epoch_\d+)\.pt$")
+
+
+def _tie_rank(name: str) -> int:
+    """At one epoch: final_model is written last, a cadence checkpoint
+    next, best_model first."""
+    if name.startswith("final_model"):
+        return 2
+    return 1 if name.startswith("checkpoint_epoch_") else 0
+
+
+def latest_checkpoint(model_dir) -> Optional[str]:
+    """Filename of the training checkpoint with the highest recorded epoch
+    (``scheduler_state_dict.epoch``) in ``model_dir``, or None.  Powers
+    ``train_model --resume auto``; unreadable files are skipped, so a file
+    torn by a crash does not block recovery."""
+    candidates = {}
+    for path in sorted(Path(model_dir).glob("*.pt")):
+        if not _TRAIN_CKPT_RE.match(path.name):
+            continue
+        try:
+            ckpt = load_checkpoint(path)
+        except (OSError, EOFError, pickle.UnpicklingError, AttributeError,
+                ImportError, ValueError):
+            continue
+        if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+            sched = ckpt.get("scheduler_state_dict") or {}
+            candidates[path.name] = int(sched.get("epoch", 0) or 0)
+    if not candidates:
+        return None
+    return max(candidates, key=lambda n: (candidates[n], _tie_rank(n)))
 
 
 def load_into(model: nn.Module, ckpt: dict) -> Optional[dict]:

@@ -8,7 +8,8 @@ Same computation and parameter count as the JAX model (2,550,150 at hidden
   edge Dense on [h_target, h_source, edge_attr] is decomposed into two node
   projections (``edge_proj_target`` with the bias, ``edge_proj_source``)
   and ``edge_proj_attr``; the edge stream (gather, LayerNorm, SiLU, sum at
-  targets) is :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer`;
+  targets) is :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer`,
+  differentiable through the backward kernel;
   the edge-output Dense is pulled through the sum (``summed @ W + deg*b``);
   then node MLP on [h, agg];
 - decoder Linear(H->H) -> SiLU -> Dropout -> Linear(H->H/2) -> SiLU ->
@@ -17,6 +18,13 @@ Same computation and parameter count as the JAX model (2,550,150 at hidden
 Every LayerNorm is Flax's: fast variance, clipped at 0, eps 1e-6.  Weights
 start from ``lecun_normal`` (truncated normal, fan-in) as in Flax, so an
 untrained port matches the JAX model in distribution.
+
+In training mode every random draw comes from the ``generator`` passed to
+:meth:`NBodyGNN.forward`, in a fixed order: the encoder's dropout mask,
+then per layer the edge stream's int seed and the node MLP's mask, then
+the decoder's mask.  Node-side dropout is Flax's (keep with probability
+1-p, kept values divided by 1-p); the edge stream draws its own mask from
+its seed (Philox, :mod:`~nbody_gnn_hpc_torch.ops.fused_edge`).
 """
 
 import math
@@ -31,6 +39,16 @@ from nbody_gnn_hpc_torch.ops.fused_edge import fused_edge_layer, target_csr
 
 EDGE_DIM = 5  # distance(1) + direction(3) + inv_dist_sq(1)
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
+SEED_BOUND = 2_147_483_647  # edge-stream seeds lie in [0, 2^31 - 1)
+
+
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1-p, kept / (1-p)."""
+    if not training or p <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class LayerNorm(nn.Module):
@@ -66,15 +84,21 @@ class _MLPBlock(nn.Module):
         self.Dense_1 = nn.Linear(hidden, out)
         self.dropout = dropout
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = F.silu(self.LayerNorm_0(self.Dense_0(x)))
-        x = F.dropout(x, self.dropout, self.training)
+        x = _dropout(x, self.dropout, self.training, generator)
         return self.Dense_1(x)
 
 
 class ParticleInteractionLayer(nn.Module):
     """Message-passing layer: message for edge (row -> col) from
-    [h[col], h[row], e], summed at the targets, then node_mlp([h, agg])."""
+    [h[col], h[row], e], summed at the targets, then node_mlp([h, agg]).
+
+    ``edge_stream`` is the edge-stream function; it may be set to
+    :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer_plain` on
+    an instance to run the plain versions on the card for comparison."""
+
+    edge_stream = staticmethod(fused_edge_layer)
 
     def __init__(self, node_features: int, hidden_dim: int, dropout: float,
                  edge_dim: int = EDGE_DIM):
@@ -89,17 +113,21 @@ class ParticleInteractionLayer(nn.Module):
                                   node_features, dropout)
         self.dropout = dropout
 
-    def forward(self, h, edge_attr, edges, deg):
-        summed = fused_edge_layer(
+    def forward(self, h, edge_attr, edges, deg, generator=None):
+        seed = None
+        if self.training and self.dropout > 0:
+            seed = torch.randint(0, SEED_BOUND, (1,), generator=generator,
+                                 device=h.device, dtype=torch.int32)
+        summed = self.edge_stream(
             self.edge_proj_target(h), self.edge_proj_source(h), edge_attr,
             self.edge_proj_attr.weight.t().contiguous(),
-            self.edge_norm.weight, self.edge_norm.bias, edges,
+            self.edge_norm.weight, self.edge_norm.bias, edges, seed,
             dropout_p=self.dropout, deterministic=not self.training)
         # Edge-output Dense pulled through the sum: the (E, H) messages
         # never exist, sum_e (z_e W + b) = (sum_e z_e) W + deg * b.
         agg = summed @ self.edge_out.weight.t() + deg.unsqueeze(-1) * \
             self.edge_out.bias
-        return self.node_mlp(torch.cat([h, agg], dim=-1))
+        return self.node_mlp(torch.cat([h, agg], dim=-1), generator)
 
 
 class NBodyGNN(nn.Module):
@@ -143,13 +171,16 @@ class NBodyGNN(nn.Module):
         self.decoder_out.bias.zero_()
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
-                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Args:
             x: (N, node_input_dim) [norm_pos, norm_vel, norm_mass], or
                (B, N, node_input_dim) for a batch of graphs.
             edge_index: (2, E) [source row, target col], shared by the
                batch, or (B, 2, E) per graph.
             pos: positions for the edge features; defaults to x[..., :3].
+            generator: source of the dropout draws in training mode (on
+               x's device); None draws from PyTorch's default generator.
 
         Returns: (..., N, output_dim) predicted next state.
         """
@@ -159,13 +190,15 @@ class NBodyGNN(nn.Module):
         if pos is None:
             pos = x[..., :3]
         edge_attr = edge_features(pos, edge_index)  # shared by the layers
-        edges = target_csr(edge_index, n)           # shared by the layers
+        # Shared by the layers; the source-major order only when a
+        # backward may need it.
+        edges = target_csr(edge_index, n, sources=torch.is_grad_enabled())
         deg = edges.degree if x.dim() == 3 else edges.degree[0]
-        h = self.node_encoder(x)
+        h = self.node_encoder(x, generator)
         for layer, norm in zip(self.layers, self.norms):
-            h = norm(h + layer(h, edge_attr, edges, deg))
+            h = norm(h + layer(h, edge_attr, edges, deg, generator))
         d = F.silu(self.decoder_0(h))
-        d = F.dropout(d, self.dropout, self.training)
+        d = _dropout(d, self.dropout, self.training, generator)
         d = F.silu(self.decoder_1(d))
         return x[..., :6] + self.decoder_out(d)
 

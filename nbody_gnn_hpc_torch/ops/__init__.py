@@ -1,15 +1,18 @@
 """Graph ops and the fused edge-stream kernel."""
 
 from nbody_gnn_hpc_torch.ops.edges import edge_features
-from nbody_gnn_hpc_torch.ops.fused_edge import (TargetCSR, fused_edge_layer,
-                                                fused_edge_layer_reference,
-                                                target_csr)
+from nbody_gnn_hpc_torch.ops.fused_edge import (
+    SourceCSR, TargetCSR, dropout_keep, fused_edge_backward,
+    fused_edge_backward_reference, fused_edge_layer, fused_edge_layer_plain,
+    fused_edge_layer_reference, source_csr, target_csr)
 from nbody_gnn_hpc_torch.ops.knn import (KNN_BLOCK, KNN_DENSE_MAX,
                                          edge_index_for,
                                          fully_connected_edge_index,
                                          is_row_regular, knn_edge_index)
 
-__all__ = ["KNN_BLOCK", "KNN_DENSE_MAX", "TargetCSR", "edge_features",
-           "edge_index_for", "fully_connected_edge_index", "fused_edge_layer",
-           "fused_edge_layer_reference", "is_row_regular", "knn_edge_index",
-           "target_csr"]
+__all__ = ["KNN_BLOCK", "KNN_DENSE_MAX", "SourceCSR", "TargetCSR",
+           "dropout_keep", "edge_features", "edge_index_for",
+           "fully_connected_edge_index", "fused_edge_backward",
+           "fused_edge_backward_reference", "fused_edge_layer",
+           "fused_edge_layer_plain", "fused_edge_layer_reference",
+           "is_row_regular", "knn_edge_index", "source_csr", "target_csr"]

@@ -1,28 +1,37 @@
-"""Fused edge stream of the interaction layer: CUDA kernel + plain version.
+"""Fused edge stream of the interaction layer: CUDA kernels + plain versions.
 
-Port of ``nbody_gnn_hpc_tpu/ops/fused_edge.py`` (``fused_edge_layer``, the
-forward Pallas kernel ``_fwd_kernel``), inference form: float32, no
-dropout.  Per graph, with edges (row -> col):
+Port of ``nbody_gnn_hpc_tpu/ops/fused_edge.py`` (``fused_edge_layer``: the
+forward Pallas kernel ``_fwd_kernel``, the backward ``_bwd_kernel`` and the
+``custom_vjp`` around them).  Per graph, with edges (row -> col):
 
     z    = t_proj[col] + s_proj[row] + edge_attr @ W_e              (E, H)
     y    = LayerNorm(z) * gamma + beta      (fast variance, eps 1e-6)
-    a    = silu(y)
+    a    = silu(y);  in training a = keep ? a / (1-p) : 0
     out  = sum of a over the edges into each target                 (N, H)
 
 The TPU kernel's one-hot ``adjT`` matmuls are replaced by a target-major
 CSR (:func:`target_csr`): edge ids stably sorted by target, their sources,
-and per-target offsets.  It is index bookkeeping, computed once per forward
-and shared by every layer.  The kernel (``csrc/fused_edge.cu``) walks each
-target's edges in that fixed order, so its sums are deterministic; its
-source note states the design and the H100 bound.
+and per-target offsets; the backward also walks a source-major CSR for
+``d_s_proj``.  Both are index bookkeeping, computed once per forward and
+shared by every layer.  The kernels (``csrc/fused_edge.cu``) take every sum
+in a fixed order, so reruns are bit-identical; its source note states the
+design and the H100 bounds.
 
-:func:`fused_edge_layer` launches the kernel for CUDA tensors and uses
-:func:`fused_edge_layer_reference` for CPU tensors; nothing else selects
-between them.  Dropout and the backward kernel belong to the training port.
+Dropout bits come from Philox4x32-10 keyed on the layer's int seed, one
+32-bit word per (graph, original edge id, channel) (:func:`dropout_keep`);
+the kernels and the plain versions draw the same bits, and the backward
+regenerates the forward's mask from the seed.
+
+:func:`fused_edge_layer` is a ``torch.autograd.Function``: CUDA tensors go
+to the kernels (``fused_edge_layer.launches`` and
+``fused_edge_backward.launches`` count them), CPU tensors to
+:func:`fused_edge_layer_reference` and :func:`fused_edge_backward_reference`.
+:func:`fused_edge_layer_plain` runs the plain versions on any device, to
+compare a kernel path with its plain path on the card.
 """
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,6 +40,21 @@ from nbody_gnn_hpc_torch.ops.edges import gather_nodes
 EPS = 1e-6  # flax.linen.LayerNorm default
 MAX_EDGE_DIM = 8
 MAX_HIDDEN = 256
+WARPS = 8  # warps per block of the kernels (targets per block in backward)
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+class SourceCSR(NamedTuple):
+    """Edges in source-major order: ``perm`` (B, E) int32 edge ids stably
+    sorted by source, ``dst`` (B, E) int32 their targets, ``offsets``
+    (B, N+1) int32."""
+
+    perm: torch.Tensor
+    dst: torch.Tensor
+    offsets: torch.Tensor
 
 
 class TargetCSR(NamedTuple):
@@ -41,6 +65,8 @@ class TargetCSR(NamedTuple):
     src:      (B, E) int32 source of each sorted edge (``row[perm]``).
     offsets:  (B, N+1) int32; target t's edges are perm[offsets[t]:
               offsets[t+1]].
+    sources:  the source-major order the backward walks, or None (built
+              on demand by the backward).
     """
 
     row: torch.Tensor
@@ -48,6 +74,7 @@ class TargetCSR(NamedTuple):
     perm: torch.Tensor
     src: torch.Tensor
     offsets: torch.Tensor
+    sources: Optional[SourceCSR] = None
 
     @property
     def degree(self) -> torch.Tensor:
@@ -55,38 +82,168 @@ class TargetCSR(NamedTuple):
         return (self.offsets[:, 1:] - self.offsets[:, :-1]).float()
 
 
-def target_csr(edge_index: torch.Tensor, n_nodes: int) -> TargetCSR:
-    """Target-major CSR of ``edge_index`` (2, E) or (B, 2, E)."""
+def _csr(key: torch.Tensor, other: torch.Tensor, n_nodes: int):
+    """(perm, other[perm], offsets) of edges stably sorted by ``key``."""
+    sorted_key, perm = torch.sort(key, dim=-1, stable=True)
+    bounds = torch.arange(n_nodes + 1, device=key.device).expand(
+        key.shape[0], -1).contiguous()
+    offsets = torch.searchsorted(sorted_key.contiguous(), bounds)
+    return perm.int(), torch.gather(other, 1, perm).int(), offsets.int()
+
+
+def source_csr(row: torch.Tensor, col: torch.Tensor,
+               n_nodes: int) -> SourceCSR:
+    """Source-major CSR of (B, E) edges."""
+    return SourceCSR(*_csr(row, col, n_nodes))
+
+
+def target_csr(edge_index: torch.Tensor, n_nodes: int,
+               sources: bool = False) -> TargetCSR:
+    """Target-major CSR of ``edge_index`` (2, E) or (B, 2, E); with
+    ``sources`` also the source-major CSR the backward needs."""
     ei = edge_index if edge_index.dim() == 3 else edge_index.unsqueeze(0)
     row, col = ei[:, 0].long(), ei[:, 1].long()
-    sorted_col, perm = torch.sort(col, dim=-1, stable=True)
-    bounds = torch.arange(n_nodes + 1, device=col.device).expand(
-        col.shape[0], -1).contiguous()
-    offsets = torch.searchsorted(sorted_col.contiguous(), bounds)
-    return TargetCSR(row=row, col=col, perm=perm.int(),
-                     src=torch.gather(row, 1, perm).int(),
-                     offsets=offsets.int())
+    perm, src, offsets = _csr(col, row, n_nodes)
+    return TargetCSR(row=row, col=col, perm=perm, src=src, offsets=offsets,
+                     sources=source_csr(row, col, n_nodes) if sources
+                     else None)
 
 
-def fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e, gamma, beta,
-                               edges: TargetCSR) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arguments and result).
+def dropout_threshold(p: float) -> int:
+    """uint32 threshold: keep iff bits >= it, P(drop) = p to 2^-32
+    (``_threshold`` of the JAX module)."""
+    return min(int(round(p * 4294967296.0)), _U32)
 
-    Sums with ``scatter_add_``, which on CUDA uses atomics: it agrees with
-    the kernel to float32 reduction order, not bit for bit.
-    """
-    batched = t_proj.dim() == 3
-    tp = t_proj if batched else t_proj.unsqueeze(0)
-    sp = s_proj if batched else s_proj.unsqueeze(0)
-    ea = edge_attr if batched else edge_attr.unsqueeze(0)
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of the constant ``m`` times uint32 values held
+    in int64 ``x``: the 64-bit product would overflow int64, so it is taken
+    in 16-bit halves of ``m``."""
+    p0 = x * (m & 0xFFFF)            # < 2^48
+    p1 = x * (m >> 16)               # < 2^48
+    low = p0 + ((p1 & 0xFFFF) << 16)  # < 2^49
+    return (p1 >> 16) + (low >> 32), low & _U32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 values (broadcast);
+    returns the four output words."""
+    k0 = k0 & _U32
+    k1 = k1 & _U32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _U32
+        k1 = (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def dropout_bits(seed: torch.Tensor, b: int, e: int, h: int) -> torch.Tensor:
+    """(B, E, H) int64 uint32 words the kernels draw: for graph b, original
+    edge id e and channel c, word (c/32) % 4 of Philox4x32-10 with counter
+    (c%32 + 32*(c/128), e, b, 0) and key (seed, 0)."""
+    dev = seed.device
+    c = torch.arange(h, device=dev)
+    group = (c % 32 + 32 * (c // 128)).view(1, 1, h)
+    word = ((c // 32) % 4).view(1, 1, h)
+    eid = torch.arange(e, device=dev).view(1, e, 1)
+    bid = torch.arange(b, device=dev).view(b, 1, 1)
+    key = seed.long().reshape(1, 1, 1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    shape = (b, e, h)
+    words = philox4x32(group.expand(shape), eid.expand(shape),
+                       bid.expand(shape), zero, key, zero)
+    out = torch.where(word == 0, words[0], words[1])
+    out = torch.where(word == 2, words[2], out)
+    return torch.where(word == 3, words[3], out)
+
+
+def dropout_keep(seed: torch.Tensor, p: float, b: int, e: int,
+                 h: int) -> torch.Tensor:
+    """(B, E, H) bool keep mask of the edge stream (the kernels' bits)."""
+    return dropout_bits(seed, b, e, h) >= dropout_threshold(p)
+
+
+def _lift(t: torch.Tensor, batched: bool) -> torch.Tensor:
+    return t if batched else t.unsqueeze(0)
+
+
+def _stream(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR):
+    """(B, E, H) pre-LN stream pieces: x-hat, y, sigmoid(y), rstd."""
     z = gather_nodes(tp, edges.col) + gather_nodes(sp, edges.row) + ea @ w_e
     mu = z.mean(-1, keepdim=True)
     var = (z * z).mean(-1, keepdim=True) - mu * mu
-    y = (z - mu) * torch.rsqrt(var + EPS) * gamma + beta
-    a = y * torch.sigmoid(y)
+    rstd = torch.rsqrt(var + EPS)
+    xhat = (z - mu) * rstd
+    y = xhat * gamma + beta
+    return xhat, y, torch.sigmoid(y), rstd
+
+
+def _drop_factor(seed, p, shape):
+    """Dropout factor (1/(1-p) or 0) over the (B, E, H) stream, or None."""
+    if seed is None or p <= 0:
+        return None
+    keep = dropout_keep(seed, p, *shape)
+    return torch.where(keep, 1.0 / (1.0 - p), 0.0).float()
+
+
+def fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e, gamma, beta,
+                               edges: TargetCSR, seed=None,
+                               dropout_p: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of kernel 1 (same arguments and result).
+
+    ``seed``: (1,) int32 tensor of the layer's dropout seed, or None (no
+    dropout).  Sums with ``scatter_add_``, which on CUDA uses atomics: it
+    agrees with the kernel to float32 reduction order, not bit for bit.
+    """
+    batched = t_proj.dim() == 3
+    tp, sp, ea = (_lift(t, batched) for t in (t_proj, s_proj, edge_attr))
+    _, y, sig, _ = _stream(tp, sp, ea, w_e, gamma, beta, edges)
+    a = y * sig
+    factor = _drop_factor(seed, dropout_p, a.shape)
+    if factor is not None:
+        a = a * factor
     out = torch.zeros_like(tp).scatter_add_(
         1, edges.col.unsqueeze(-1).expand_as(a), a)
     return out if batched else out[0]
+
+
+def fused_edge_backward_reference(t_proj, s_proj, edge_attr, w_e, gamma,
+                                  beta, edges: TargetCSR, g_out, seed=None,
+                                  dropout_p: float = 0.0):
+    """Plain PyTorch version of kernel 2: the six gradients of
+    :func:`fused_edge_layer_reference` for the upstream gradient ``g_out``,
+    written out as the JAX ``_bwd_kernel`` forms them.
+
+    Returns (d_t_proj, d_s_proj, d_edge_attr, d_w_e, d_gamma, d_beta),
+    shaped as the inputs; the parameter gradients are summed over the
+    batch.
+    """
+    batched = t_proj.dim() == 3
+    tp, sp, ea, go = (_lift(t, batched)
+                      for t in (t_proj, s_proj, edge_attr, g_out))
+    h = tp.shape[-1]
+    xhat, y, sig, rstd = _stream(tp, sp, ea, w_e, gamma, beta, edges)
+    d_act = gather_nodes(go, edges.col)                        # (B, E, H)
+    factor = _drop_factor(seed, dropout_p, d_act.shape)
+    if factor is not None:
+        d_act = d_act * factor
+    d_y = d_act * (sig * (1.0 + y * (1.0 - sig)))
+    d_gamma = (d_y * xhat).sum((0, 1))
+    d_beta = d_y.sum((0, 1))
+    d_xhat = d_y * gamma
+    m1 = d_xhat.mean(-1, keepdim=True)
+    m2 = (d_xhat * xhat).mean(-1, keepdim=True)
+    d_z = rstd * (d_xhat - m1 - xhat * m2)                     # (B, E, H)
+    index = lambda ix: ix.unsqueeze(-1).expand(-1, -1, h)  # noqa: E731
+    d_tp = torch.zeros_like(tp).scatter_add_(1, index(edges.col), d_z)
+    d_sp = torch.zeros_like(sp).scatter_add_(1, index(edges.row), d_z)
+    d_ea = d_z @ w_e.t()
+    d_we = torch.einsum("bed,beh->dh", ea, d_z)
+    if not batched:
+        d_tp, d_sp, d_ea = d_tp[0], d_sp[0], d_ea[0]
+    return d_tp, d_sp, d_ea, d_we, d_gamma, d_beta
 
 
 def _check(name, t, dtype, shape, device):
@@ -101,10 +258,9 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR) -> torch.Tensor:
-    """Check the (B, N, H) operands and launch ``nbody_fused_edge_fwd``."""
-    from nbody_gnn_hpc_torch.ops.cuda_build import load_library
-
+def _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed, extra=()):
+    """Check the (B, N, H) operands the kernels take; returns (b, n, e, d,
+    h)."""
     b, n, h = tp.shape
     e, d = ea.shape[1], ea.shape[2]
     dev = tp.device
@@ -113,35 +269,178 @@ def _launch(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR) -> torch.Tensor:
         raise ValueError(f"kernel takes H a multiple of 32 up to "
                          f"{MAX_HIDDEN}, D <= {MAX_EDGE_DIM}, B <= 65535; "
                          f"got H={h}, D={d}, B={b}")
-    for name, t, dtype, shape in (
-            ("t_proj", tp, f32, (b, n, h)), ("s_proj", sp, f32, (b, n, h)),
-            ("edge_attr", ea, f32, (b, e, d)), ("w_e", w_e, f32, (d, h)),
-            ("gamma", gamma, f32, (h,)), ("beta", beta, f32, (h,)),
-            ("perm", edges.perm, i32, (b, e)), ("src", edges.src, i32, (b, e)),
-            ("offsets", edges.offsets, i32, (b, n + 1))):
+    checks = [("t_proj", tp, f32, (b, n, h)), ("s_proj", sp, f32, (b, n, h)),
+              ("edge_attr", ea, f32, (b, e, d)), ("w_e", w_e, f32, (d, h)),
+              ("gamma", gamma, f32, (h,)), ("beta", beta, f32, (h,)),
+              ("perm", edges.perm, i32, (b, e)),
+              ("src", edges.src, i32, (b, e)),
+              ("offsets", edges.offsets, i32, (b, n + 1))]
+    if seed is not None:
+        checks.append(("seed", seed, i32, (1,)))
+    for name, t, dtype, shape in checks + list(extra):
         _check(name, t, dtype, shape, dev)
-    lib = load_library("fused_edge")
-    fn = lib.nbody_fused_edge_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    return b, n, e, d, h
+
+
+def _dropout_args(seed, p):
+    """(seed pointer, threshold, scale) for the kernels' dropout."""
+    if seed is None or p <= 0:
+        return None, 0, 1.0
+    return seed.data_ptr(), dropout_threshold(p), 1.0 / (1.0 - p)
+
+
+def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
+                p: float) -> torch.Tensor:
+    """Check the (B, N, H) operands and launch ``nbody_fused_edge_fwd``."""
+    from nbody_gnn_hpc_torch.ops.cuda_build import load_library
+
+    b, n, e, d, h = _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed)
+    fn = load_library("fused_edge").nbody_fused_edge_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float,
+                                             ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     out = torch.empty_like(tp)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    seed_ptr, thr, scale = _dropout_args(seed, p)
+    with torch.cuda.device(tp.device):
+        stream = torch.cuda.current_stream(tp.device).cuda_stream
+        rc = fn(tp.data_ptr(), sp.data_ptr(), ea.data_ptr(), w_e.data_ptr(),
+                gamma.data_ptr(), beta.data_ptr(), edges.perm.data_ptr(),
+                edges.src.data_ptr(), edges.offsets.data_ptr(), seed_ptr,
+                thr, scale, out.data_ptr(), b, n, e, d, h, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused edge forward kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_edge_layer.launches += 1
+    return out
+
+
+def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
+                p: float, want_d_ea: bool):
+    """Check the operands and launch ``nbody_fused_edge_bwd`` (passes A, B
+    and C of kernel 2, counted as one launch)."""
+    from nbody_gnn_hpc_torch.ops.cuda_build import load_library
+
+    b, n, h = tp.shape
+    e = ea.shape[1]
+    sources = edges.sources
+    if sources is None:
+        sources = source_csr(edges.row, edges.col, n)
+    i32 = torch.int32
+    b, n, e, d, h = _check_operands(
+        tp, sp, ea, w_e, gamma, beta, edges, seed,
+        extra=[("g_out", g_out, torch.float32, (b, n, h)),
+               ("sperm", sources.perm, i32, (b, e)),
+               ("sdst", sources.dst, i32, (b, e)),
+               ("soffsets", sources.offsets, i32, (b, n + 1))])
+    fn = load_library("fused_edge").nbody_fused_edge_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    d_tp = torch.empty_like(tp)
+    d_sp = torch.empty_like(sp)
+    d_ea = torch.empty_like(ea) if want_d_ea else None
+    part = torch.empty((b, -(-n // WARPS), d + 2, h), dtype=torch.float32,
+                       device=tp.device)
+    d_params = torch.empty((d + 2, h), dtype=torch.float32, device=tp.device)
+    seed_ptr, thr, scale = _dropout_args(seed, p)
+    with torch.cuda.device(tp.device):
+        stream = torch.cuda.current_stream(tp.device).cuda_stream
         rc = fn(tp.data_ptr(), sp.data_ptr(), ea.data_ptr(), w_e.data_ptr(),
                 gamma.data_ptr(), beta.data_ptr(), edges.perm.data_ptr(),
                 edges.src.data_ptr(), edges.offsets.data_ptr(),
-                out.data_ptr(), b, n, e, d, h, stream)
+                sources.perm.data_ptr(), sources.dst.data_ptr(),
+                sources.offsets.data_ptr(), g_out.data_ptr(), seed_ptr, thr,
+                scale, d_tp.data_ptr(), d_sp.data_ptr(),
+                None if d_ea is None else d_ea.data_ptr(),
+                part.data_ptr(), d_params.data_ptr(), b, n, e, d, h, stream)
     if rc != 0:
-        raise RuntimeError(f"fused edge kernel launch failed: CUDA error {rc}")
-    fused_edge_layer.launches += 1
-    return out
+        raise RuntimeError(f"fused edge backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_edge_backward.launches += 1
+    return d_tp, d_sp, d_ea, d_params[:d], d_params[d], d_params[d + 1]
+
+
+def _training_seed(seed, dropout_p: float, deterministic: bool):
+    """The seed the stream uses: None unless dropout is on."""
+    if deterministic or dropout_p <= 0:
+        return None
+    if not 0 < dropout_p < 1:
+        raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
+    if seed is None:
+        raise ValueError("training-mode dropout needs a seed tensor")
+    return seed
+
+
+def fused_edge_backward(t_proj, s_proj, edge_attr, w_e, gamma, beta,
+                        edges: TargetCSR, g_out, seed=None,
+                        dropout_p: float = 0.0, need_d_edge_attr: bool = True):
+    """Kernel 2 on CUDA tensors (``launches`` counts each call), the plain
+    version on CPU tensors; same arguments and results as
+    :func:`fused_edge_backward_reference`.  ``d_edge_attr`` is None unless
+    ``need_d_edge_attr``."""
+    batched = t_proj.dim() == 3
+    if t_proj.device.type == "cpu":
+        grads = fused_edge_backward_reference(
+            t_proj, s_proj, edge_attr, w_e, gamma, beta, edges, g_out, seed,
+            dropout_p)
+        return grads if need_d_edge_attr else grads[:2] + (None,) + grads[3:]
+    if t_proj.device.type != "cuda":
+        raise ValueError(f"fused_edge_backward runs on cuda or cpu tensors, "
+                         f"got {t_proj.device}")
+    tp, sp, ea, go = (_lift(t, batched)
+                      for t in (t_proj, s_proj, edge_attr, g_out))
+    d_tp, d_sp, d_ea, d_we, d_g, d_b = _launch_bwd(
+        tp, sp, ea, w_e, gamma, beta, edges, go.contiguous(), seed,
+        dropout_p, need_d_edge_attr)
+    if not batched:
+        d_tp, d_sp = d_tp[0], d_sp[0]
+        d_ea = None if d_ea is None else d_ea[0]
+    return d_tp, d_sp, d_ea, d_we, d_g, d_b
+
+
+class _EdgeStream(torch.autograd.Function):
+    """Forward: kernel 1 (CUDA) or the plain version (CPU, or ``plain``).
+    Backward: kernel 2 or its plain version.  Saves only the inputs, the
+    CSR and the seed, as the JAX custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, t_proj, s_proj, edge_attr, w_e, gamma, beta, edges,
+                seed, dropout_p, plain):
+        ctx.save_for_backward(t_proj, s_proj, edge_attr, w_e, gamma, beta)
+        ctx.edges, ctx.seed, ctx.dropout_p, ctx.plain = (edges, seed,
+                                                         dropout_p, plain)
+        if plain or t_proj.device.type == "cpu":
+            return fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e,
+                                              gamma, beta, edges, seed,
+                                              dropout_p)
+        batched = t_proj.dim() == 3
+        out = _launch_fwd(_lift(t_proj, batched), _lift(s_proj, batched),
+                          _lift(edge_attr, batched), w_e, gamma, beta, edges,
+                          seed, dropout_p)
+        return out if batched else out[0]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        args = ctx.saved_tensors + (ctx.edges, g_out, ctx.seed,
+                                    ctx.dropout_p)
+        if ctx.plain:
+            grads = fused_edge_backward_reference(*args)
+        else:
+            grads = fused_edge_backward(
+                *args, need_d_edge_attr=ctx.needs_input_grad[2])
+        need = ctx.needs_input_grad
+        return tuple(g if need[i] else None
+                     for i, g in enumerate(grads)) + (None,) * 4
 
 
 def fused_edge_layer(t_proj: torch.Tensor, s_proj: torch.Tensor,
                      edge_attr: torch.Tensor, w_e: torch.Tensor,
                      gamma: torch.Tensor, beta: torch.Tensor,
-                     edges: TargetCSR, *, dropout_p: float = 0.0,
+                     edges: TargetCSR, seed: Optional[torch.Tensor] = None,
+                     *, dropout_p: float = 0.0,
                      deterministic: bool = True) -> torch.Tensor:
     """Fused edge stream: (N, H) projections -> (N, H) target sums.
 
@@ -152,27 +451,34 @@ def fused_edge_layer(t_proj: torch.Tensor, s_proj: torch.Tensor,
         w_e:       (D, H) edge-feature projection.
         gamma/beta:(H,) LayerNorm scale / bias.
         edges:     :func:`target_csr` of the graphs' edges.
-        dropout_p, deterministic: training-mode dropout is not ported yet
-            and raises ``NotImplementedError``.
+        seed:      (1,) int32 dropout seed on the tensors' device (read
+                   only in training mode).
+        dropout_p, deterministic: dropout rate; no dropout when
+                   deterministic.
 
-    CUDA tensors go to the kernel (``launches`` counts each launch); CPU
-    tensors go to :func:`fused_edge_layer_reference`.
+    Differentiable in every tensor argument.  CUDA tensors go to the
+    kernels (``launches`` counts each forward launch,
+    ``fused_edge_backward.launches`` each backward); CPU tensors go to the
+    plain versions.
     """
-    if not deterministic and dropout_p > 0:
-        raise NotImplementedError(
-            "fused_edge_layer: dropout (training mode) and the backward "
-            "kernel are not ported yet; call with deterministic=True")
-    if t_proj.device.type == "cpu":
-        return fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e,
-                                          gamma, beta, edges)
-    if t_proj.device.type != "cuda":
+    if t_proj.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_edge_layer runs on cuda or cpu tensors, "
                          f"got {t_proj.device}")
-    batched = t_proj.dim() == 3
-    lift = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
-    out = _launch(lift(t_proj), lift(s_proj), lift(edge_attr), w_e,
-                  gamma, beta, edges)
-    return out if batched else out[0]
+    seed = _training_seed(seed, dropout_p, deterministic)
+    return _EdgeStream.apply(t_proj, s_proj, edge_attr, w_e, gamma, beta,
+                             edges, seed, float(dropout_p), False)
+
+
+def fused_edge_layer_plain(t_proj, s_proj, edge_attr, w_e, gamma, beta,
+                           edges: TargetCSR, seed=None, *,
+                           dropout_p: float = 0.0,
+                           deterministic: bool = True) -> torch.Tensor:
+    """:func:`fused_edge_layer` through the plain versions on any device
+    (same masks): the yardstick a kernel path is compared with."""
+    seed = _training_seed(seed, dropout_p, deterministic)
+    return _EdgeStream.apply(t_proj, s_proj, edge_attr, w_e, gamma, beta,
+                             edges, seed, float(dropout_p), True)
 
 
 fused_edge_layer.launches = 0
+fused_edge_backward.launches = 0

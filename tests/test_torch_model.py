@@ -111,10 +111,22 @@ def test_lecun_normal_init_matches_flax_distribution():
 
 
 def test_training_mode_edge_stream_not_ported():
+    """Training mode runs the edge stream with dropout: its draws come
+    from the generator alone (same seed, same output), differ from eval
+    mode, and every parameter gets a gradient."""
     _, _, model = _small()
     x, ei = _graph(N, K, seed=5)
-    with pytest.raises(NotImplementedError):
-        model.train()(torch.from_numpy(x), torch.tensor(ei).long())
+    x, ei = torch.from_numpy(x), torch.tensor(ei).long()
+    model.train()
+    runs = [model(x, ei, generator=torch.Generator().manual_seed(s))
+            for s in (3, 3, 4)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    with torch.no_grad():
+        assert not torch.equal(runs[0], model.eval()(x, ei))
+    runs[0].square().sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.abs().sum() > 0, name
 
 
 def test_load_into_refuses_quantized_checkpoint(tmp_path):

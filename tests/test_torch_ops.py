@@ -1,26 +1,33 @@
 """Port graph ops (nbody_gnn_hpc_torch/ops) against the JAX package's.
 
 Inputs come from a seeded numpy RNG and go through both frameworks as numpy
-arrays.  The fused edge stream's plain version is held against the JAX
-Pallas kernel in interpret mode (the JAX package's own CPU route).
+arrays.  The fused edge stream's plain forward and backward are held
+against the JAX Pallas kernels in interpret mode (the JAX package's own CPU
+route): ``_fwd_kernel`` / ``_bwd_kernel`` and their batch-folded twins.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from nbody_gnn_hpc_torch.ops import (edge_features, edge_index_for,
+from nbody_gnn_hpc_torch.ops import (dropout_keep, edge_features,
+                                     edge_index_for,
                                      fully_connected_edge_index,
+                                     fused_edge_backward_reference,
                                      fused_edge_layer,
                                      fused_edge_layer_reference,
                                      is_row_regular, knn_edge_index,
                                      target_csr)
+from nbody_gnn_hpc_torch.ops.fused_edge import philox4x32
 from nbody_gnn_hpc_tpu.models.gnn import target_adjacency
 from nbody_gnn_hpc_tpu.ops import edges as jedges
 from nbody_gnn_hpc_tpu.ops import knn as jknn
 from nbody_gnn_hpc_tpu.ops.fused_edge import \
     fused_edge_layer as jfused_edge_layer
+from nbody_gnn_hpc_tpu.ops.fused_edge_batched import \
+    fused_edge_layer_batched as jfused_edge_layer_batched
 
 # float32 on both sides; the only differences are summation orders (norms,
 # LayerNorm means, the k-term target sums), a few ulps of values O(1-10).
@@ -179,8 +186,152 @@ def test_wrapper_refuses_training_mode_and_other_devices():
     t = {key: torch.from_numpy(v) for key, v in d.items()}
     args = (t["tp"], t["sp"], t["ea"], t["we"], t["gamma"], t["beta"],
             target_csr(ei, n))
-    with pytest.raises(NotImplementedError):
+    # Training mode needs the layer's seed, and a rate below 1.
+    with pytest.raises(ValueError, match="seed"):
         fused_edge_layer(*args, dropout_p=0.1, deterministic=False)
+    with pytest.raises(ValueError, match="dropout_p"):
+        fused_edge_layer(*args, torch.zeros(1, dtype=torch.int32),
+                         dropout_p=1.0, deterministic=False)
     meta = [a.to("meta") for a in args[:6]]
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_edge_layer(*meta, args[6])
+
+
+def _jax_stream_args(d, ei, n):
+    adj, _ = target_adjacency(ei, n, jnp.float32)
+    return ([jnp.asarray(d[key]) for key in ("tp", "sp", "ea", "we", "gamma",
+                                            "beta")], adj.T)
+
+
+def _port_args(d, ei):
+    t = {key: torch.from_numpy(v) for key, v in d.items() if key != "pos"}
+    return (t["tp"], t["sp"], t["ea"], t["we"], t["gamma"], t["beta"],
+            target_csr(ei, d["tp"].shape[-2]))
+
+
+# The six gradients sum k edge terms per node and E (or B*E) terms per
+# parameter, in another order on each side: float32 reduction order, to
+# 1e-4 of each gradient's scale.
+GRAD_NAMES = ("d_t_proj", "d_s_proj", "d_edge_attr", "d_w_e", "d_gamma",
+              "d_beta")
+
+
+def _assert_grads(got, want, rel=1e-4):
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=rel * (np.abs(w).max() + 1e-6),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("n,k,h", [(16, 4, 32), (13, 4, 32)])
+def test_plain_backward_matches_jax_bwd_kernel(n, k, h):
+    """fused_edge_backward_reference == jax.vjp of the JAX fused layer,
+    which runs the Pallas _bwd_kernel in interpret mode, for all six
+    cotangents (N=13 goes through the JAX wrapper's padding)."""
+    d = _stream_inputs(n, k, h, seed=20 + n)
+    ei = jknn.knn_edge_index(jnp.asarray(d["pos"]), k)
+    jargs, adj_t = _jax_stream_args(d, ei, n)
+    g_out = np.random.RandomState(n).randn(n, h).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jfused_edge_layer(
+        *a, adj_t, jnp.zeros((1, 1), jnp.int32), k=k, interpret=True,
+        deterministic=True), *jargs)
+    want = vjp(jnp.asarray(g_out))
+    got = fused_edge_backward_reference(
+        *_port_args(d, torch.tensor(np.asarray(ei)).long()),
+        torch.from_numpy(g_out))
+    _assert_grads([g.numpy() for g in got], want)
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_plain_backward_matches_autograd_with_dropout(batch):
+    """The written-out backward == autograd of the plain forward with the
+    same Philox mask (dropout on), unbatched and batched."""
+    n, k, h, p = 13, 4, 64, 0.25
+    d = _stream_inputs(n, k, h, seed=31, batch=batch)
+    ei = knn_edge_index(torch.from_numpy(d["pos"]), k)
+    args = [a.requires_grad_() for a in _port_args(d, ei)[:6]]
+    csr = target_csr(ei, n)
+    seed = torch.tensor([4242], dtype=torch.int32)
+    out = fused_edge_layer_reference(*args, csr, seed, p)
+    g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    want = torch.autograd.grad(out, args, g_out)
+    got = fused_edge_backward_reference(*[a.detach() for a in args], csr,
+                                        g_out, seed, p)
+    _assert_grads([g.numpy() for g in got], [w.numpy() for w in want])
+    # Through the wrapper (a CPU tensor takes the plain versions) too.
+    out2 = fused_edge_layer(*args, csr, seed, dropout_p=p,
+                            deterministic=False)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    via_fn = torch.autograd.grad(out2, args, g_out)
+    _assert_grads([g.numpy() for g in via_fn], [w.numpy() for w in want])
+
+
+def test_philox_matches_published_vectors():
+    """Philox4x32-10 known-answer vectors (Salmon et al., Random123)."""
+    t = lambda v: torch.tensor(v, dtype=torch.int64)  # noqa: E731
+    cases = [((0, 0, 0, 0, 0, 0),
+              (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+             ((0xFFFFFFFF,) * 6,
+              (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+             ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344, 0xA4093822,
+               0x299F31D0),
+              (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+    for inputs, want in cases:
+        got = philox4x32(*[t(v) for v in inputs])
+        assert [int(w) for w in got] == list(want)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_dropout_mask_statistics(p):
+    """Keep fraction of a (4, 2000, 256) mask within 6 binomial standard
+    deviations of 1-p; seeds and graphs give different masks; the same
+    seed gives the same mask."""
+    b, e, h = 4, 2000, 256
+    seed = torch.tensor([97], dtype=torch.int32)
+    keep = dropout_keep(seed, p, b, e, h)
+    n = keep.numel()
+    sd = np.sqrt(n * p * (1 - p))
+    assert abs(keep.sum().item() - n * (1 - p)) < 6 * sd
+    # every channel position and graph is unbiased too (loose: 6 sd)
+    per_chan = keep.float().mean((0, 1))
+    assert (per_chan - (1 - p)).abs().max() < 6 * np.sqrt(
+        p * (1 - p) / (b * e))
+    assert not torch.equal(keep[0], keep[1])
+    assert torch.equal(keep, dropout_keep(seed.clone(), p, b, e, h))
+    other = dropout_keep(torch.tensor([98], dtype=torch.int32), p, 1, e, h)
+    assert not torch.equal(other[0], keep[0])
+
+
+def test_source_csr_of_row_regular_edges_is_the_identity():
+    pos = torch.from_numpy(
+        np.random.RandomState(6).randn(2, 11, 3).astype(np.float32))
+    ei = knn_edge_index(pos, 3)
+    csr = target_csr(ei, 11, sources=True)
+    src = csr.sources
+    assert torch.equal(src.perm.long(), torch.arange(33).expand(2, -1))
+    assert torch.equal(src.dst.long(), ei[:, 1])
+    assert torch.equal(src.offsets.long(),
+                       (3 * torch.arange(12)).expand(2, -1))
+
+
+def test_batched_plain_versions_match_jax_batched_kernels():
+    """Kernels 8 and 9 (ops/fused_edge_batched.py, interpret mode): the
+    port computes their functions with the batch axis of kernels 1 and 2;
+    the plain batched forward and backward (B=2, dropout off) agree."""
+    n, k, h, b = 16, 4, 32, 2
+    d = _stream_inputs(n, k, h, seed=41, batch=b)
+    ei = jknn.knn_edge_index(jnp.asarray(d["pos"][0]), k)  # shared edges
+    jargs, adj_t = _jax_stream_args(d, ei, n)
+    seed = jnp.zeros((1, 1), jnp.int32)
+    want_out, vjp = jax.vjp(lambda *a: jfused_edge_layer_batched(
+        *a, adj_t, seed, k=k, interpret=True, deterministic=True), *jargs)
+    g_out = np.random.RandomState(4).randn(b, n, h).astype(np.float32)
+    want = vjp(jnp.asarray(g_out))
+    ei_t = torch.tensor(np.asarray(ei)).long().expand(b, -1, -1)
+    args = _port_args(d, ei_t)
+    got_out = fused_edge_layer_reference(*args)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), **TOL)
+    got = fused_edge_backward_reference(*args, torch.from_numpy(g_out))
+    _assert_grads([g.numpy() for g in got], want)

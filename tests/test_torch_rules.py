@@ -37,7 +37,8 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, nbody_gnn_hpc_torch.serve, nbody_gnn_hpc_torch.sim, "
-            "nbody_gnn_hpc_torch.client\n"
+            "nbody_gnn_hpc_torch.client, nbody_gnn_hpc_torch.train, "
+            "nbody_gnn_hpc_torch.train_model, nbody_gnn_hpc_torch.config\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad")
@@ -77,3 +78,26 @@ def test_serve_cli_refuses_cpu_unasked(no_cuda):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--warm-particles", "0", "--port", "0"])
+
+
+def test_training_entry_points_refuse_cpu_unasked(no_cuda, tmp_path):
+    import numpy as np
+
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.train import GNNDataset, Trainer
+    from nbody_gnn_hpc_torch.train_model import main
+
+    rng = np.random.RandomState(0)
+    trajs = [dict(positions=rng.randn(8, 10, 3).astype(np.float32),
+                  velocities=rng.randn(8, 10, 3).astype(np.float32),
+                  masses=np.ones(10))]
+    ds = GNNDataset.from_trajectories(trajs, sequence_length=3,
+                                      k_neighbors=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ds.device_arrays()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(NBodyGNN(hidden_dim=32, n_layers=1), ds,
+                model_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--data-dir", str(tmp_path), "--model-dir", str(tmp_path)])
+    assert ds.device_arrays("cpu")[0].device.type == "cpu"
