@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and simulator paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
    seed, the same Philox mask on both sides) at B=1, 24, and the edge
    backward (kernel 2) at B=1, 24, all at N=200, k=40, H=256, plus an odd
    N=13, k=4.  Tolerances: forward atol=rtol=1e-4; backward 1e-4 of each
-   gradient's scale (float32 sum order only).  Reruns must be
+   gradient's scale (float32 sum order only).  The direct-force kernels:
+   tiled (kernel 3) and symmetric (kernel 6) at N=10,000, 2,085 and 700,
+   small (kernel 4) at (300, 200), (1, 200) and (3, 13), rtol 2e-4 with
+   atol 1e-5 of the force scale; kernel 6 against kernel 3; momentum
+   neutrality; a coincident heavy pair; zero-mass rows.  Reruns must be
    bit-identical (no float atomics).  Times with CUDA events, bounds from
    the bytes and float32 operations of each call; the keep fraction of the
    mask against 1-p.
@@ -44,6 +48,20 @@ Phases (any failure exits non-zero and prints no result line):
    the plain-version path (same seeds, same masks) to 1e-3 of each
    tensor's scale.  The saved best_model.pt is served for 20 rollout steps
    (train -> serve).  Median step wall time and a profiled window.
+
+7. The simulator side, the third main path.  The ensemble force is timed
+   both ways (plain broadcast form, kernel 4) on the production datagen
+   shape, 300 sims x 400 steps x N=200.  Then, counts zeroed just before
+   and read just after: (a) ``simulate_ensemble`` at that shape (kernel 4
+   once per step plus once for the initial force), early frames against a
+   ``device="cpu"`` run, energy and momentum finite, a slice of it through
+   ``GNNDataset.from_trajectories`` and, where h5py is importable, through
+   trajectory and dataset files; (b) /simulate over HTTP at N=10,000 x 20
+   steps and N=2,085 x 50 steps (kernel 6 once per step plus once per
+   request), first frames against the ``device="cpu"`` service, kernel 3
+   as the oracle on the N=10,000 state; (c) ``evaluate`` of the
+   production checkpoint against the float64 oracle, 10 sims x 400 steps:
+   position RMSE < 60 and velocity RMSE < 400.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -76,6 +94,28 @@ N, K = 200, 40
 DROPOUT_P = 0.1
 DROP_SEED = 20261016
 TRAIN_DIR = Path("build/chip_smoke_train")  # git-ignored
+SIM_DIR = Path("build/chip_smoke_sim")      # git-ignored
+# Special-function results per second: 16 per clock per SM against 128
+# float32 FMA lanes (2 operations each).
+PEAK_SFU_PER_S = PEAK_F32_PER_S / 16
+# The force kernels against their plain versions, as the JAX package's
+# kernel tests: float32 sum order and rsqrt rounding.
+FORCE_RTOL, FORCE_ATOL_OF_SCALE = 2e-4, 1e-5
+# float32 operations per pair, counted from the kernels' bodies
+# (csrc/pairwise.cu): ordered pairs for kernels 3 and 4, unordered for 6.
+FLOPS_PER_ORDERED_PAIR, FLOPS_PER_UNORDERED_PAIR = 19, 27
+DATAGEN = dict(n_sims=300, n_steps=400, n=200, box=10.0, dt=0.001, seed=42)
+LARGE_N, ODD_N = 10_000, 2_085
+# Large-N /simulate against the CPU service, per particle: at N=10,000 in a
+# box of 10 the closest pairs sit ~1e-3 apart, where one ulp of a position
+# (5e-7) changes the pair force by ~1e-3, so a max-abs tolerance would
+# measure those pairs and nothing else.  The typical particle differs by
+# float32 force-sum order only.
+SIM_MEDIAN_REL, SIM_FAR_REL, SIM_FAR_SHARE = 1e-5, 1e-3, 0.01
+# Evaluation band: the JAX package on the CPU measured 34.5 / 202.2
+# (RESULTS.md); a wrong port lands near the reference recipe's 121.9 /
+# 23,956.
+EVAL_POS_RMSE_MAX, EVAL_VEL_RMSE_MAX = 60.0, 400.0
 
 
 def fail(msg: str) -> None:
@@ -88,14 +128,15 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_time_ms(fn, reps: int = 20, inner: int = 50) -> float:
+def cuda_time_ms(fn, reps: int = 20, inner: int = 50,
+                 warmup: int = 5) -> float:
     """Median over ``reps`` of the mean device time of ``inner``
     back-to-back calls, by CUDA events, after a warm-up.  A sleep kernel
     ahead of each batch holds the stream while the host enqueues the
     calls, so the events time the device, not the host's launch rate."""
     import torch
 
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -308,6 +349,15 @@ def close_to(got, want, rel_scale: float) -> tuple:
     """Max abs difference, checked against rel_scale * max|want|."""
     diff = float(np.abs(np.asarray(got) - np.asarray(want)).max())
     return diff, diff <= rel_scale * float(np.abs(want).max())
+
+
+def particle_errors(got, want) -> tuple:
+    """(median, share beyond SIM_FAR_REL, max abs) of the per-particle
+    relative difference |got_i - want_i| / |want_i| over (frames, N, 3)."""
+    err = np.linalg.norm(got - want, axis=-1)
+    rel = err / (np.linalg.norm(want, axis=-1) + 1e-30)
+    return (float(np.median(rel)), float((rel > SIM_FAR_REL).mean()),
+            float(np.abs(got - want).max()))
 
 
 def phase_serving(dev_name):
@@ -648,6 +698,399 @@ def phase_train(dev):
     return fwd, bwd
 
 
+def force_bound_ms(n_pairs: int, flops_per_pair: int, n_particles: int) -> tuple:
+    """Least H100 time for one direct-force call: ``flops_per_pair``
+    float32 operations and one rsqrt per pair, each against its own rate
+    (the two pipes overlap, so the larger counts), and 16 bytes in, 12 out
+    per particle over HBM bandwidth."""
+    t_ops = max(n_pairs * flops_per_pair / PEAK_F32_PER_S,
+                n_pairs / PEAK_SFU_PER_S) * 1e3
+    t_bytes = 28 * n_particles / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def protocol_system(n: int, dev):
+    """One evaluation-protocol system on the card: box 10, seed 9999,
+    masses from seed 42."""
+    import torch
+
+    pos, vel, masses = eval_states(1, n)
+    return (torch.as_tensor(pos[0], device=dev),
+            torch.as_tensor(vel[0], device=dev),
+            torch.as_tensor(masses, device=dev))
+
+
+def phase_force_kernels(dev):
+    """Kernels 3, 4 and 6 against their plain versions (the ``*_reference``
+    functions called on CUDA tensors); returns the timed rows and each
+    kernel's largest absolute error."""
+    import torch
+
+    from nbody_gnn_hpc_torch import ops
+    from nbody_gnn_hpc_torch.parallel import build_ensemble_state
+    from nbody_gnn_hpc_torch.sim import shared_masses
+
+    rows, errs = [], {}
+
+    def held(name, kernel, plain, pos, m, label, n_pairs, flops, time_it):
+        before = kernel.launches
+        got = kernel(pos, m)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1,
+              f"{name} did not count its launch")
+        want = plain(pos, m)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = torch.allclose(got, want, rtol=FORCE_RTOL,
+                            atol=FORCE_ATOL_OF_SCALE * scale)
+        same = torch.equal(got, kernel(pos, m))
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"  {name} {label}: max abs err {err:.3e} at force scale "
+              f"{scale:.3e} (tolerance rtol {FORCE_RTOL:g}, atol "
+              f"{FORCE_ATOL_OF_SCALE:g} of scale: f32 sum order, rsqrt) -> "
+              f"{'ok' if ok else 'MISMATCH'}; rerun bit-identical: {same}",
+              flush=True)
+        check(ok, f"{name} disagrees with its plain version at {label}")
+        check(same, f"{name} reruns are not bit-identical")
+        if time_it:
+            ms = cuda_time_ms(lambda: kernel(pos, m))
+            # The plain versions of the tiled forms are loops of small
+            # launches (3,160 tile pairs at N=10,000): a few calls do.
+            plain_ms = cuda_time_ms(lambda: plain(pos, m), 3, 2, 1)
+            bound = force_bound_ms(n_pairs, flops, pos.numel() // 3)
+            rows.append({"kernel": name, "shape": label, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound[0],
+                         "bound_by": bound[1], "pairs": n_pairs,
+                         "gpairs_per_s": n_pairs / ms / 1e6})
+            print(f"    kernel {ms:.5f} ms ({n_pairs / ms / 1e6:.1f} G "
+                  f"pairs/s), plain {plain_ms:.4f} ms, bound {bound[0]:.6f} "
+                  f"ms ({bound[1]}); no single PyTorch call computes the "
+                  f"softened pair sum (library_ms null)", flush=True)
+        return got
+
+    for n in (LARGE_N, ODD_N, 700):
+        pos, _, m = protocol_system(n, dev)
+        tiled = held("pairwise_tiled", ops.accelerations_tiled,
+                     ops.accelerations_tiled_reference, pos, m, f"N={n}",
+                     n * n, FLOPS_PER_ORDERED_PAIR, n != 700)
+        sym = held("pairwise_symmetric", ops.accelerations_symmetric,
+                   ops.accelerations_symmetric_reference, pos, m, f"N={n}",
+                   n * (n - 1) // 2, FLOPS_PER_UNORDERED_PAIR, n != 700)
+        scale = tiled.abs().max().item()
+        diff = (sym - tiled).abs().max().item()
+        check(torch.allclose(sym, tiled, rtol=FORCE_RTOL,
+                             atol=FORCE_ATOL_OF_SCALE * scale),
+              f"kernel 6 disagrees with kernel 3 at N={n}")
+        net = []
+        for acc in (tiled, sym):
+            f = m[:, None].double() * acc.double()
+            net.append((f.sum(0).abs().max() / f.abs().sum()).item())
+        print(f"  N={n}: kernel 6 vs kernel 3 max abs diff {diff:.3e}; "
+              f"|sum m a| / sum |m a| = {net[0]:.2e} (kernel 3), "
+              f"{net[1]:.2e} (kernel 6) (limit 1e-5)", flush=True)
+        check(max(net) < 1e-5, f"net force is not neutral at N={n}")
+
+    masses = shared_masses(DATAGEN["n"], seed=DATAGEN["seed"])
+    for b, n in ((DATAGEN["n_sims"], DATAGEN["n"]), (1, DATAGEN["n"]),
+                 (3, 13)):
+        state = build_ensemble_state(
+            [DATAGEN["seed"] + i for i in range(b)], n, DATAGEN["box"],
+            masses if n == DATAGEN["n"] else None, device=dev,
+            accel_fn=lambda p, m: torch.zeros_like(p))
+        held("pairwise_small", ops.accelerations_small,
+             ops.accelerations_small_reference, state.positions,
+             state.masses, f"B={b} N={n}", b * n * n,
+             FLOPS_PER_ORDERED_PAIR, n == DATAGEN["n"])
+
+    # A coincident heavy pair (G*m/eps^3 overflows float32) stays finite,
+    # and zero-mass particles are force-neutral, in all three kernels.
+    heavy_pos = torch.tensor([[0.0, 0, 0], [0.0, 0, 0], [1.0, 0, 0]],
+                             device=dev)
+    heavy_m = torch.tensor([2e30, 2e30, 1.0], device=dev)
+    pos, _, m = protocol_system(300, dev)
+    extra = torch.cat([pos, pos.new_full((45, 3), 2.5)])
+    extra_m = torch.cat([m, m.new_zeros(45)])
+    for name, kernel in (("pairwise_tiled", ops.accelerations_tiled),
+                         ("pairwise_small", ops.accelerations_small),
+                         ("pairwise_symmetric", ops.accelerations_symmetric)):
+        acc = kernel(heavy_pos, heavy_m)
+        check(bool(torch.isfinite(acc).all()) and acc[0, 0].item() > 0
+              and acc[2, 0].item() < 0,
+              f"{name}: a coincident heavy pair gives {acc.tolist()}")
+        base = kernel(pos, m)
+        diff = (kernel(extra, extra_m)[:300] - base).abs().max().item()
+        check(diff <= 2e-5 * base.abs().max().item(),
+              f"{name}: zero-mass particles moved the forces by {diff:.3e}")
+    print("  coincident heavy pair finite and zero-mass rows force-neutral "
+          "(2e-5 of scale) in kernels 3, 4, 6", flush=True)
+    return rows, errs
+
+
+def phase_simulator(service, dev):
+    """The simulator side: datagen, large-N /simulate, evaluation.  Returns
+    the launch counts of the five kernels on this path."""
+    import torch
+
+    from nbody_gnn_hpc_torch import evaluate, ops
+    from nbody_gnn_hpc_torch.client import RolloutClient
+    from nbody_gnn_hpc_torch.parallel import (ENSEMBLE_FORCE,
+                                              build_ensemble_state,
+                                              fetch_host_trajectory,
+                                              simulate_ensemble)
+    from nbody_gnn_hpc_torch.serve import build_service, serve
+    from nbody_gnn_hpc_torch.sim import (accelerations, make_state,
+                                         rollout_steps, run_trajectory_batch,
+                                         shared_masses, total_energy,
+                                         total_momentum)
+    from nbody_gnn_hpc_torch.train import GNNDataset
+
+    d = DATAGEN
+    seeds = [d["seed"] + i for i in range(d["n_sims"])]
+    masses = shared_masses(d["n"], seed=d["seed"])
+    sim_steps = d["n_sims"] * d["n_steps"]
+
+    def datagen(accel_fn=None, n_sims=d["n_sims"], device=dev):
+        return simulate_ensemble(seeds[:n_sims], d["n"], d["n_steps"],
+                                 box_size=d["box"], dt=d["dt"],
+                                 shared_masses=masses, device=device,
+                                 accel_fn=accel_fn)
+
+    # The ensemble force both ways, in turns on this one card.  Wall time of
+    # the whole call (host-built initial conditions, 400 steps, the saved
+    # stacks on the device), synchronised.
+    check(ENSEMBLE_FORCE == "small_kernel", "the ensemble force is not "
+                                            "kernel 4")
+    walls = {"plain": [], "kernel 4": []}
+    datagen(n_sims=8)  # first-use costs
+    for label, fn in (("plain", accelerations),
+                      ("kernel 4", ops.accelerations_small),
+                      ("kernel 4", ops.accelerations_small),
+                      ("plain", accelerations)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = datagen(fn)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+        del traj
+    for label, secs in walls.items():
+        print(f"  datagen {d['n_sims']} x {d['n_steps']} x N={d['n']} with "
+              f"the {label} force: "
+              + ", ".join(f"{w:.3f} s = {sim_steps / w:,.0f} sim-steps/s"
+                          for w in secs), flush=True)
+    state = build_ensemble_state(seeds, d["n"], d["box"], masses, device=dev)
+    profile_window(
+        "50 datagen steps, kernel 4 force (300 x N=200)",
+        lambda: run_trajectory_batch(state, d["dt"], 50,
+                                     accel_fn=ops.accelerations_small))
+    profile_window(
+        "50 datagen steps, plain force (300 x N=200)",
+        lambda: run_trajectory_batch(state, d["dt"], 50,
+                                     accel_fn=accelerations))
+    del state
+
+    (pos_l,), (vel_l,), m_l = eval_states(1, LARGE_N)
+    (pos_o,), (vel_o,), m_o = eval_states(1, ODD_N)
+    httpd = serve(service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = RolloutClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+    counted = [ops.fused_edge_layer, ops.fused_edge_backward,
+               ops.accelerations_tiled, ops.accelerations_small,
+               ops.accelerations_symmetric]
+    lat = {}
+    try:
+        # main-path run starts here
+        for fn in counted:
+            fn.launches = 0
+        # (a) datagen
+        t0 = time.perf_counter()
+        traj = datagen()
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0
+        host = fetch_host_trajectory(traj)
+        t_all = time.perf_counter() - t0
+        # (b) large-N /simulate over HTTP
+        t0 = time.perf_counter()
+        sim_l = client.simulate(pos_l, vel_l, m_l, 20, trajectory=True)
+        lat[f"simulate N={LARGE_N} x 20 (trajectory, npz)"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sim_o = client.simulate(pos_o, vel_o, m_o, 50, trajectory=True)
+        lat[f"simulate N={ODD_N} x 50 (trajectory, npz)"] = \
+            time.perf_counter() - t0
+        served_sym = ops.accelerations_symmetric.launches
+        # kernel 3 as the oracle of the large-N dispatch on that state
+        state_l = make_state(pos_l, vel_l, m_l, device=dev)
+        acc6 = accelerations(state_l.positions, state_l.masses)
+        acc3 = ops.accelerations_tiled(state_l.positions, state_l.masses)
+        # (c) evaluation against the float64 oracle
+        t0 = time.perf_counter()
+        rc = evaluate.main(["-m", MODEL, "-c", CONFIG, "-o",
+                            str(SIM_DIR / "eval"), "--f64-ground-truth"])
+        t_eval = time.perf_counter() - t0
+        launches = [fn.launches for fn in counted]
+        # main-path run ends here
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    fwd, bwd, tiled, small, sym = launches
+    print(f"  launches on the simulator path: pairwise_small {small} "
+          f"(expected {d['n_steps']} steps + 1), pairwise_symmetric {sym} "
+          f"(expected (20 + 1) + (50 + 1) served + 1 oracle comparison), "
+          f"pairwise_tiled {tiled} (the oracle call), fused_edge_fwd {fwd} "
+          f"(expected 6 x 394 evaluation rollout steps), fused_edge_bwd "
+          f"{bwd}", flush=True)
+    check(small == d["n_steps"] + 1, "datagen launch count")
+    check(served_sym == 21 + 51 and sym == served_sym + 1,
+          f"/simulate ran kernel 6 {served_sym} times, expected 72")
+    check(tiled == 1 and fwd == 6 * 394 and bwd == 0,
+          "simulator-path launch counts")
+
+    # (a) checked
+    n_saves = d["n_steps"] + 1
+    check(host.positions.shape == (d["n_sims"], n_saves, d["n"], 3)
+          and host.masses.shape == (d["n_sims"], d["n"])
+          and host.steps[0, -1] == d["n_steps"], "datagen shapes")
+    check(all(np.isfinite(getattr(host, f)).all() for f in
+              ("positions", "velocities", "accelerations", "times")),
+          "datagen produced non-finite values")
+    mib = sum(getattr(host, f).nbytes for f in
+              ("positions", "velocities", "accelerations")) / 2 ** 20
+    print(f"  datagen main run: {t_sim:.3f} s on the card = "
+          f"{sim_steps / t_sim:,.0f} sim-steps/s; {t_all:.3f} s with the "
+          f"readback of {mib:.0f} MiB = {sim_steps / t_all:,.0f} "
+          f"sim-steps/s", flush=True)
+    ref = fetch_host_trajectory(simulate_ensemble(
+        seeds[:3], d["n"], 20, box_size=d["box"], dt=d["dt"],
+        shared_masses=masses, device="cpu"))
+    for key in ("positions", "velocities"):
+        diff, ok = close_to(getattr(host, key)[:3, :21], getattr(ref, key),
+                            1e-3)
+        print(f"  datagen sims 0-2, frames 0-20 {key} vs device='cpu': max "
+              f"abs diff {diff:.3e} (tolerance 1e-3 of scale: f32 force-sum "
+              f"order amplified by close encounters)", flush=True)
+        check(ok, f"datagen {key} disagree with the CPU run")
+    final = traj.final
+    ke, pe, te = total_energy(final.positions, final.velocities, final.masses)
+    ke0, pe0, te0 = total_energy(traj.positions[:, 0], traj.velocities[:, 0],
+                                 traj.masses)
+    mom = total_momentum(final.velocities, final.masses)
+    mom0 = total_momentum(traj.velocities[:, 0], traj.masses)
+    check(all(bool(torch.isfinite(t).all()) for t in (ke, pe, te, mom)),
+          "energy or momentum diagnostics are not finite")
+    drift = ((mom - mom0).norm(dim=-1)
+             / (final.masses[..., None] * final.velocities).norm(dim=-1).sum(-1))
+    print(f"  diagnostics over {d['n_sims']} sims: total energy at step 0 "
+          f"{te0.min().item():.3e}..{te0.max().item():.3e}, at step "
+          f"{d['n_steps']} {te.min().item():.3e}..{te.max().item():.3e} "
+          f"(unresolved close encounters at softening 1e-9 are the "
+          f"reference's behaviour too); momentum drift / sum |m v| max "
+          f"{drift.max().item():.2e}", flush=True)
+    del traj
+    trajs = [dict(positions=host.positions[i], velocities=host.velocities[i],
+                  masses=host.masses[i]) for i in range(10)]
+    train = GNNDataset.from_trajectories(trajs[:8], sequence_length=5,
+                                         k_neighbors=K)
+    val = GNNDataset.from_trajectories(
+        trajs[8:], sequence_length=5, k_neighbors=K,
+        external_norm_stats=train.get_normalization_stats())
+    check(train.n_samples == 8 * (n_saves - 5)
+          and val.n_samples == 2 * (n_saves - 5)
+          and train.edge_index.shape == (2, d["n"] * K),
+          "datagen -> dataset gave wrong sizes")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print(f"  datagen -> GNNDataset.from_trajectories in memory "
+              f"({train.n_samples} + {val.n_samples} samples); h5py is not "
+              f"importable here, so no trajectory or dataset file was "
+              f"written", flush=True)
+    else:
+        from nbody_gnn_hpc_torch.io import (CheckpointManager,
+                                            create_training_dataset)
+        from nbody_gnn_hpc_torch.parallel import trajectory_slice
+
+        shutil.rmtree(SIM_DIR / "data", ignore_errors=True)
+        manager = CheckpointManager(str(SIM_DIR / "data" / "checkpoints"))
+        manager.save_trajectory(trajectory_slice(host, 0), "sim_0000",
+                                compression="lzf")
+        back = manager.load_trajectory("sim_0000")
+        check(np.array_equal(back["positions"], host.positions[0]),
+              "a trajectory file does not read back")
+        path = create_training_dataset(
+            [dict(t, n_steps=n_saves) for t in trajs[:2]],
+            str(SIM_DIR / "data" / "train_dataset.h5"), sequence_length=5,
+            masses=masses, compression="lzf")
+        filed = GNNDataset(path, sequence_length=5, k_neighbors=K)
+        check(np.array_equal(filed.targets, train.targets[:filed.n_samples]),
+              "a dataset file does not read back")
+        print(f"  datagen -> GNNDataset.from_trajectories in memory "
+              f"({train.n_samples} + {val.n_samples} samples) and through "
+              f"h5py files (one trajectory, one dataset of "
+              f"{filed.n_samples} samples)", flush=True)
+
+    # (b) checked
+    cpu = build_service(MODEL, CONFIG, device="cpu")
+    for label, out, (p, v, m), steps, frames in (
+            (f"N={LARGE_N}", sim_l, (pos_l, vel_l, m_l), 20, 2),
+            (f"N={ODD_N}", sim_o, (pos_o, vel_o, m_o), 50, 5)):
+        n = len(m)
+        check(out["positions"].shape == (steps + 1, n, 3)
+              and out["velocities"].shape == (steps + 1, n, 3)
+              and out["times"].shape == (steps + 1,)
+              and np.isfinite(out["positions"]).all()
+              and np.isfinite(out["velocities"]).all(),
+              f"/simulate at {label} has a bad shape or non-finite values")
+        ref = cpu.simulate(p, v, m, frames, trajectory=True)
+        for key in ("positions", "velocities"):
+            med, far, diff = particle_errors(out[key][1:frames + 1],
+                                             ref[key][1:])
+            print(f"  /simulate {label} frames 1-{frames} {key} vs "
+                  f"device='cpu': per-particle relative difference median "
+                  f"{med:.2e} (limit {SIM_MEDIAN_REL:g}), share beyond "
+                  f"{SIM_FAR_REL:g}: {far:.2%} (limit {SIM_FAR_SHARE:.0%}); "
+                  f"max abs diff {diff:.3e} at scale "
+                  f"{np.abs(ref[key]).max():.3e}", flush=True)
+            check(np.array_equal(out[key][0], ref[key][0])
+                  and med <= SIM_MEDIAN_REL and far <= SIM_FAR_SHARE,
+                  f"/simulate {label} {key} disagree with the CPU run")
+    scale = acc3.abs().max().item()
+    diff = (acc6 - acc3).abs().max().item()
+    print(f"  N={LARGE_N} state: the dispatch (kernel 6) vs kernel 3 as the "
+          f"oracle, max abs diff {diff:.3e} at force scale {scale:.3e}",
+          flush=True)
+    check(torch.allclose(acc6, acc3, rtol=FORCE_RTOL,
+                         atol=FORCE_ATOL_OF_SCALE * scale),
+          "the large-N dispatch disagrees with kernel 3")
+    for name, secs in lat.items():
+        print(f"  latency {name}: {secs * 1e3:.1f} ms", flush=True)
+    state_l = state_l._replace(accelerations=acc6)
+    profile_window(f"20 leapfrog steps at N={LARGE_N} (kernel 6)",
+                   lambda: rollout_steps(state_l, 0.001, 20))
+
+    # (c) checked
+    check(rc == 0, f"evaluate exited {rc}")
+    with open(SIM_DIR / "eval" / "evaluation_results.json") as f:
+        results = json.load(f)
+    avg = results["average_metrics"]
+    print(f"  evaluate {MODEL}, f64 oracle, {results['n_test_simulations']} "
+          f"sims x {results['n_steps']} steps at N={results['n_particles']} "
+          f"in {t_eval:.1f} s: position RMSE {avg['position_rmse']:.4f} ± "
+          f"{avg['position_rmse_std']:.4f}, velocity RMSE "
+          f"{avg['velocity_rmse']:.4f} ± {avg['velocity_rmse_std']:.4f} "
+          f"(the JAX package on the CPU: 34.5 ± 41.0 / 202.2; band < "
+          f"{EVAL_POS_RMSE_MAX:g} / < {EVAL_VEL_RMSE_MAX:g})", flush=True)
+    check(results["ground_truth"] == "float64_host"
+          and len(results["per_simulation_metrics"]) == 10,
+          "evaluation_results.json is not the f64 protocol's")
+    check(avg["position_rmse"] < EVAL_POS_RMSE_MAX
+          and avg["velocity_rmse"] < EVAL_VEL_RMSE_MAX,
+          "the evaluation RMSE is outside the band")
+    return dict(zip(("fused_edge_fwd", "fused_edge_bwd", "pairwise_tiled",
+                     "pairwise_small", "pairwise_symmetric"), launches))
+
+
 def main() -> int:
     # 1. Environment
     import torch
@@ -673,7 +1116,7 @@ def main() -> int:
 
     # 2. Build
     t0 = time.perf_counter()
-    built = build(["fused_edge"])
+    built = build(["fused_edge", "pairwise"])
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
@@ -690,6 +1133,7 @@ def main() -> int:
     norm_stats = load_into(model, load_checkpoint(MODEL))
     with torch.inference_mode():
         rows, errs = phase_kernels(model, norm_stats, dev)
+        force_rows, force_errs = phase_force_kernels(dev)
 
     # 4. Serving main path
     print("[4] serving the production checkpoint", flush=True)
@@ -703,29 +1147,49 @@ def main() -> int:
     print("[6] training the production-width model", flush=True)
     train_fwd, train_bwd = phase_train(dev)
 
-    def main_row(kernel):
-        return next(r for r in rows if r["kernel"] == kernel
-                    and r["form"] == "training" and r["B"] == 24)
+    # 7. The simulator side, the third main path
+    print("[7] the simulator side: datagen, large-N /simulate, evaluation",
+          flush=True)
+    sim = phase_simulator(service, dev)
 
+    by_path = {
+        "fused_edge_fwd": {"serving": serve_fwd, "training": train_fwd},
+        "fused_edge_bwd": {"serving": 0, "training": train_bwd}}
     table = {"kernels": []}
-    for name, replaces, launches, by_path in (
-            ("fused_edge_fwd", "nbody_gnn_hpc_tpu/ops/fused_edge.py:91 "
-             "(and ops/fused_edge_batched.py:91)", serve_fwd + train_fwd,
-             {"serving": serve_fwd, "training": train_fwd}),
-            ("fused_edge_bwd", "nbody_gnn_hpc_tpu/ops/fused_edge.py:114 "
-             "(and ops/fused_edge_batched.py:123)", train_bwd,
-             {"serving": 0, "training": train_bwd})):
-        row = main_row(name)
+    for name, source, replaces, shape, kernel_rows, err in (
+            ("fused_edge_fwd", "fused_edge",
+             "nbody_gnn_hpc_tpu/ops/fused_edge.py:91 (and "
+             "ops/fused_edge_batched.py:91)", None, rows, errs),
+            ("fused_edge_bwd", "fused_edge",
+             "nbody_gnn_hpc_tpu/ops/fused_edge.py:114 (and "
+             "ops/fused_edge_batched.py:123)", None, rows, errs),
+            ("pairwise_tiled", "pairwise",
+             "nbody_gnn_hpc_tpu/ops/pairwise.py:41", f"N={LARGE_N}",
+             force_rows, force_errs),
+            ("pairwise_small", "pairwise",
+             "nbody_gnn_hpc_tpu/ops/pairwise.py:139",
+             f"B={DATAGEN['n_sims']} N={DATAGEN['n']}", force_rows,
+             force_errs),
+            ("pairwise_symmetric", "pairwise",
+             "nbody_gnn_hpc_tpu/ops/pairwise.py:212", f"N={LARGE_N}",
+             force_rows, force_errs)):
+        mine = [r for r in kernel_rows if r["kernel"] == name]
+        if shape is None:  # the edge kernels: the training form at B=24
+            row = next(r for r in mine
+                       if r["form"] == "training" and r["B"] == 24)
+            shape = "training form, B=24 N=200 k=40 H=256"
+        else:
+            row = next(r for r in mine if r["shape"] == shape)
+        paths = {"serving": 0, "training": 0, **by_path.get(name, {}),
+                 "simulator": sim[name]}
         table["kernels"].append({
             "name": name, "route": "cuda",
-            "source": "nbody_gnn_hpc_torch/csrc/fused_edge.cu",
-            "replaces": replaces, "launches": launches,
-            "launches_by_path": by_path, "max_abs_err": errs[name],
+            "source": f"nbody_gnn_hpc_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths, "max_abs_err": err[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shape": "training form, B=24 N=200 k=40 "
-                                         "H=256",
-            "by_shape": [r for r in rows if r["kernel"] == name]})
+            "library_ms": None, "shape": shape, "by_shape": mine})
     check(all(k["launches"] > 0 for k in table["kernels"]),
           "a kernel of the paths was never launched")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "

@@ -1,4 +1,4 @@
-"""Graph ops and the fused edge-stream kernel."""
+"""Graph ops, the fused edge-stream kernels and the direct-force kernels."""
 
 from nbody_gnn_hpc_torch.ops.edges import edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import (
@@ -9,10 +9,18 @@ from nbody_gnn_hpc_torch.ops.knn import (KNN_BLOCK, KNN_DENSE_MAX,
                                          edge_index_for,
                                          fully_connected_edge_index,
                                          is_row_regular, knn_edge_index)
+from nbody_gnn_hpc_torch.ops.pairwise import (
+    SMALL_MAX_N, accelerations_small, accelerations_small_reference,
+    accelerations_symmetric, accelerations_symmetric_reference,
+    accelerations_tiled, accelerations_tiled_reference)
 
-__all__ = ["KNN_BLOCK", "KNN_DENSE_MAX", "SourceCSR", "TargetCSR",
-           "dropout_keep", "edge_features", "edge_index_for",
-           "fully_connected_edge_index", "fused_edge_backward",
-           "fused_edge_backward_reference", "fused_edge_layer",
-           "fused_edge_layer_plain", "fused_edge_layer_reference",
-           "is_row_regular", "knn_edge_index", "source_csr", "target_csr"]
+__all__ = ["KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N", "SourceCSR",
+           "TargetCSR", "accelerations_small",
+           "accelerations_small_reference", "accelerations_symmetric",
+           "accelerations_symmetric_reference", "accelerations_tiled",
+           "accelerations_tiled_reference", "dropout_keep", "edge_features",
+           "edge_index_for", "fully_connected_edge_index",
+           "fused_edge_backward", "fused_edge_backward_reference",
+           "fused_edge_layer", "fused_edge_layer_plain",
+           "fused_edge_layer_reference", "is_row_regular", "knn_edge_index",
+           "source_csr", "target_csr"]

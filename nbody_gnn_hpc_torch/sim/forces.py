@@ -7,14 +7,15 @@ Semantics of the reference's ``compute_accelerations_direct``
 
 Below ``PALLAS_MIN_N`` the broadcast form runs on any device (the JAX
 package uses no Pallas kernel there either).  At and above it the JAX
-package dispatches a Pallas kernel on the TPU; its Hopper port is ROADMAP
-Queue 2's symmetric kernel and not written yet, so CUDA tensors raise there
-instead of running the plain blocked form on the card.
+package dispatches its symmetric Pallas kernel on the TPU; here CUDA
+tensors go to its Hopper port, :func:`accelerations_symmetric` (kernel 6,
+``csrc/pairwise.cu``), and CPU tensors to the blocked form.
 """
 
 import torch
 
 from nbody_gnn_hpc_torch.device import G, SOFTENING
+from nbody_gnn_hpc_torch.ops.pairwise import accelerations_symmetric
 
 PALLAS_MIN_N = 2048
 
@@ -60,18 +61,15 @@ def blocked_accelerations(positions: torch.Tensor, masses: torch.Tensor,
 
 def accelerations(positions: torch.Tensor, masses: torch.Tensor,
                   softening: float = SOFTENING) -> torch.Tensor:
-    """Dispatch: broadcast form below ``PALLAS_MIN_N``; blocked form on
-    the CPU above it; ``NotImplementedError`` for CUDA tensors above it."""
+    """Dispatch: broadcast form below ``PALLAS_MIN_N``; above it the
+    symmetric CUDA kernel for device tensors and the blocked form on the
+    CPU, one system at a time for a (B, N, 3) input."""
     n = positions.shape[-2]
     if n < PALLAS_MIN_N:
         return pairwise_accelerations(positions, masses, softening)
-    if positions.device.type != "cpu":
-        raise NotImplementedError(
-            f"accelerations at N={n} >= PALLAS_MIN_N={PALLAS_MIN_N} on "
-            f"{positions.device}: the large-N force kernel (ROADMAP Queue 2, "
-            "the symmetric kernel ops/pairwise.py:_pairwise_sym_kernel) is "
-            "not ported to CUDA yet")
-    if positions.dim() == 2:
+    if positions.dim() > 2:
+        return torch.stack([accelerations(p, m, softening)
+                            for p, m in zip(positions, masses)])
+    if positions.device.type == "cpu":
         return blocked_accelerations(positions, masses, softening)
-    return torch.stack([accelerations(p, m, softening)
-                        for p, m in zip(positions, masses)])
+    return accelerations_symmetric(positions, masses, softening)

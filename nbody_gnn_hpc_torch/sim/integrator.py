@@ -3,6 +3,8 @@
 
 The JAX package compiles a trajectory into one ``lax.scan``; here it is a
 Python loop on the device, with the same save cadence and unsaved tail.
+The saved stacks are allocated once on the device and filled in place, so
+a caller pays one readback at the end.
 """
 
 from typing import Callable, NamedTuple
@@ -53,11 +55,38 @@ def leapfrog_step(state: SimState, dt: float,
 
 @torch.inference_mode()
 def rollout_steps(state: SimState, dt, n_steps: int,
-                  softening: float = SOFTENING) -> SimState:
+                  softening: float = SOFTENING,
+                  accel_fn: Callable = accelerations) -> SimState:
     """Advance ``n_steps`` without saving intermediates."""
     for _ in range(n_steps):
-        state = leapfrog_step(state, dt, softening=softening)
+        state = leapfrog_step(state, dt, accel_fn, softening)
     return state
+
+
+def _run(state: SimState, dt, n_steps: int, save_interval: int,
+         softening: float, accel_fn: Callable, save_axis: int) -> Trajectory:
+    """Integrate and save into stacks preallocated on the state's device,
+    the save axis at ``save_axis`` of every saved field."""
+    n_saves = 1 + n_steps // save_interval
+
+    def stack_like(t):
+        shape = list(t.shape)
+        shape.insert(save_axis, n_saves)
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+    fields = ("positions", "velocities", "accelerations", "time", "step")
+    stacks = [stack_like(getattr(state, f)) for f in fields]
+    for k in range(n_saves):
+        if k:
+            state = rollout_steps(state, dt, save_interval, softening,
+                                  accel_fn)
+        for stack, f in zip(stacks, fields):
+            stack.select(save_axis, k).copy_(getattr(state, f))
+    final = rollout_steps(state, dt, n_steps % save_interval, softening,
+                          accel_fn)
+    return Trajectory(positions=stacks[0], velocities=stacks[1],
+                      accelerations=stacks[2], masses=state.masses,
+                      times=stacks[3], steps=stacks[4], final=final)
 
 
 @torch.inference_mode()
@@ -68,16 +97,24 @@ def run_trajectory(state: SimState, dt, n_steps: int,
     whose 1-based step index is a multiple of ``save_interval``
     (``nbody.py:232-241``): n_saves = 1 + n_steps // save_interval.  The
     trailing ``n_steps % save_interval`` steps are integrated but not
-    saved; ``Trajectory.final`` is the fully advanced state."""
-    saves = [state]
-    for _ in range(n_steps // save_interval):
-        state = rollout_steps(state, dt, save_interval, softening)
-        saves.append(state)
-    final = rollout_steps(state, dt, n_steps % save_interval, softening)
-    stack = lambda field: torch.stack(  # noqa: E731
-        [getattr(s, field) for s in saves])
-    return Trajectory(positions=stack("positions"),
-                      velocities=stack("velocities"),
-                      accelerations=stack("accelerations"),
-                      masses=state.masses, times=stack("time"),
-                      steps=stack("step"), final=final)
+    saved; ``Trajectory.final`` is the fully advanced state.  The save axis
+    leads every field."""
+    return _run(state, dt, n_steps, save_interval, softening, accelerations,
+                save_axis=0)
+
+
+@torch.inference_mode()
+def run_trajectory_batch(state: SimState, dt, n_steps: int,
+                         save_interval: int = 1,
+                         softening: float = SOFTENING,
+                         accel_fn: Callable = accelerations) -> Trajectory:
+    """:func:`run_trajectory` of a batched state (B, N, 3), arrays leading
+    with the simulation axis as the JAX package's ``run_trajectory_batch``
+    and ``run_trajectory_batch_lanes`` return them: positions
+    (B, n_saves, N, 3), masses (B, N), times and steps (B, n_saves).
+    ``accel_fn`` is the force of the whole batch."""
+    if state.positions.dim() != 3:
+        raise ValueError("run_trajectory_batch takes a batched state "
+                         f"(B, N, 3), got {tuple(state.positions.shape)}")
+    return _run(state, dt, n_steps, save_interval, softening, accel_fn,
+                save_axis=1)

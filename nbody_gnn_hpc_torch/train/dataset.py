@@ -16,7 +16,10 @@ within a row may differ on exact distance ties.  ``h5py`` is imported only
 by the HDF5 constructor.
 """
 
+import hashlib
+import json
 import os
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -225,3 +228,124 @@ class GNNDataset:
         dev = resolve_device(device)
         return (torch.as_tensor(self.last_states, device=dev),
                 torch.as_tensor(self.targets, device=dev))
+
+
+MANIFEST_NAME = "dataset_manifest.json"
+
+
+def write_manifest(output_dir, train_sims, val_sims, sequence_length,
+                   stride: int = 1, checkpoint_dir: str = "checkpoints"):
+    """Record a ``--no-windows`` datagen run: which trajectory files form
+    the train/val split and the window protocol to apply at load time, in
+    place of the windowed HDF5 files that store each state about
+    ``sequence_length`` times over."""
+    path = Path(output_dir) / MANIFEST_NAME
+    with open(path, "w") as f:
+        json.dump({
+            "format": "nbody-gnn-trajectory-manifest",
+            "version": 1,
+            "checkpoint_dir": checkpoint_dir,
+            "sequence_length": int(sequence_length),
+            "stride": int(stride),
+            "train_sims": list(train_sims),
+            "val_sims": list(val_sims),
+        }, f, indent=2)
+    return str(path)
+
+
+def datasets_from_manifest(manifest_path, k_neighbors: Optional[int] = None,
+                           include_mass: bool = True, cache: bool = True):
+    """(train_dataset, val_dataset) from a ``--no-windows`` manifest.
+
+    Equivalent to loading ``train_dataset.h5``/``val_dataset.h5`` built
+    from the same trajectories: the val set uses the train set's
+    normalisation stats (reference ``train_model.py:94-100``).
+
+    ``cache``: keep an uncompressed ``.tensors.npz`` sidecar next to the
+    manifest, so that a later launch does not decompress every trajectory
+    file again.  It is invalidated by any change to the manifest spec or to
+    the trajectory files' sizes/mtimes; norm stats and k-NN edges are
+    recomputed from the cached tensors (seeded draws, identical either
+    way).  The sidecar has the JAX package's format.
+    """
+    from nbody_gnn_hpc_torch.io.checkpoint import CheckpointManager
+
+    manifest_path = Path(manifest_path)
+    with open(manifest_path) as f:
+        spec = json.load(f)
+    if spec.get("format") != "nbody-gnn-trajectory-manifest":
+        raise ValueError(f"{manifest_path} is not a trajectory manifest")
+
+    ckpt_dir = manifest_path.parent / spec["checkpoint_dir"]
+    manager = CheckpointManager(str(ckpt_dir))
+    seq_len, stride = spec["sequence_length"], spec.get("stride", 1)
+    val_names = spec.get("val_sims") or []
+
+    cache_path = Path(str(manifest_path) + ".tensors.npz")
+    file_stats = []
+    for name in list(spec["train_sims"]) + list(val_names):
+        try:
+            st = (ckpt_dir / f"{name}_trajectory.h5").stat()
+            file_stats.append((name, st.st_size, st.st_mtime_ns))
+        except OSError:
+            file_stats.append((name, -1, -1))
+    tag = hashlib.sha256(json.dumps(
+        {"train": list(spec["train_sims"]), "val": list(val_names),
+         "seq": seq_len, "stride": stride, "files": file_stats},
+        sort_keys=True).encode()).hexdigest()
+
+    def _dataset(last, targets, masses, external=None):
+        ds = GNNDataset.__new__(GNNDataset)
+        ds.data_path = str(manifest_path)
+        ds.sequence_length = seq_len
+        ds.k_neighbors = k_neighbors
+        ds.include_mass = include_mass
+        ds.last_states = last
+        ds.targets = targets
+        ds.n_samples = int(last.shape[0])
+        ds.n_particles = int(last.shape[1])
+        ds.masses = masses
+        ds._init_stats_and_edges(external)
+        return ds
+
+    if cache and cache_path.exists():
+        try:
+            cached = np.load(cache_path, allow_pickle=False)
+            if str(cached["tag"]) == tag:
+                print(f"  Loaded tensors from sidecar cache {cache_path.name}")
+                train = _dataset(cached["train_states"],
+                                 cached["train_targets"], cached["masses"])
+                val = _dataset(cached["val_states"], cached["val_targets"],
+                               cached["val_masses"],
+                               external=train.get_normalization_stats()) \
+                    if len(cached["val_states"]) else None
+                return train, val
+        except (OSError, ValueError, KeyError):
+            pass  # unreadable or stale: rebuild
+
+    def _load(names):
+        return [manager.load_trajectory(n) for n in names]
+
+    kw = dict(sequence_length=seq_len, stride=stride,
+              k_neighbors=k_neighbors, include_mass=include_mass)
+    train = GNNDataset.from_trajectories(_load(spec["train_sims"]), **kw)
+    val = GNNDataset.from_trajectories(
+        _load(val_names),
+        external_norm_stats=train.get_normalization_stats(), **kw
+    ) if val_names else None
+
+    if cache:
+        try:
+            empty = np.zeros((0,) + train.last_states.shape[1:], np.float32)
+            np.savez(cache_path, tag=tag,
+                     train_states=train.last_states,
+                     train_targets=train.targets,
+                     val_states=val.last_states if val else empty,
+                     val_targets=val.targets if val else empty,
+                     masses=np.asarray(train.masses),
+                     # val trajectories may carry their own masses
+                     val_masses=np.asarray(val.masses if val
+                                           else train.masses))
+        except OSError as e:  # read-only directory: no sidecar
+            print(f"  ! sidecar cache write failed: {e}")
+    return train, val

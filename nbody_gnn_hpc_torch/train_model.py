@@ -7,7 +7,8 @@ The same flags as the JAX CLI (minus its TPU-only ones), the same config
 override pattern, ``config.json`` written to the model directory for
 evaluation and serving, and the val set normalised with the train set's
 statistics (reference ``train_model.py:94-100``).  Reads the windowed
-``train_dataset.h5`` / ``val_dataset.h5``.
+``train_dataset.h5`` / ``val_dataset.h5`` or, where a ``--no-windows``
+datagen left only ``dataset_manifest.json``, the trajectory files it names.
 """
 
 import argparse
@@ -80,7 +81,8 @@ def main(argv=None) -> int:
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.io.model_io import latest_checkpoint
     from nbody_gnn_hpc_torch.models import count_parameters, model_from_config
-    from nbody_gnn_hpc_torch.train import GNNDataset, Trainer
+    from nbody_gnn_hpc_torch.train import (MANIFEST_NAME, GNNDataset, Trainer,
+                                           datasets_from_manifest)
 
     config = TrainingConfig()
     for flag, _, _ in CONFIG_FLAGS:
@@ -94,8 +96,11 @@ def main(argv=None) -> int:
     model_dir = Path(args.model_dir)
     train_path = data_dir / "train_dataset.h5"
     val_path = data_dir / "val_dataset.h5"
-    if not train_path.exists():
-        print(f"Error: Training data not found at {train_path}")
+    manifest_path = data_dir / MANIFEST_NAME
+    use_manifest = not train_path.exists() and manifest_path.exists()
+    if not train_path.exists() and not use_manifest:
+        print(f"Error: Training data not found at {train_path} "
+              f"(and no {manifest_path.name})")
         print("Run generate_data.py first!")
         return 1
     model_dir.mkdir(parents=True, exist_ok=True)
@@ -117,14 +122,21 @@ def main(argv=None) -> int:
     print("=" * 60)
 
     print("\nLoading datasets...")
-    train_dataset = GNNDataset(str(train_path),
-                               sequence_length=config.sequence_length,
-                               k_neighbors=config.k_neighbors)
-    val_dataset = GNNDataset(
-        str(val_path), sequence_length=config.sequence_length,
-        k_neighbors=config.k_neighbors,
-        external_norm_stats=train_dataset.get_normalization_stats()
-    ) if val_path.exists() else None
+    if use_manifest:
+        # --no-windows datagen: the (state, target) pairs straight from the
+        # trajectory files, by the window protocol the manifest records.
+        print(f"  (trajectory-direct path via {manifest_path.name})")
+        train_dataset, val_dataset = datasets_from_manifest(
+            manifest_path, k_neighbors=config.k_neighbors)
+    else:
+        train_dataset = GNNDataset(str(train_path),
+                                   sequence_length=config.sequence_length,
+                                   k_neighbors=config.k_neighbors)
+        val_dataset = GNNDataset(
+            str(val_path), sequence_length=config.sequence_length,
+            k_neighbors=config.k_neighbors,
+            external_norm_stats=train_dataset.get_normalization_stats()
+        ) if val_path.exists() else None
 
     if args.max_samples and len(train_dataset) > args.max_samples:
         print(f"Subsampling: {len(train_dataset)} -> {args.max_samples}")

@@ -155,3 +155,110 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="multiple of 32"):
         bad = _inputs(1, 20, 4, 48, cuda, seed=4)
         fused_edge_layer(*bad)
+
+
+# -- direct-force kernels (csrc/pairwise.cu) --------------------------------
+
+# As the JAX package's kernel tests (tests/test_ops.py): float32 sum order
+# and rsqrt rounding only, relative to the force scale.
+FORCE_RTOL, FORCE_ATOL_OF_SCALE = 2e-4, 1e-5
+
+
+def _system(n, device, seed=0, batch=None):
+    rng = np.random.RandomState(seed)
+    shape = (n,) if batch is None else (batch, n)
+    pos = (rng.rand(*shape, 3) - 0.5) * 10.0
+    m = rng.uniform(1e10, 1e12, shape)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    return t(pos), t(m)
+
+
+def _assert_forces_close(got, want):
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=FORCE_RTOL,
+                               atol=FORCE_ATOL_OF_SCALE * scale)
+
+
+def _force_kernels():
+    from nbody_gnn_hpc_torch import ops
+
+    return {"tiled": (ops.accelerations_tiled,
+                      ops.accelerations_tiled_reference),
+            "small": (ops.accelerations_small,
+                      ops.accelerations_small_reference),
+            "symmetric": (ops.accelerations_symmetric,
+                          ops.accelerations_symmetric_reference)}
+
+
+@pytest.mark.parametrize("name,n,batch", [
+    ("tiled", 700, None), ("tiled", 2085, None), ("tiled", 128, None),
+    ("tiled", 200, 5), ("symmetric", 700, None), ("symmetric", 2085, None),
+    ("symmetric", 128, None), ("symmetric", 5, None), ("small", 200, 300),
+    ("small", 200, None), ("small", 13, 3), ("small", 1024, 2)])
+def test_force_kernel_matches_plain_version(cuda, name, n, batch):
+    kernel, plain = _force_kernels()[name]
+    pos, m = _system(n, cuda, seed=n, batch=batch)
+    before = kernel.launches
+    got = kernel(pos, m)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == pos.shape
+    _assert_forces_close(got, plain(pos, m))
+    assert torch.equal(got, kernel(pos, m))  # fixed sum order
+
+
+def test_force_kernels_agree_and_conserve_momentum(cuda):
+    from nbody_gnn_hpc_torch import ops
+
+    pos, m = _system(3000, cuda, seed=7)
+    sym = ops.accelerations_symmetric(pos, m)
+    _assert_forces_close(sym, ops.accelerations_tiled(pos, m))
+    for acc in (sym, ops.accelerations_tiled(pos, m)):
+        f = m[:, None].double() * acc.double()
+        assert f.sum(0).abs().max() <= 1e-5 * f.abs().sum(0).max()
+
+
+@pytest.mark.parametrize("name", ["tiled", "small", "symmetric"])
+def test_force_kernel_edge_cases(cuda, name):
+    """A coincident heavy pair stays finite (G*m/eps^3 overflows float32)
+    and zero-mass particles are force-neutral."""
+    kernel, _ = _force_kernels()[name]
+    pos = torch.tensor([[0.0, 0, 0], [0.0, 0, 0], [1.0, 0, 0]], device=cuda)
+    m = torch.tensor([2e30, 2e30, 1.0], device=cuda)
+    acc = kernel(pos, m)
+    assert torch.isfinite(acc).all()
+    assert acc[0, 0] > 0 and acc[2, 0] < 0
+    pos, m = _system(300, cuda, seed=3)
+    base = kernel(pos, m)
+    extra = torch.cat([pos, pos.new_full((45, 3), 2.5)])
+    padded = kernel(extra, torch.cat([m, m.new_zeros(45)]))
+    scale = base.abs().max().item()
+    torch.testing.assert_close(padded[:300], base, rtol=0, atol=2e-5 * scale)
+
+
+def test_force_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from nbody_gnn_hpc_torch import ops
+
+    pos, m = _system(40, cuda)
+    with pytest.raises(TypeError):
+        ops.accelerations_tiled(pos.double(), m.double())
+    with pytest.raises(ValueError):
+        ops.accelerations_symmetric(pos[None], m[None])
+    with pytest.raises(ValueError):
+        ops.accelerations_small(*_system(1025, cuda))
+    with pytest.raises(ValueError):
+        ops.accelerations_tiled(pos, m.cpu())
+
+
+def test_large_n_dispatch_runs_the_symmetric_kernel(cuda):
+    from nbody_gnn_hpc_torch import ops
+    from nbody_gnn_hpc_torch.sim import accelerations, blocked_accelerations
+
+    pos, m = _system(2085, cuda, seed=11)
+    before = ops.accelerations_symmetric.launches
+    got = accelerations(pos, m)
+    assert ops.accelerations_symmetric.launches == before + 1
+    _assert_forces_close(got, blocked_accelerations(pos, m))
+    both = accelerations(torch.stack([pos, pos]), torch.stack([m, m]))
+    assert ops.accelerations_symmetric.launches == before + 3
+    assert torch.equal(both[1], got)

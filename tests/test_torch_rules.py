@@ -36,16 +36,29 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_importing_the_port_loads_no_jax():
+    """Nor h5py: the machine with the card has none, so only the functions
+    that touch an HDF5 file import it."""
     code = ("import sys, nbody_gnn_hpc_torch.serve, nbody_gnn_hpc_torch.sim, "
             "nbody_gnn_hpc_torch.client, nbody_gnn_hpc_torch.train, "
-            "nbody_gnn_hpc_torch.train_model, nbody_gnn_hpc_torch.config\n"
+            "nbody_gnn_hpc_torch.train_model, nbody_gnn_hpc_torch.config, "
+            "nbody_gnn_hpc_torch.generate_data, nbody_gnn_hpc_torch.evaluate, "
+            "nbody_gnn_hpc_torch.parallel, nbody_gnn_hpc_torch.io, "
+            "nbody_gnn_hpc_torch.utils, nbody_gnn_hpc_torch.ops\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{sorted(FORBIDDEN)!r})\n"
+            f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr
+
+
+def test_every_port_package_has_an_init():
+    """setuptools' ``packages.find`` picks up only directories with one."""
+    root = REPO / "nbody_gnn_hpc_torch"
+    for d in [root] + [p for p in root.iterdir() if p.is_dir()
+                       and any(p.glob("*.py"))]:
+        assert (d / "__init__.py").exists(), d
 
 
 @pytest.fixture
@@ -101,3 +114,22 @@ def test_training_entry_points_refuse_cpu_unasked(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--data-dir", str(tmp_path), "--model-dir", str(tmp_path)])
     assert ds.device_arrays("cpu")[0].device.type == "cpu"
+
+
+def test_simulator_entry_points_refuse_cpu_unasked(no_cuda, tmp_path):
+    from nbody_gnn_hpc_torch.evaluate import main as evaluate_main
+    from nbody_gnn_hpc_torch.generate_data import main as generate_main
+    from nbody_gnn_hpc_torch.parallel import (build_ensemble_state,
+                                              simulate_ensemble)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_ensemble([1, 2], 5, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_ensemble_state([1, 2], 5, 10.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_main(["-o", str(tmp_path / "data"), "-s", "1", "-n", "5"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_main(["-m", "models/best_rollout_model.pt",
+                       "-c", "models/config.json", "-o", str(tmp_path / "r")])
+    assert simulate_ensemble([1, 2], 5, 2, device="cpu"
+                             ).positions.device.type == "cpu"

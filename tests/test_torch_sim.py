@@ -90,9 +90,21 @@ def test_dispatch(monkeypatch):
     _close(accelerations(t_pos, t_m), pairwise_accelerations(t_pos, t_m))
     _close(accelerations(t_pos[None].expand(2, -1, -1), t_m[None]
                          .expand(2, -1))[1], pairwise_accelerations(t_pos, t_m))
-    # A device tensor above the cutoff raises: no plain fallback there.
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    # A device tensor above the cutoff goes to the symmetric CUDA kernel's
+    # wrapper, one system at a time; there is no plain fallback, so on a
+    # device that is not a card the wrapper refuses.
+    with pytest.raises(ValueError, match="cuda or cpu"):
         accelerations(t_pos.to("meta"), t_m.to("meta"))
+    calls = []
+    monkeypatch.setattr(
+        port_forces, "accelerations_symmetric",
+        lambda p, m, s: calls.append(tuple(p.shape)) or torch.zeros_like(p))
+    accelerations(t_pos.to("meta"), t_m.to("meta"))
+    out = accelerations(torch.empty(3, 40, 3, device="meta"),
+                        torch.empty(3, 40, device="meta"))
+    assert calls == [(40, 3)] * 4 and out.shape == (3, 40, 3)
+    accelerations(t_pos, t_m)  # CPU tensors keep the blocked form
+    assert len(calls) == 4
 
 
 @pytest.mark.parametrize("n_steps,save_interval", [(7, 3), (6, 2), (5, 1)])
