@@ -55,13 +55,16 @@ Phases (any failure exits non-zero and prints no result line):
    and read just after: (a) ``simulate_ensemble`` at that shape (kernel 4
    once per step plus once for the initial force), early frames against a
    ``device="cpu"`` run, energy and momentum finite, a slice of it through
-   ``GNNDataset.from_trajectories`` and, where h5py is importable, through
-   trajectory and dataset files; (b) /simulate over HTTP at N=10,000 x 20
-   steps and N=2,085 x 50 steps (kernel 6 once per step plus once per
-   request), first frames against the ``device="cpu"`` service, kernel 3
-   as the oracle on the N=10,000 state; (c) ``evaluate`` of the
-   production checkpoint against the float64 oracle, 10 sims x 400 steps:
-   position RMSE < 60 and velocity RMSE < 400.
+   ``GNNDataset.from_trajectories``; (b) /simulate over HTTP at N=10,000
+   x 20 steps and N=2,085 x 50 steps (kernel 6 once per step plus once per
+   request), first frames against the ``device="cpu"`` service; (c)
+   ``evaluate`` of the production checkpoint against the float64 oracle,
+   10 sims x 400 steps: position RMSE < 60 and velocity RMSE < 400.  After
+   the counts are read: the large-N dispatch against kernel 3 as the
+   oracle on the N=10,000 state (kernel 3 is dispatched by no entry point;
+   these launches are reported apart, as "oracle"), and, where h5py is
+   importable, the ``generate_data`` command at the datagen shape with
+   HDF5 files, a rerun that must resume, and ``datasets_from_manifest``.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -101,9 +104,15 @@ PEAK_SFU_PER_S = PEAK_F32_PER_S / 16
 # The force kernels against their plain versions, as the JAX package's
 # kernel tests: float32 sum order and rsqrt rounding.
 FORCE_RTOL, FORCE_ATOL_OF_SCALE = 2e-4, 1e-5
-# float32 operations per pair, counted from the kernels' bodies
-# (csrc/pairwise.cu): ordered pairs for kernels 3 and 4, unordered for 6.
-FLOPS_PER_ORDERED_PAIR, FLOPS_PER_UNORDERED_PAIR = 19, 27
+# float32 adds and multiplies the function needs per pair (an FMA is two),
+# whatever implements it.  An ordered pair (kernels 3, 4): 3 subtractions
+# for the displacement, 3 multiplies + 3 adds for d^2 + eps^2, 2 multiplies
+# for r^-3 from the rsqrt, 1 by G*m_j, 3 multiplies + 3 adds into the
+# accumulators.  An unordered pair (kernel 6): the same 11 up to r^-3, 2
+# multiplies by G*m_j and G*m_i, 6 multiplies + 6 adds into both sides'
+# accumulators.  The compare-select of the coincident-pair mask is no float
+# operation.
+FLOPS_PER_ORDERED_PAIR, FLOPS_PER_UNORDERED_PAIR = 18, 25
 DATAGEN = dict(n_sims=300, n_steps=400, n=200, box=10.0, dt=0.001, seed=42)
 LARGE_N, ODD_N = 10_000, 2_085
 # Large-N /simulate against the CPU service, per particle: at N=10,000 in a
@@ -826,6 +835,57 @@ def phase_force_kernels(dev):
     return rows, errs
 
 
+def datagen_cli(host, d: dict, device: str, out_dir: Path) -> None:
+    """``python -m nbody_gnn_hpc_torch.generate_data`` at the shape ``d``
+    with HDF5 files (needs h5py): its trajectory files must hold what
+    ``simulate_ensemble`` gave for the same seeds (``host``), a rerun must
+    resume every file, and the manifest must load as datasets."""
+    from nbody_gnn_hpc_torch import generate_data, ops
+    from nbody_gnn_hpc_torch.io import CheckpointManager
+    from nbody_gnn_hpc_torch.train import datasets_from_manifest
+    from nbody_gnn_hpc_torch.train.dataset import MANIFEST_NAME
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--particles", str(d["n"]), "--simulations", str(d["n_sims"]),
+            "--steps", str(d["n_steps"]), "--box-size", str(d["box"]),
+            "--seed", str(d["seed"]), "--batch-size", "100",
+            "--compression", "lzf", "--no-windows", "--device", device,
+            "--output-dir", str(out_dir)]
+    before = ops.accelerations_small.launches
+    t0 = time.perf_counter()
+    check(generate_data.main(argv) == 0, "generate_data failed")
+    wall = time.perf_counter() - t0
+    ran = ops.accelerations_small.launches - before
+    n_batches = -(-d["n_sims"] // 100)
+    check(device == "cpu" or ran == n_batches * (d["n_steps"] + 1),
+          f"generate_data launched kernel 4 {ran} times")
+    manager = CheckpointManager(str(out_dir / "checkpoints"))
+    for i in (0, d["n_sims"] - 1):
+        back = manager.load_trajectory(f"sim_{i:04d}")
+        check(np.array_equal(back["positions"], host.positions[i])
+              and np.array_equal(back["velocities"], host.velocities[i]),
+              f"trajectory file sim_{i:04d} differs from simulate_ensemble")
+    before = ops.accelerations_small.launches
+    check(generate_data.main(argv) == 0, "generate_data failed on a rerun")
+    check(ops.accelerations_small.launches == before,
+          "a rerun of generate_data simulated again instead of resuming")
+    train, val = datasets_from_manifest(out_dir / MANIFEST_NAME,
+                                        k_neighbors=K, cache=False)
+    n_train = int(0.8 * d["n_sims"])
+    per_sim = d["n_steps"] + 1 - 5
+    check(train.n_samples == n_train * per_sim
+          and val.n_samples == (d["n_sims"] - n_train) * per_sim
+          and np.isfinite(train.targets).all(),
+          "the manifest's datasets have the wrong size")
+    print(f"  generate_data --no-windows --compression lzf on {device}: "
+          f"{d['n_sims']} sims x {d['n_steps']} steps in {wall:.2f} s "
+          f"(simulate, read back, write HDF5) = "
+          f"{d['n_sims'] * d['n_steps'] / wall:,.0f} sim-steps/s; kernel 4 "
+          f"launches {ran}; files equal simulate_ensemble's arrays; a rerun "
+          f"resumed all files; datasets_from_manifest {train.n_samples} + "
+          f"{val.n_samples} samples", flush=True)
+
+
 def phase_simulator(service, dev):
     """The simulator side: datagen, large-N /simulate, evaluation.  Returns
     the launch counts of the five kernels on this path."""
@@ -833,8 +893,7 @@ def phase_simulator(service, dev):
 
     from nbody_gnn_hpc_torch import evaluate, ops
     from nbody_gnn_hpc_torch.client import RolloutClient
-    from nbody_gnn_hpc_torch.parallel import (ENSEMBLE_FORCE,
-                                              build_ensemble_state,
+    from nbody_gnn_hpc_torch.parallel import (build_ensemble_state,
                                               fetch_host_trajectory,
                                               simulate_ensemble)
     from nbody_gnn_hpc_torch.serve import build_service, serve
@@ -858,8 +917,6 @@ def phase_simulator(service, dev):
     # The ensemble force both ways, in turns on this one card.  Wall time of
     # the whole call (host-built initial conditions, 400 steps, the saved
     # stacks on the device), synchronised.
-    check(ENSEMBLE_FORCE == "small_kernel", "the ensemble force is not "
-                                            "kernel 4")
     walls = {"plain": [], "kernel 4": []}
     datagen(n_sims=8)  # first-use costs
     for label, fn in (("plain", accelerations),
@@ -918,11 +975,6 @@ def phase_simulator(service, dev):
         sim_o = client.simulate(pos_o, vel_o, m_o, 50, trajectory=True)
         lat[f"simulate N={ODD_N} x 50 (trajectory, npz)"] = \
             time.perf_counter() - t0
-        served_sym = ops.accelerations_symmetric.launches
-        # kernel 3 as the oracle of the large-N dispatch on that state
-        state_l = make_state(pos_l, vel_l, m_l, device=dev)
-        acc6 = accelerations(state_l.positions, state_l.masses)
-        acc3 = ops.accelerations_tiled(state_l.positions, state_l.masses)
         # (c) evaluation against the float64 oracle
         t0 = time.perf_counter()
         rc = evaluate.main(["-m", MODEL, "-c", CONFIG, "-o",
@@ -934,18 +986,27 @@ def phase_simulator(service, dev):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
+    # Kernel 3 as the oracle of the large-N dispatch on the N=10,000 state.
+    # No entry point dispatches kernel 3 (nor does the JAX package dispatch
+    # its counterpart): these two calls are this script's own and are
+    # counted apart from the path's.
+    state_l = make_state(pos_l, vel_l, m_l, device=dev)
+    acc6 = accelerations(state_l.positions, state_l.masses)
+    acc3 = ops.accelerations_tiled(state_l.positions, state_l.masses)
+    oracle = [fn.launches - n for fn, n in zip(counted, launches)]
     fwd, bwd, tiled, small, sym = launches
     print(f"  launches on the simulator path: pairwise_small {small} "
           f"(expected {d['n_steps']} steps + 1), pairwise_symmetric {sym} "
-          f"(expected (20 + 1) + (50 + 1) served + 1 oracle comparison), "
-          f"pairwise_tiled {tiled} (the oracle call), fused_edge_fwd {fwd} "
-          f"(expected 6 x 394 evaluation rollout steps), fused_edge_bwd "
-          f"{bwd}", flush=True)
+          f"(expected (20 + 1) + (50 + 1)), pairwise_tiled {tiled} (no entry "
+          f"point dispatches it), fused_edge_fwd {fwd} (expected 6 x 394 "
+          f"evaluation rollout steps), fused_edge_bwd {bwd}; the oracle "
+          f"comparison after it: pairwise_tiled {oracle[2]}, "
+          f"pairwise_symmetric {oracle[4]}", flush=True)
     check(small == d["n_steps"] + 1, "datagen launch count")
-    check(served_sym == 21 + 51 and sym == served_sym + 1,
-          f"/simulate ran kernel 6 {served_sym} times, expected 72")
-    check(tiled == 1 and fwd == 6 * 394 and bwd == 0,
+    check(sym == 21 + 51, f"/simulate ran kernel 6 {sym} times, expected 72")
+    check(tiled == 0 and fwd == 6 * 394 and bwd == 0,
           "simulator-path launch counts")
+    check(oracle == [0, 0, 1, 0, 1], "oracle comparison launch counts")
 
     # (a) checked
     n_saves = d["n_steps"] + 1
@@ -1007,28 +1068,11 @@ def phase_simulator(service, dev):
               f"importable here, so no trajectory or dataset file was "
               f"written", flush=True)
     else:
-        from nbody_gnn_hpc_torch.io import (CheckpointManager,
-                                            create_training_dataset)
-        from nbody_gnn_hpc_torch.parallel import trajectory_slice
-
-        shutil.rmtree(SIM_DIR / "data", ignore_errors=True)
-        manager = CheckpointManager(str(SIM_DIR / "data" / "checkpoints"))
-        manager.save_trajectory(trajectory_slice(host, 0), "sim_0000",
-                                compression="lzf")
-        back = manager.load_trajectory("sim_0000")
-        check(np.array_equal(back["positions"], host.positions[0]),
-              "a trajectory file does not read back")
-        path = create_training_dataset(
-            [dict(t, n_steps=n_saves) for t in trajs[:2]],
-            str(SIM_DIR / "data" / "train_dataset.h5"), sequence_length=5,
-            masses=masses, compression="lzf")
-        filed = GNNDataset(path, sequence_length=5, k_neighbors=K)
-        check(np.array_equal(filed.targets, train.targets[:filed.n_samples]),
-              "a dataset file does not read back")
         print(f"  datagen -> GNNDataset.from_trajectories in memory "
-              f"({train.n_samples} + {val.n_samples} samples) and through "
-              f"h5py files (one trajectory, one dataset of "
-              f"{filed.n_samples} samples)", flush=True)
+              f"({train.n_samples} + {val.n_samples} samples); h5py is "
+              f"importable, so the generate_data command runs too",
+              flush=True)
+        datagen_cli(host, d, str(dev), SIM_DIR / "data")
 
     # (b) checked
     cpu = build_service(MODEL, CONFIG, device="cpu")
@@ -1087,8 +1131,9 @@ def phase_simulator(service, dev):
     check(avg["position_rmse"] < EVAL_POS_RMSE_MAX
           and avg["velocity_rmse"] < EVAL_VEL_RMSE_MAX,
           "the evaluation RMSE is outside the band")
-    return dict(zip(("fused_edge_fwd", "fused_edge_bwd", "pairwise_tiled",
-                     "pairwise_small", "pairwise_symmetric"), launches))
+    names = ("fused_edge_fwd", "fused_edge_bwd", "pairwise_tiled",
+             "pairwise_small", "pairwise_symmetric")
+    return dict(zip(names, launches)), dict(zip(names, oracle))
 
 
 def main() -> int:
@@ -1150,7 +1195,7 @@ def main() -> int:
     # 7. The simulator side, the third main path
     print("[7] the simulator side: datagen, large-N /simulate, evaluation",
           flush=True)
-    sim = phase_simulator(service, dev)
+    sim, oracle = phase_simulator(service, dev)
 
     by_path = {
         "fused_edge_fwd": {"serving": serve_fwd, "training": train_fwd},
@@ -1180,8 +1225,10 @@ def main() -> int:
             shape = "training form, B=24 N=200 k=40 H=256"
         else:
             row = next(r for r in mine if r["shape"] == shape)
+        # "oracle": this script's own calls in phase 7 (the dispatch held
+        # against kernel 3), counted apart from what the entry points ran.
         paths = {"serving": 0, "training": 0, **by_path.get(name, {}),
-                 "simulator": sim[name]}
+                 "simulator": sim[name], "oracle": oracle[name]}
         table["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"nbody_gnn_hpc_torch/csrc/{source}.cu",
@@ -1190,8 +1237,14 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": shape, "by_shape": mine})
-    check(all(k["launches"] > 0 for k in table["kernels"]),
-          "a kernel of the paths was never launched")
+    # Kernel 3 is the public oracle form, dispatched by no entry point: its
+    # launches are the oracle comparison's.  Every other kernel must have
+    # been launched by an entry point.
+    for k in table["kernels"]:
+        by = k["launches_by_path"]
+        ran = (by["oracle"] if k["name"] == "pairwise_tiled"
+               else k["launches"] - by["oracle"])
+        check(ran > 0, f"{k['name']} was never launched on a path")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

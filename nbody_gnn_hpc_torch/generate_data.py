@@ -26,7 +26,8 @@ def build_parser():
         description="Generate N-body training data",
         epilog="The JAX CLI's --watchdog (stall detection for a remote "
                "backend) is not ported; rerunning the command resumes at "
-               "the file level.")
+               "the file level.  Its --workers has no counterpart: the "
+               "simulations run on the device, not in worker processes.")
     parser.add_argument("--particles", "-n", type=int, default=500,
                         help="Number of particles per simulation")
     parser.add_argument("--simulations", "-s", type=int, default=50,
@@ -37,9 +38,6 @@ def build_parser():
                         help="Save state every N steps")
     parser.add_argument("--box-size", type=float, default=10.0,
                         help="Simulation box size")
-    parser.add_argument("--workers", "-w", type=int, default=None,
-                        help="(parity flag; sims run on the device, not in "
-                             "workers)")
     parser.add_argument("--output-dir", "-o", type=str, default="./data",
                         help="Output directory")
     parser.add_argument("--sequence-length", type=int, default=5,

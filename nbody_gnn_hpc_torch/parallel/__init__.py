@@ -1,10 +1,9 @@
 """Ensemble simulation (the datagen hot path)."""
 
-from nbody_gnn_hpc_torch.parallel.datagen import (ENSEMBLE_FORCE,
-                                                  build_ensemble_state,
+from nbody_gnn_hpc_torch.parallel.datagen import (build_ensemble_state,
                                                   fetch_host_trajectory,
                                                   simulate_ensemble,
                                                   trajectory_slice)
 
-__all__ = ["ENSEMBLE_FORCE", "build_ensemble_state", "fetch_host_trajectory",
+__all__ = ["build_ensemble_state", "fetch_host_trajectory",
            "simulate_ensemble", "trajectory_slice"]

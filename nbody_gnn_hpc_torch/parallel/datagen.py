@@ -26,18 +26,13 @@ from nbody_gnn_hpc_torch.sim.initial_conditions import \
 from nbody_gnn_hpc_torch.sim.integrator import Trajectory, run_trajectory_batch
 from nbody_gnn_hpc_torch.sim.state import SimState, make_state
 
-# The force of an ensemble with N <= SMALL_MAX_N on a CUDA device:
-# "small_kernel" is ``ops.accelerations_small`` (kernel 4, one launch for
-# all B systems), "plain" is ``sim.accelerations`` (the broadcast form, some
-# twenty launches and ten (B, N, N) temporaries per step).  PERF.md holds
-# both times at the production shape (300 sims x N=200).
-ENSEMBLE_FORCE = "small_kernel"
-
 
 def ensemble_force(device: torch.device, n_particles: int) -> Callable:
-    """The batch force :func:`simulate_ensemble` uses on ``device``."""
-    if (device.type == "cuda" and ENSEMBLE_FORCE == "small_kernel"
-            and n_particles <= SMALL_MAX_N):
+    """The batch force :func:`simulate_ensemble` uses on ``device``: on a
+    CUDA device with N <= SMALL_MAX_N ``ops.accelerations_small`` (kernel 4,
+    one launch for all B systems), else ``sim.accelerations``.  PERF.md
+    holds the times of both at the production shape (300 sims x N=200)."""
+    if device.type == "cuda" and n_particles <= SMALL_MAX_N:
         return accelerations_small
     return accelerations
 
@@ -74,7 +69,6 @@ def simulate_ensemble(seeds: Sequence[int],
                       shared_masses: Optional[np.ndarray] = None,
                       softening: float = SOFTENING,
                       mesh=None,
-                      layout: str = "standard",
                       device=None,
                       accel_fn: Optional[Callable] = None) -> Trajectory:
     """Run len(seeds) independent sims as one batch on one device.
@@ -84,12 +78,10 @@ def simulate_ensemble(seeds: Sequence[int],
 
     ``device``: cuda unless the CPU is asked for.  ``accel_fn``: the force
     of the whole batch, ``f(positions (B, N, 3), masses (B, N), softening)``;
-    by default :func:`ensemble_force`'s choice.  ``layout="planes"`` is
-    accepted and means the standard layout (planes is a TPU layout).
-    ``mesh`` (several devices) is not ported yet and raises.
+    by default :func:`ensemble_force`'s choice.  ``mesh`` (several devices)
+    is not ported yet and raises.  The JAX function's ``layout`` argument
+    chooses between TPU layouts and has no counterpart here.
     """
-    if layout not in ("standard", "planes"):
-        raise ValueError(f"unknown layout {layout!r}")
     if mesh is not None:
         raise NotImplementedError(
             "simulate_ensemble over a device mesh is not ported yet; it "

@@ -17,9 +17,11 @@ import torch
 from nbody_gnn_hpc_torch import generate_data
 from nbody_gnn_hpc_torch.io import (CheckpointManager, create_training_dataset,
                                     h5_compression_kwargs)
+from nbody_gnn_hpc_torch.ops import SMALL_MAX_N
 from nbody_gnn_hpc_torch.parallel import (build_ensemble_state,
                                           fetch_host_trajectory,
                                           simulate_ensemble, trajectory_slice)
+from nbody_gnn_hpc_torch.parallel.datagen import ensemble_force
 from nbody_gnn_hpc_torch.sim import (accelerations, kinetic_energy,
                                      potential_energy, run_trajectory,
                                      run_trajectory_batch, shared_masses,
@@ -142,15 +144,13 @@ def test_run_trajectory_batch_refuses_an_unbatched_state():
         run_trajectory_batch(_system_of(state, 0), 0.001, 2)
 
 
-@pytest.mark.parametrize("save_interval,layout", [(1, "standard"),
-                                                  (5, "planes")])
-def test_simulate_ensemble_matches_jax(save_interval, layout):
+@pytest.mark.parametrize("save_interval", [1, 5])
+def test_simulate_ensemble_matches_jax(save_interval):
     masses = shared_masses(N)
     want = jax_simulate_ensemble(SEEDS, N, STEPS, save_interval=save_interval,
                                  shared_masses=masses)
     got = simulate_ensemble(SEEDS, N, STEPS, save_interval=save_interval,
-                            shared_masses=masses, layout=layout,
-                            device="cpu")
+                            shared_masses=masses, device="cpu")
     for f in FIELDS:
         _close(getattr(got, f), getattr(want, f))
     _close(got.masses, want.masses, tol=0)
@@ -179,11 +179,22 @@ def test_simulate_ensemble_per_sim_masses_and_custom_force():
     assert calls == [(2, N, 3)] * 4  # the initial force + one per step
 
 
+@pytest.mark.parametrize("device,n,want", [
+    ("cpu", 200, "accelerations"),
+    ("cuda", 200, "accelerations_small"),
+    ("cuda", SMALL_MAX_N, "accelerations_small"),
+    ("cuda", SMALL_MAX_N + 1, "accelerations")])
+def test_ensemble_force_choice(device, n, want):
+    """One launch of kernel 4 for the whole ensemble where a system fits
+    its block and the tensors are on the card; the dispatch elsewhere."""
+    assert ensemble_force(torch.device(device), n).__name__ == want
+
+
 def test_simulate_ensemble_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="mesh"):
         simulate_ensemble(SEEDS, N, 2, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="layout"):
-        simulate_ensemble(SEEDS, N, 2, layout="lanes", device="cpu")
+    with pytest.raises(TypeError, match="layout"):
+        simulate_ensemble(SEEDS, N, 2, layout="planes", device="cpu")
 
 
 # -- files: both packages read what the other wrote -----------------------------
