@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and simulator paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, simulator and deployed-serving
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -24,7 +24,13 @@ Phases (any failure exits non-zero and prints no result line):
    neutrality; a coincident heavy pair; zero-mass rows.  Reruns must be
    bit-identical (no float atomics).  Times with CUDA events, bounds from
    the bytes and float32 operations of each call; the keep fraction of the
-   mask against 1-p.
+   mask against 1-p.  The whole-layer kernel (kernel 7) on the checkpoint's
+   layer 0 against ``fused_full_layer_reference`` at B=1, 8 (inference
+   form), B=24 (training form: edge dropout and node mask) and N=13, 1e-4
+   of the output's scale; its two-launch form bit-equal to the cooperative
+   one; one layer's gradients against the plain composition at 1e-3 of
+   scale; timed beside the port's composed layer (two cuBLAS projections,
+   kernel 1, the node side in PyTorch), its plain version and its bound.
 4. Serving: ``build_service(models/best_rollout_model.pt,
    models/config.json)`` on the default device behind the HTTP server,
    driven through the port's client: /healthz, /rollout N=200 x 394 steps
@@ -46,9 +52,9 @@ Phases (any failure exits non-zero and prints no result line):
    noise off) falls over 15 more steps on it.  On one batch with the production checkpoint's parameters the
    gradients of all 2,550,150 parameters through the kernels agree with
    the plain-version path (same seeds, same masks) to 1e-3 of each
-   tensor's scale.  The saved best_model.pt is served for 20 rollout steps
-   (train -> serve).  Median step wall time and a profiled window.
-
+   tensor's scale.  The same through ``edge_impl="fused_full"`` (kernel 7 forward, kernel 2
+   in its backward).  The saved best_model.pt is served for 20 rollout
+   steps (train -> serve).  Median step wall time and a profiled window.
 7. The simulator side, the third main path.  The ensemble force is timed
    both ways (plain broadcast form, kernel 4) on the production datagen
    shape, 300 sims x 400 steps x N=200.  Then, counts zeroed just before
@@ -65,6 +71,23 @@ Phases (any failure exits non-zero and prints no result line):
    these launches are reported apart, as "oracle"), and, where h5py is
    importable, the ``generate_data`` command at the datagen shape with
    HDF5 files, a rerun that must resume, and ``datasets_from_manifest``.
+8. Serving as it is deployed, the fourth main path: the production
+   checkpoint under a config that names ``edge_impl: "fused_full"`` (written
+   to a temporary directory), ``build_replica_pool(n_replicas=1)`` +
+   ``MicroBatcher(max_batch=8)`` + ``max_inflight`` over HTTP.  Counts
+   zeroed just before and read just after: 8 concurrent 394-step
+   final-state /rollout requests coalesce into fewer than 8
+   ``rollout_batch`` dispatches; kernel 7 runs exactly 6 x 394 x dispatches
+   times and kernel 1 never; then ``evaluate`` through ``fused_full``
+   (kernel 7 6 x 394 times, RMSE inside the band).  Checked after: each
+   answer against the direct single service (5-step trajectories 1e-5 of
+   scale, 394-step finals 1e-3: float32 summation order of the batched
+   products, amplified over the rollout); frames 0-5 within 1e-4 of scale
+   of the ``"fused"`` service and of ``device="cpu"``; /healthz reports
+   replicas, edge_impl and quantization; a saturated gate answers 503 with
+   Retry-After; int8 and bf16 services against float32 (5e-2 / 2e-2 of
+   scale, tests/test_quantize.py); an int8 checkpoint written, reloaded and
+   served.  One 394-step rollout of either service under torch.profiler.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -93,11 +116,19 @@ KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)
 # through the LayerNorms) get ten times that.
 GRAD_RTOL = 1e-4
 MODEL_GRAD_RTOL = 1e-3
+# Kernel 7 against its plain version, of the output's scale: six float32
+# products of depth 256-512 and two LayerNorms in another summation order.
+FULL_RTOL_OF_SCALE = 1e-4
 N, K = 200, 40
 DROPOUT_P = 0.1
 DROP_SEED = 20261016
 TRAIN_DIR = Path("build/chip_smoke_train")  # git-ignored
 SIM_DIR = Path("build/chip_smoke_sim")      # git-ignored
+SERVE_DIR = Path("build/chip_smoke_serve")  # git-ignored
+ROLLOUT_STEPS = 394  # the evaluation protocol's rollout
+# Quantized services against float32 over 5 steps, of the position scale
+# (tests/test_quantize.py).
+QUANT_RTOL = {"bf16": 2e-2, "int8": 5e-2}
 # Special-function results per second: 16 per clock per SM against 128
 # float32 FMA lanes (2 operations each).
 PEAK_SFU_PER_S = PEAK_F32_PER_S / 16
@@ -354,6 +385,183 @@ def phase_kernels(model, norm_stats, dev):
     return rows, errs
 
 
+def full_layer_bound_ms(h, ea, p, edges, node_mask, dropout: bool) -> tuple:
+    """Least H100 time for one whole-layer forward on these operands: h,
+    edge_attr, the CSR, the parameters (and the node mask) read once, h_new
+    and summed written once, over HBM bandwidth; and the six products,
+    2*N*H*(5H + Ho) a graph, the stream's count (``edge_bound_ms``) and 11
+    operations per node channel for the node side's LayerNorm, SiLU and
+    mask, over the non-tensor-core float32 peak."""
+    b, n, hdim = h.shape
+    e, d = ea.shape[1], ea.shape[2]
+    ho = p["w2"].shape[0]
+    n_bytes = 4 * (h.numel() + ea.numel() + edges.perm.numel()
+                   + edges.src.numel() + edges.offsets.numel()
+                   + sum(t.numel() for t in p.values())
+                   + (0 if node_mask is None else node_mask.numel())
+                   + b * n * ho + b * n * hdim)
+    flops = (2 * b * n * hdim * (5 * hdim + ho)
+             + (13 + 2 * d + int(dropout)) * b * e * hdim + 11 * b * n * hdim)
+    return _bound(n_bytes, flops)
+
+
+def full_layer_inputs(model, norm_stats, b: int, n: int, k: int, dev):
+    """The operands the serving path hands layer 0 as a whole: (h,
+    edge_attr, parameters, CSR)."""
+    import torch
+
+    from nbody_gnn_hpc_torch.ops import (edge_features, knn_edge_index,
+                                         target_csr)
+
+    pos, vel, masses = eval_states(b, n)
+    mean = torch.as_tensor(norm_stats["state_mean"], device=dev)
+    std = torch.as_tensor(norm_stats["state_std"], device=dev)
+    p = (torch.as_tensor(pos, device=dev) - mean[:3]) / std[:3]
+    v = (torch.as_tensor(vel, device=dev) - mean[3:]) / std[3:]
+    m = torch.as_tensor(masses / masses.mean(), device=dev)
+    x = torch.cat([p, v, m[None, :, None].expand(b, n, 1)], dim=-1)
+    ei = knn_edge_index(p, k)
+    with torch.inference_mode():
+        h = model.node_encoder(x)
+    params = {key: t.detach() for key, t
+              in model.layers[0].full_layer_params().items()}
+    return (h, edge_features(p, ei), params,
+            target_csr(ei, n, sources=True))
+
+
+def phase_full_layer(model, norm_stats, dev):
+    """Kernel 7 against its plain version, its two-launch form, one
+    layer's gradients, and its times; returns the timed rows and the
+    largest absolute error."""
+    import torch
+
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_full_layer,
+                                         fused_full_layer_plain,
+                                         fused_full_layer_reference)
+    from nbody_gnn_hpc_torch.ops import fused_edge_full
+    from nbody_gnn_hpc_torch.ops.fused_edge_full import PARAM_KEYS
+
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    layer = model.layers[0]  # the composed ("fused") form of the same layer
+    rows, worst = [], 0.0
+    for b, n, k, training in ((1, N, K, False), (8, N, K, False),
+                              (24, N, K, True), (1, 13, 4, False),
+                              (1, 13, 4, True)):
+        h, ea, p, edges = full_layer_inputs(model, norm_stats, b, n, k, dev)
+        mask = (torch.rand(h.shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(b))
+                >= DROPOUT_P).float() / (1 - DROPOUT_P)
+        sd, mk, rate = (seed, mask, DROPOUT_P) if training else (None, None,
+                                                                 0.0)
+        form = "training" if training else "inference"
+
+        def run():
+            return fused_full_layer(h, ea, p, edges, sd, mk, dropout_p=rate,
+                                    deterministic=not training)
+
+        with torch.inference_mode():
+            before = fused_full_layer.launches
+            got = run()
+            torch.cuda.synchronize()
+            per_layer = fused_full_layer.launches - before
+            check(per_layer == 1, f"kernel 7 took {per_layer} launches for "
+                                  f"one layer (expected one cooperative "
+                                  f"launch)")
+            want, _ = fused_full_layer_reference(h, ea, p, edges, sd, mk,
+                                                 rate)
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            same = torch.equal(got, run())
+            fused_edge_full.COOPERATIVE = False
+            before = fused_full_layer.launches
+            two = run()
+            two_launches = fused_full_layer.launches - before
+            fused_edge_full.COOPERATIVE = True
+        worst = max(worst, err)
+        ok = err <= FULL_RTOL_OF_SCALE * scale
+        print(f"  fused_full_fwd {form} B={b} N={n} k={k}: max abs err "
+              f"{err:.3e} at output scale {scale:.3e} (tolerance "
+              f"{FULL_RTOL_OF_SCALE:g} of scale, f32 sum order) -> "
+              f"{'ok' if ok else 'MISMATCH'}; one cooperative launch; rerun "
+              f"bit-identical: {same}; two-launch form ({two_launches} "
+              f"launches) bit-equal: {torch.equal(got, two)}", flush=True)
+        check(ok, f"fused_full_fwd ({form}) disagrees with its plain "
+                  f"version at B={b} N={n} k={k}")
+        check(same, "fused_full_fwd reruns are not bit-identical")
+        check(two_launches == 2 and torch.equal(got, two),
+              "the two-launch form of kernel 7 differs from the "
+              "cooperative one")
+        if n != N:
+            continue
+        deg = edges.degree
+        layer.train(training)
+        gen = torch.Generator(dev)
+
+        def composed():
+            return layer(h, ea, edges, deg, gen)
+
+        def two_launch():
+            fused_edge_full.COOPERATIVE = False
+            try:
+                return run()
+            finally:
+                fused_edge_full.COOPERATIVE = True
+
+        with torch.inference_mode():
+            ms = cuda_time_ms(run)
+            two_ms = cuda_time_ms(two_launch)
+            # ~20 and ~60 launches a call: ten calls fit behind the sleep
+            # that holds the stream, fifty would time the host.
+            composed_ms = cuda_time_ms(composed, inner=10)
+            plain_ms = cuda_time_ms(
+                lambda: fused_full_layer_reference(h, ea, p, edges, sd, mk,
+                                                   rate),
+                5 if b == 24 else 20, inner=10)
+        layer.eval()
+        bound = full_layer_bound_ms(h, ea, p, edges, mk, training)
+        rows.append({"kernel": "fused_full_fwd", "form": form, "B": b, "N": n,
+                     "k": k, "ms": ms, "two_launch_ms": two_ms,
+                     "composed_ms": composed_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        print(f"    kernel {ms:.5f} ms (two-launch form {two_ms:.5f} ms), "
+              f"composed layer (2 cuBLAS projections, kernel 1, node side "
+              f"in PyTorch) {composed_ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"bound {bound[0]:.6f} ms ({bound[1]}); no single PyTorch call "
+              f"computes the layer (library_ms null)", flush=True)
+
+    # One layer's gradients, kernel path against the plain composition.
+    h, ea, p, edges = full_layer_inputs(model, norm_stats, 4, N, K, dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    mask = (torch.rand(h.shape, device=dev, generator=gen)
+            >= DROPOUT_P).float() / (1 - DROPOUT_P)
+    g_out = torch.randn(h.shape, device=dev, generator=gen)
+
+    def grads(fn):
+        leaves = [h.clone().requires_grad_(), ea.clone().requires_grad_()]
+        params = {key: t.clone().requires_grad_() for key, t in p.items()}
+        out = fn(leaves[0], leaves[1], params, edges, seed, mask,
+                 dropout_p=DROPOUT_P, deterministic=False)
+        check(out.grad_fn is not None, "the layer's output has no grad_fn")
+        out.backward(g_out)
+        return [t.grad for t in leaves + [params[key] for key in PARAM_KEYS]]
+
+    before = fused_edge_backward.launches
+    got = grads(fused_full_layer)
+    check(fused_edge_backward.launches == before + 1,
+          "kernel 7's backward did not run kernel 2 once")
+    want = grads(fused_full_layer_plain)
+    rel = max((g - w).abs().max().item() / (w.abs().max().item() + 1e-12)
+              for g, w in zip(got, want))
+    print(f"  fused_full layer gradients (h, edge_attr, 14 parameters; B=4, "
+          f"dropout and node mask on) vs the plain composition: max error / "
+          f"gradient scale {rel:.3e} (tolerance {MODEL_GRAD_RTOL:g})",
+          flush=True)
+    check(rel <= MODEL_GRAD_RTOL, "kernel 7's layer gradients disagree with "
+                                  "the plain composition")
+    return rows, worst
+
+
 def close_to(got, want, rel_scale: float) -> tuple:
     """Max abs difference, checked against rel_scale * max|want|."""
     diff = float(np.abs(np.asarray(got) - np.asarray(want)).max())
@@ -469,12 +677,13 @@ def phase_serving(dev_name):
     for name, secs in lat.items():
         print(f"  latency {name}: "
               + ", ".join(f"{s * 1e3:.3f} ms" for s in secs), flush=True)
-    return service, launches
+    return service, launches, traj20
 
 
-def profile_window(label: str, fn) -> None:
+def profile_window(label: str, fn, steps: int = 0) -> None:
     """Run ``fn`` once plain and once under torch.profiler; print the wall
-    times, the device-busy share and the top kernels by device time."""
+    times, the device-busy share, the launches (per step where ``steps``)
+    and the top kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -502,20 +711,25 @@ def profile_window(label: str, fn) -> None:
         print(f"  profile {label}: no device time recorded (not measured)")
         return
     busy_us = sum(t for _, t, _ in rows)
+    n_launches = sum(c for _, _, c in rows)
+    per_step = (f" = {n_launches / steps:.1f} a step, wall "
+                f"{plain_wall * 1e3 / steps:.3f} ms a step" if steps else "")
     print(f"  profile {label}: wall {plain_wall * 1e3:.1f} ms unprofiled, "
           f"{wall * 1e3:.1f} ms profiled; device busy {busy_us / 1e3:.1f} ms "
-          f"= {100 * busy_us / 1e6 / plain_wall:.1f}% of the unprofiled wall",
-          flush=True)
+          f"= {100 * busy_us / 1e6 / plain_wall:.1f}% of the unprofiled wall; "
+          f"{n_launches} kernels, copies and memsets{per_step}", flush=True)
     for key, t, count in rows[:15]:
         print(f"    {t / 1e3:9.3f} ms  {count:6d}x  {key[:90]}", flush=True)
 
 
-def phase_profile(service):
+def phase_profile(service, label: str = "fused"):
     """One 394-step final-state rollout under torch.profiler."""
     pos, vel, masses = eval_states(1)
-    profile_window("394-step rollout (service call, no HTTP)",
-                   lambda: service.rollout(pos[0], vel[0], masses, 394,
-                                           trajectory=False))
+    profile_window(f"394-step rollout, edge_impl {label} (service call, no "
+                   f"HTTP)",
+                   lambda: service.rollout(pos[0], vel[0], masses,
+                                           ROLLOUT_STEPS, trajectory=False),
+                   steps=ROLLOUT_STEPS)
 
 
 def training_data(dev, cfg):
@@ -547,20 +761,26 @@ def training_data(dev, cfg):
     return train, val
 
 
-def model_gradients_agree(train, cfg, dev) -> float:
+def model_gradients_agree(train, cfg, dev, edge_impl: str = "fused") -> float:
     """Gradients of every parameter of the production checkpoint on one
-    training batch (dropout and noise on), through the kernels and through
-    the plain versions with the same generator seed (so the same masks).
-    Returns the largest error relative to each tensor's scale."""
+    training batch (dropout and noise on), through the kernels of
+    ``edge_impl`` and through the plain versions with the same generator
+    seed (so the same masks).  Returns the largest error relative to each
+    tensor's scale."""
     import torch
 
     from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
     from nbody_gnn_hpc_torch.models import count_parameters, model_from_config
-    from nbody_gnn_hpc_torch.ops import fused_edge_layer, fused_edge_layer_plain
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_edge_layer,
+                                         fused_edge_layer_plain,
+                                         fused_full_layer,
+                                         fused_full_layer_plain)
     from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
 
     with open(CONFIG) as f:
-        model = model_from_config(json.load(f)["model_config"]).to(dev)
+        model = model_from_config({**json.load(f)["model_config"],
+                                   "edge_impl": edge_impl}).to(dev)
     load_into(model, load_checkpoint(MODEL))
     masses = torch.as_tensor(train.get_masses_tensor(), device=dev)
     step = make_train_step(
@@ -571,24 +791,31 @@ def model_gradients_agree(train, cfg, dev) -> float:
     states = torch.as_tensor(train.last_states[:cfg.batch_size], device=dev)
     targets = torch.as_tensor(train.targets[:cfg.batch_size], device=dev)
 
-    def grads(edge_stream):
+    def grads(edge_stream, full_layer):
         for layer in model.layers:
-            layer.edge_stream = edge_stream
+            layer.edge_stream, layer.full_layer = edge_stream, full_layer
         model.zero_grad(set_to_none=True)
         loss, _ = step.compute_loss(
             states, targets, torch.Generator(dev).manual_seed(321))
         loss.backward()
         return loss.item(), [p.grad.clone() for p in model.parameters()]
 
-    loss_k, g_k = grads(fused_edge_layer)
-    loss_p, g_p = grads(fused_edge_layer_plain)
+    counted = fused_full_layer if edge_impl == "fused_full" else \
+        fused_edge_layer
+    before = counted.launches, fused_edge_backward.launches
+    loss_k, g_k = grads(fused_edge_layer, fused_full_layer)
+    check((counted.launches - before[0],
+           fused_edge_backward.launches - before[1]) == (6, 6),
+          f"the {edge_impl} kernel path did not launch its forward and "
+          f"kernel 2 six times each")
+    loss_p, g_p = grads(fused_edge_layer_plain, fused_full_layer_plain)
     n = sum(g.numel() for g in g_k)
     check(n == count_parameters(model) == 2_550_150, "parameter count")
     rel = max((a - b).abs().max().item() / (b.abs().max().item() + 1e-12)
               for a, b in zip(g_k, g_p))
     zero = sum(int(b.abs().max().item() == 0) for b in g_p)
-    print(f"  gradients of all {n:,} parameters, kernels vs plain versions "
-          f"(production checkpoint, B={cfg.batch_size}, dropout + noise on, "
+    print(f"  gradients of all {n:,} parameters, edge_impl {edge_impl}, "
+          f"kernels vs plain versions (production checkpoint, B={cfg.batch_size}, dropout + noise on, "
           f"same seeds): loss {loss_k:.7f} vs {loss_p:.7f}; max error / "
           f"tensor scale {rel:.3e} over {len(g_k)} tensors (tolerance "
           f"{MODEL_GRAD_RTOL:g}); tensors with an all-zero gradient: {zero}",
@@ -684,6 +911,7 @@ def phase_train(dev):
                           "its loss")
 
     model_gradients_agree(train, cfg, dev)
+    model_gradients_agree(train, cfg, dev, edge_impl="fused_full")
 
     # train -> serve: the checkpoint the trainer saved, on the card.
     with open(TRAIN_DIR / "config.json", "w") as f:
@@ -1136,6 +1364,260 @@ def phase_simulator(service, dev):
     return dict(zip(names, launches)), dict(zip(names, oracle))
 
 
+class _Served:
+    """A service behind its HTTP server for the length of a ``with``."""
+
+    def __init__(self, service, **kw):
+        from nbody_gnn_hpc_torch.serve import serve
+
+        self.httpd = serve(service, host="127.0.0.1", port=0, **kw)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+def _concurrently(fns):
+    """Run the calls at once, one thread each; returns their results."""
+    results, errors = [None] * len(fns), [None] * len(fns)
+    barrier = threading.Barrier(len(fns))
+
+    def work(i):
+        barrier.wait()
+        try:
+            results[i] = fns[i]()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors[i] = e
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for e in errors:
+        check(e is None, f"a concurrent request failed: {e!r}")
+    return results
+
+
+def phase_deployed(dev_name, fused_service, fused_traj20):
+    """Serving as it is deployed: the whole-layer kernel behind the replica
+    pool, the micro-batcher and the in-flight gate, with quantization.
+    Returns the launch counts of kernels 7, 1 and 2 on this path."""
+    import urllib.error
+    import urllib.request
+
+    from nbody_gnn_hpc_torch import evaluate
+    from nbody_gnn_hpc_torch.client import RolloutClient
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_edge_layer, fused_full_layer)
+    from nbody_gnn_hpc_torch.predict import quantize_checkpoint
+    from nbody_gnn_hpc_torch.serve import (MicroBatcher, build_replica_pool,
+                                           build_service)
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    cfg["model_config"]["edge_impl"] = "fused_full"
+    config_full = str(SERVE_DIR / "config.json")
+    with open(config_full, "w") as f:
+        json.dump(cfg, f, indent=2)
+
+    n_req = 8
+    pool = build_replica_pool(MODEL, config_full, n_replicas=1)
+    check(pool.services[0].predictor.device.type == "cuda",
+          "the pool's replica is not on cuda")
+    batcher = MicroBatcher(pool, max_batch=n_req, max_wait_s=0.25)
+    batcher.warmup(N, 2)  # every bucket once: first-use costs
+    pos, vel, masses = eval_states(n_req)
+    counted = (fused_full_layer, fused_edge_layer, fused_edge_backward)
+    with _Served(pool, batcher=batcher, max_inflight=2 * n_req) as srv:
+        client = RolloutClient(srv.url)
+        # main-path run starts here
+        for fn in counted:
+            fn.launches = 0
+        dispatched = batcher.dispatches
+        health = client.healthz()
+        t0 = time.perf_counter()
+        finals = _concurrently([
+            (lambda i=i: client.rollout(pos[i], vel[i], masses,
+                                        ROLLOUT_STEPS, trajectory=False))
+            for i in range(n_req)])
+        wall = time.perf_counter() - t0
+        dispatches = batcher.dispatches - dispatched
+        served = [fn.launches for fn in counted]
+        t0 = time.perf_counter()
+        rc = evaluate.main(["-m", MODEL, "-c", config_full, "-o",
+                            str(SERVE_DIR / "eval"), "--f64-ground-truth"])
+        t_eval = time.perf_counter() - t0
+        launches = [fn.launches for fn in counted]
+        # main-path run ends here
+        short = _concurrently([
+            (lambda i=i: client.rollout(pos[i], vel[i], masses, 5))
+            for i in range(n_req)])
+    print(f"  {n_req} concurrent {ROLLOUT_STEPS}-step final-state /rollout "
+          f"requests through the pool (1 replica) and the micro-batcher "
+          f"(max_batch {n_req}): {dispatches} rollout_batch dispatch(es), "
+          f"{wall * 1e3:.1f} ms for all; kernel 7 launches {served[0]} "
+          f"(expected 6 x {ROLLOUT_STEPS} x {dispatches} = "
+          f"{6 * ROLLOUT_STEPS * dispatches}), kernel 1 {served[1]}, "
+          f"kernel 2 {served[2]}", flush=True)
+    check(1 <= dispatches < n_req, f"{n_req} concurrent requests took "
+                                   f"{dispatches} dispatches")
+    check(served == [6 * ROLLOUT_STEPS * dispatches, 0, 0],
+          "deployed-serving launch counts")
+    check(health["status"] == "ok" and health["model"]["replicas"] == 1
+          and health["model"]["edge_impl"] == "fused_full"
+          and health["model"]["quantization"] is None
+          and dev_name in health["device"],
+          f"/healthz of the pool answered {health}")
+
+    # Each answer against the direct single service.
+    direct = build_service(MODEL, config_full)
+    worst_final = worst_short = 0.0
+    for i in range(n_req):
+        check(finals[i]["positions"].shape == (N, 3)
+              and np.isfinite(finals[i]["positions"]).all()
+              and np.isfinite(finals[i]["velocities"]).all(),
+              "a micro-batched final state is wrong")
+        want = direct.rollout(pos[i], vel[i], masses, ROLLOUT_STEPS,
+                              trajectory=False)
+        diff, ok = close_to(finals[i]["positions"], want["positions"], 1e-3)
+        worst_final = max(worst_final, diff)
+        check(ok, f"micro-batched request {i} disagrees with the direct "
+                  f"service after {ROLLOUT_STEPS} steps ({diff:.3e})")
+        want = direct.rollout(pos[i], vel[i], masses, 5)
+        diff, ok = close_to(short[i]["positions"], want["positions"], 1e-5)
+        worst_short = max(worst_short, diff)
+        check(short[i]["positions"].shape == (6, N, 3) and ok,
+              f"micro-batched request {i} disagrees with the direct service "
+              f"over 5 steps ({diff:.3e})")
+    print(f"  each of the {n_req} answers vs the direct single service: "
+          f"{ROLLOUT_STEPS}-step finals max abs diff {worst_final:.3e} "
+          f"(tolerance 1e-3 of scale: f32 sum order of the batched "
+          f"products, amplified over the rollout); 5-step trajectories "
+          f"{worst_short:.3e} (1e-5 of scale)", flush=True)
+
+    # fused_full against the "fused" service and the CPU port.
+    full5 = direct.rollout(pos[0], vel[0], masses, 5)
+    cpu5 = build_service(MODEL, config_full, device="cpu").rollout(
+        pos[0], vel[0], masses, 5)
+    for key in ("positions", "velocities"):
+        for label, ref in (("the 'fused' service", fused_traj20[key][:6]),
+                           ("device='cpu'", cpu5[key])):
+            diff, ok = close_to(full5[key], ref, 1e-4)
+            print(f"  fused_full frames 0-5 {key} vs {label}: max abs diff "
+                  f"{diff:.3e} (tolerance 1e-4 of scale)", flush=True)
+            check(ok, f"fused_full {key} disagree with {label}")
+
+    # A saturated gate sheds with 503 + Retry-After; probes still answer.
+    body = json.dumps({"positions": pos[0].tolist(),
+                       "velocities": vel[0].tolist(),
+                       "masses": masses.tolist(), "n_steps": ROLLOUT_STEPS,
+                       "trajectory": False}).encode()
+
+    def post():
+        req = urllib.request.Request(
+            f"{srv.url}/rollout", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status
+
+    with _Served(pool, max_inflight=1) as srv:
+        first = {}
+        holder = threading.Thread(
+            target=lambda: first.setdefault("status", post()))
+        holder.start()
+        deadline = time.monotonic() + 30
+        while srv.httpd.inflight.count() < 1 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        time.sleep(0.05)  # the holder is past the gate and on the device
+        shed = None
+        try:
+            post()
+        except urllib.error.HTTPError as e:
+            shed = (e.code, e.headers.get("Retry-After"), e.read().decode())
+        with urllib.request.urlopen(f"{srv.url}/healthz", timeout=30) as r:
+            probe = r.status
+        holder.join(timeout=300)
+        with urllib.request.urlopen(f"{srv.url}/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+    print(f"  max_inflight=1 with one {ROLLOUT_STEPS}-step request on the "
+          f"device: the next answered {shed and shed[:2]}, /healthz "
+          f"{probe}, the holder {first.get('status')}", flush=True)
+    check(shed is not None and shed[0] == 503 and shed[1] == "1"
+          and "max_inflight" in shed[2], f"the saturated gate gave {shed}")
+    check(probe == 200 and first.get("status") == 200
+          and 'endpoint="/rollout",status="503"' in metrics,
+          "probes or the holder failed under saturation")
+
+    # Weight-only quantization against float32 (in memory), and an int8
+    # checkpoint written, reloaded and served.
+    base = full5["positions"]
+    scale = float(np.abs(base).max())
+    quant5 = {}
+    for mode in ("int8", "bf16"):
+        svc = build_service(MODEL, config_full, quantize=mode)
+        check(svc.model_info["quantization"] == mode,
+              f"the {mode} service reports {svc.model_info}")
+        kept = sum(p.numel() for p in svc.predictor.model.parameters())
+        quant5[mode] = svc.rollout(pos[0], vel[0], masses, 5)["positions"]
+        diff = float(np.abs(quant5[mode] - base).max())
+        print(f"  {mode} service, 5 steps vs float32: max abs diff "
+              f"{diff:.3e} = {diff / scale:.2e} of scale (tolerance "
+              f"{QUANT_RTOL[mode]:g}); float32 parameters left in the "
+              f"model: {kept:,} of 2,550,150", flush=True)
+        check(0 < diff <= QUANT_RTOL[mode] * scale
+              and np.isfinite(quant5[mode]).all(),
+              f"the {mode} service is not close to float32")
+        check(kept < 20_000, "the float32 kernels are still resident")
+    info = quantize_checkpoint(MODEL, str(SERVE_DIR / "model.int8.pt"), "int8")
+    from_file = build_service(str(SERVE_DIR / "model.int8.pt"), config_full)
+    with _Served(from_file) as srv:
+        client = RolloutClient(srv.url)
+        health = client.healthz()
+        out = client.rollout(pos[0], vel[0], masses, 5)
+    print(f"  int8 checkpoint: {info['src_bytes']:,} -> "
+          f"{info['dst_bytes']:,} bytes ({info['ratio']}x); reloaded and "
+          f"served over HTTP, /healthz quantization "
+          f"{health['model']['quantization']}; equal to the in-memory int8 "
+          f"service: {np.array_equal(out['positions'], quant5['int8'])}",
+          flush=True)
+    check(health["model"]["quantization"] == "int8"
+          and np.array_equal(out["positions"], quant5["int8"]),
+          "the reloaded int8 checkpoint serves something else")
+
+    # evaluate through fused_full, checked.
+    check(rc == 0, f"evaluate (fused_full) exited {rc}")
+    with open(SERVE_DIR / "eval" / "evaluation_results.json") as f:
+        avg = json.load(f)["average_metrics"]
+    print(f"  evaluate through edge_impl fused_full, f64 oracle, in "
+          f"{t_eval:.1f} s: position RMSE {avg['position_rmse']:.4f}, "
+          f"velocity RMSE {avg['velocity_rmse']:.4f} (band < "
+          f"{EVAL_POS_RMSE_MAX:g} / < {EVAL_VEL_RMSE_MAX:g}); kernel 7 "
+          f"launches {launches[0] - served[0]} (expected 6 x "
+          f"{ROLLOUT_STEPS}), kernel 1 {launches[1]}", flush=True)
+    check(avg["position_rmse"] < EVAL_POS_RMSE_MAX
+          and avg["velocity_rmse"] < EVAL_VEL_RMSE_MAX,
+          "the fused_full evaluation RMSE is outside the band")
+    check(launches[0] - served[0] == 6 * ROLLOUT_STEPS
+          and launches[1:] == [0, 0], "fused_full evaluation launch counts")
+
+    phase_profile(fused_service, "fused")
+    phase_profile(direct, "fused_full")
+    return dict(zip(("fused_full_fwd", "fused_edge_fwd", "fused_edge_bwd"),
+                    launches))
+
+
 def main() -> int:
     # 1. Environment
     import torch
@@ -1161,7 +1643,7 @@ def main() -> int:
 
     # 2. Build
     t0 = time.perf_counter()
-    built = build(["fused_edge", "pairwise"])
+    built = build(["fused_edge", "pairwise", "fused_edge_full"])
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
@@ -1179,10 +1661,11 @@ def main() -> int:
     with torch.inference_mode():
         rows, errs = phase_kernels(model, norm_stats, dev)
         force_rows, force_errs = phase_force_kernels(dev)
+    full_rows, full_err = phase_full_layer(model, norm_stats, dev)
 
     # 4. Serving main path
     print("[4] serving the production checkpoint", flush=True)
-    service, serve_fwd = phase_serving(dev_name)
+    service, serve_fwd, traj20 = phase_serving(dev_name)
 
     # 5. Where the serving time goes
     print("[5] profile", flush=True)
@@ -1196,6 +1679,11 @@ def main() -> int:
     print("[7] the simulator side: datagen, large-N /simulate, evaluation",
           flush=True)
     sim, oracle = phase_simulator(service, dev)
+
+    # 8. Serving as it is deployed, the fourth main path
+    print("[8] serving as deployed: fused_full behind the pool, the "
+          "micro-batcher and the gate; quantization", flush=True)
+    deployed = phase_deployed(dev_name, service, traj20)
 
     by_path = {
         "fused_edge_fwd": {"serving": serve_fwd, "training": train_fwd},
@@ -1217,18 +1705,27 @@ def main() -> int:
              force_errs),
             ("pairwise_symmetric", "pairwise",
              "nbody_gnn_hpc_tpu/ops/pairwise.py:212", f"N={LARGE_N}",
-             force_rows, force_errs)):
+             force_rows, force_errs),
+            ("fused_full_fwd", "fused_edge_full",
+             "nbody_gnn_hpc_tpu/ops/fused_edge_full.py:78", "deployed",
+             full_rows, {"fused_full_fwd": full_err})):
         mine = [r for r in kernel_rows if r["kernel"] == name]
         if shape is None:  # the edge kernels: the training form at B=24
             row = next(r for r in mine
                        if r["form"] == "training" and r["B"] == 24)
             shape = "training form, B=24 N=200 k=40 H=256"
+        elif shape == "deployed":  # kernel 7: the micro-batched dispatch
+            row = next(r for r in mine
+                       if r["form"] == "inference" and r["B"] == 8)
+            shape = "inference form, B=8 N=200 k=40 H=256"
         else:
             row = next(r for r in mine if r["shape"] == shape)
         # "oracle": this script's own calls in phase 7 (the dispatch held
         # against kernel 3), counted apart from what the entry points ran.
         paths = {"serving": 0, "training": 0, **by_path.get(name, {}),
-                 "simulator": sim[name], "oracle": oracle[name]}
+                 "simulator": sim.get(name, 0),
+                 "deployed": deployed.get(name, 0),
+                 "oracle": oracle.get(name, 0)}
         table["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"nbody_gnn_hpc_torch/csrc/{source}.cu",
@@ -1236,7 +1733,9 @@ def main() -> int:
             "launches_by_path": paths, "max_abs_err": err[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shape": shape, "by_shape": mine})
+            "library_ms": None, "shape": shape, "by_shape": mine,
+            **({"composed_ms": row["composed_ms"]}
+               if "composed_ms" in row else {})})
     # Kernel 3 is the public oracle form, dispatched by no entry point: its
     # launches are the oracle comparison's.  Every other kernel must have
     # been launched by an entry point.

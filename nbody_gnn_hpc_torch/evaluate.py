@@ -28,7 +28,7 @@ SEQ_LEN = 5  # rollout start (published protocol, evaluate.py:79)
 def build_parser():
     parser = argparse.ArgumentParser(
         description="Evaluate GNN Model",
-        epilog="The JAX CLI's --quantize and --watchdog are not ported. "
+        epilog="The JAX CLI's --watchdog is not ported. "
                "Plots need the visualizer, which is not ported either: "
                "they are skipped.")
     parser.add_argument("--model-path", "-m", type=str,
@@ -47,6 +47,9 @@ def build_parser():
                              "ensemble on the device. Slower, but makes "
                              "RMSE directly comparable with the reference's "
                              "published numbers.")
+    parser.add_argument("--quantize", choices=("bf16", "int8"), default=None,
+                        help="Evaluate with weight-only quantized weights "
+                             "(what `serve --quantize` would serve)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' only when "
                              "asked for)")
@@ -101,6 +104,9 @@ def main(argv=None) -> int:
     print("\nLoading model...")
     predictor = Predictor(model_from_config(model_config), str(model_path),
                           device=device, k_neighbors=k_neighbors)
+    if args.quantize and not predictor.quantization:
+        print(f"  (weight-only {args.quantize} quantization)")
+        predictor.quantize(args.quantize)
 
     print(f"\nRunning {args.n_test_sims} test simulations "
           f"({args.particles} particles, {args.steps} steps)...")
@@ -169,7 +175,7 @@ def main(argv=None) -> int:
         "n_particles": args.particles,
         "n_steps": args.steps,
         "ground_truth": ground_truth,
-        "quantization": None,
+        "quantization": predictor.quantization,
         "average_metrics": avg_metrics,
         "per_simulation_metrics": test_results,
     }

@@ -7,7 +7,9 @@ dict of Flax parameters, e.g. ``layer_0/edge_proj_target/kernel`` (256,
 and transposes every Dense kernel: Flax stores (in, out), ``nn.Linear``
 stores (out, in).
 
-Only ``model_state_dict`` and ``norm_stats`` are read by ``load_into``.
+Only ``model_state_dict``, ``norm_stats`` and the ``quantization`` marker
+are read by ``load_into``; a weight-only quantized serving checkpoint
+(:mod:`nbody_gnn_hpc_torch.predict.quantize`) is dequantized to float32.
 The production ``models/best_rollout_model.pt`` unpickles with numpy
 alone; checkpoints whose optimizer state holds optax classes cannot be read
 without optax.  :func:`save_checkpoint` writes the same keys with
@@ -50,11 +52,13 @@ def params_from_jax(state_dict: dict) -> Dict[str, torch.Tensor]:
     """Flax parameter tree -> ``NBodyGNN`` state dict (float32 tensors).
 
     ``layer_i`` -> ``layers.i``, ``norm_i`` -> ``norms.i``; ``kernel`` ->
-    ``weight`` transposed, LayerNorm ``scale`` -> ``weight``.
+    ``weight`` transposed, LayerNorm ``scale`` -> ``weight``.  Leaves are
+    numpy arrays, or tensors, which stay on their device.
     """
     out = {}
     for path, val in _flatten(state_dict):
-        arr = np.asarray(val, np.float32)
+        arr = val.detach().float() if torch.is_tensor(val) else \
+            np.asarray(val, np.float32)
         parts = path.split("/")
         head = re.fullmatch(r"(layer|norm)_(\d+)", parts[0])
         if head:
@@ -66,24 +70,30 @@ def params_from_jax(state_dict: dict) -> Dict[str, torch.Tensor]:
             parts[-1] = "weight"
         elif leaf != "bias":
             raise ValueError(f"unexpected parameter {path!r}")
-        out[".".join(parts)] = torch.tensor(arr)  # a writable copy
+        out[".".join(parts)] = arr.contiguous() if torch.is_tensor(arr) \
+            else torch.tensor(arr)  # a writable copy
     return out
 
 
-def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
-    """``NBodyGNN`` state dict -> Flax parameter tree of numpy arrays (the
-    inverse of :func:`params_from_jax`): ``layers.i`` -> ``layer_i``, a 2-D
-    ``weight`` -> ``kernel`` transposed, a 1-D (LayerNorm) ``weight`` ->
-    ``scale``."""
+def params_to_jax(state_dict: Dict[str, torch.Tensor],
+                  numpy: bool = True) -> dict:
+    """``NBodyGNN`` state dict -> Flax parameter tree (the inverse of
+    :func:`params_from_jax`): ``layers.i`` -> ``layer_i``, a 2-D ``weight``
+    -> ``kernel`` transposed, a 1-D (LayerNorm) ``weight`` -> ``scale``.
+    Leaves are numpy arrays, or with ``numpy=False`` float32 tensors on the
+    state dict's device."""
     tree: dict = {}
     for name, val in state_dict.items():
-        arr = val.detach().cpu().numpy().astype(np.float32)
+        arr = val.detach().cpu().numpy().astype(np.float32) if numpy \
+            else val.detach().float()
         parts = name.split(".")
         if parts[0] in ("layers", "norms"):
             parts[:2] = [f"{parts[0][:-1]}_{parts[1]}"]
         if parts[-1] == "weight":
             if arr.ndim == 2:
-                parts[-1], arr = "kernel", np.ascontiguousarray(arr.T)
+                parts[-1] = "kernel"
+                arr = np.ascontiguousarray(arr.T) if numpy \
+                    else arr.t().contiguous()
             else:
                 parts[-1] = "scale"
         elif parts[-1] != "bias":
@@ -108,12 +118,13 @@ def _to_numpy(tree: Any) -> Any:
 
 def save_checkpoint(filepath, *, params, opt_state=None, scheduler_state=None,
                     best_val_loss=None, history=None, norm_stats=None,
-                    model_config=None) -> str:
+                    model_config=None, extra: Optional[Dict] = None) -> str:
     """Write a checkpoint with the JAX package's keys (reference
     ``train.py:540-547``): ``params`` is a Flax tree (:func:`params_to_jax`),
     ``opt_state`` the optimizer's ``state_dict()``; tensors are stored as
-    numpy arrays.  Written to a temporary file and renamed, so a crash never
-    leaves a torn checkpoint at ``filepath``."""
+    numpy arrays; ``extra`` adds keys (the ``quantization`` marker).
+    Written to a temporary file and renamed, so a crash never leaves a torn
+    checkpoint at ``filepath``."""
     filepath = Path(filepath)
     filepath.parent.mkdir(parents=True, exist_ok=True)
     ckpt = {
@@ -126,6 +137,8 @@ def save_checkpoint(filepath, *, params, opt_state=None, scheduler_state=None,
         "model_config": model_config,
         "format": "nbody_gnn_hpc_tpu.pickle.v1",
     }
+    if extra:
+        ckpt.update(extra)
     tmppath = filepath.with_name(filepath.name + ".tmp")
     with open(tmppath, "wb") as f:
         pickle.dump(ckpt, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -171,12 +184,20 @@ def latest_checkpoint(model_dir) -> Optional[str]:
 
 def load_into(model: nn.Module, ckpt: dict) -> Optional[dict]:
     """Copy a JAX checkpoint's parameters into ``model`` (strict: every
-    name and shape must match). Returns its ``norm_stats`` (or None)."""
+    name and shape must match). Returns its ``norm_stats`` (or None).  The
+    weights of a quantized serving checkpoint are dequantized to float32;
+    :class:`~nbody_gnn_hpc_torch.predict.Predictor` keeps them quantized."""
+    state = ckpt.get("model_state_dict", ckpt)
     if ckpt.get("quantization"):
-        raise ValueError(
-            f"checkpoint holds {ckpt['quantization']}-quantized weights; "
-            "quantized serving is not ported yet, load a float32 checkpoint")
-    params = params_from_jax(ckpt.get("model_state_dict", ckpt))
+        from nbody_gnn_hpc_torch.predict.quantize import (MODES,
+                                                          dequantize_params)
+
+        if ckpt["quantization"] not in MODES:
+            raise ValueError(f"checkpoint is marked "
+                             f"{ckpt['quantization']!r}-quantized; the port "
+                             f"reads {MODES}")
+        state = dequantize_params(state)
+    params = params_from_jax(state)
     model.load_state_dict(params, strict=True)
     stats = ckpt.get("norm_stats")
     if stats is None:

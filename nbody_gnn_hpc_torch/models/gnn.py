@@ -11,7 +11,10 @@ Same computation and parameter count as the JAX model (2,550,150 at hidden
   targets) is :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer`,
   differentiable through the backward kernel;
   the edge-output Dense is pulled through the sum (``summed @ W + deg*b``);
-  then node MLP on [h, agg];
+  then node MLP on [h, agg].  With ``edge_impl="fused_full"`` the whole
+  layer, projections and node MLP included, is one kernel
+  (:func:`~nbody_gnn_hpc_torch.ops.fused_edge_full.fused_full_layer`) over
+  the same parameters: one state dict either way;
 - decoder Linear(H->H) -> SiLU -> Dropout -> Linear(H->H/2) -> SiLU ->
   Linear(H/2->6), the last zero-initialised; output = state + delta.
 
@@ -21,9 +24,9 @@ untrained port matches the JAX model in distribution.
 
 In training mode every random draw comes from the ``generator`` passed to
 :meth:`NBodyGNN.forward`, in a fixed order: the encoder's dropout mask,
-then per layer the edge stream's int seed and the node MLP's mask, then
-the decoder's mask.  Node-side dropout is Flax's (keep with probability
-1-p, kept values divided by 1-p); the edge stream draws its own mask from
+then per layer the edge stream's int seed and the node MLP's mask (the same
+draws for either ``edge_impl``), then the decoder's mask.  Node-side
+dropout is Flax's (keep with probability 1-p, kept values divided by 1-p); the edge stream draws its own mask from
 its seed (Philox, :mod:`~nbody_gnn_hpc_torch.ops.fused_edge`).
 """
 
@@ -36,10 +39,22 @@ from torch import nn
 
 from nbody_gnn_hpc_torch.ops.edges import edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import fused_edge_layer, target_csr
+from nbody_gnn_hpc_torch.ops.fused_edge_full import fused_full_layer
 
 EDGE_DIM = 5  # distance(1) + direction(3) + inv_dist_sq(1)
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 SEED_BOUND = 2_147_483_647  # edge-stream seeds lie in [0, 2^31 - 1)
+# "fused": the edge stream as a kernel between PyTorch's projections and
+# node MLP; "fused_full": the whole layer as one kernel.
+EDGE_IMPLS = ("fused", "fused_full")
+
+
+def _dropout_mask(x: torch.Tensor, p: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Pre-scaled mask shaped as ``x`` from the draw :func:`_dropout` makes:
+    1/(1-p) with probability 1-p, else 0."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return keep.to(x.dtype) / (1.0 - p)
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
@@ -94,15 +109,23 @@ class ParticleInteractionLayer(nn.Module):
     """Message-passing layer: message for edge (row -> col) from
     [h[col], h[row], e], summed at the targets, then node_mlp([h, agg]).
 
-    ``edge_stream`` is the edge-stream function; it may be set to
-    :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer_plain` on
-    an instance to run the plain versions on the card for comparison."""
+    ``edge_impl`` chooses how it runs (:data:`EDGE_IMPLS`); the parameters
+    are the same.  ``edge_stream`` and ``full_layer`` are the functions the
+    two ways call; they may be set to
+    :func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_layer_plain` /
+    :func:`~nbody_gnn_hpc_torch.ops.fused_edge_full.fused_full_layer_plain`
+    on an instance to run the plain versions on the card for comparison."""
 
     edge_stream = staticmethod(fused_edge_layer)
+    full_layer = staticmethod(fused_full_layer)
 
     def __init__(self, node_features: int, hidden_dim: int, dropout: float,
-                 edge_dim: int = EDGE_DIM):
+                 edge_dim: int = EDGE_DIM, edge_impl: str = "fused"):
         super().__init__()
+        if edge_impl not in EDGE_IMPLS:
+            raise ValueError(f"edge_impl must be one of {EDGE_IMPLS}, got "
+                             f"{edge_impl!r}")
+        self.edge_impl = edge_impl
         self.edge_proj_target = nn.Linear(node_features, hidden_dim)
         self.edge_proj_source = nn.Linear(node_features, hidden_dim,
                                           bias=False)
@@ -118,6 +141,8 @@ class ParticleInteractionLayer(nn.Module):
         if self.training and self.dropout > 0:
             seed = torch.randint(0, SEED_BOUND, (1,), generator=generator,
                                  device=h.device, dtype=torch.int32)
+        if self.edge_impl == "fused_full":
+            return self._whole_layer(h, edge_attr, edges, seed, generator)
         summed = self.edge_stream(
             self.edge_proj_target(h), self.edge_proj_source(h), edge_attr,
             self.edge_proj_attr.weight.t().contiguous(),
@@ -129,6 +154,27 @@ class ParticleInteractionLayer(nn.Module):
             self.edge_out.bias
         return self.node_mlp(torch.cat([h, agg], dim=-1), generator)
 
+    def full_layer_params(self) -> dict:
+        """The layer's tensors under the names ``full_layer`` takes."""
+        mlp = self.node_mlp
+        return dict(
+            wt=self.edge_proj_target.weight, bt=self.edge_proj_target.bias,
+            ws=self.edge_proj_source.weight, we=self.edge_proj_attr.weight,
+            ge=self.edge_norm.weight, be=self.edge_norm.bias,
+            wout=self.edge_out.weight, bout=self.edge_out.bias,
+            w1=mlp.Dense_0.weight, b1=mlp.Dense_0.bias,
+            g1=mlp.LayerNorm_0.weight, be1=mlp.LayerNorm_0.bias,
+            w2=mlp.Dense_1.weight, b2=mlp.Dense_1.bias)
+
+    def _whole_layer(self, h, edge_attr, edges, seed, generator):
+        """The layer through ``full_layer``: the node MLP's dropout mask is
+        drawn here, after the edge seed, as ``node_mlp`` would draw it."""
+        node_mask = None if seed is None else _dropout_mask(h, self.dropout,
+                                                            generator)
+        return self.full_layer(h, edge_attr, self.full_layer_params(), edges,
+                               seed, node_mask, dropout_p=self.dropout,
+                               deterministic=not self.training)
+
 
 class NBodyGNN(nn.Module):
     """GNN predicting the next state as current_state + delta."""
@@ -136,8 +182,10 @@ class NBodyGNN(nn.Module):
     def __init__(self, node_input_dim: int = 7, hidden_dim: int = 128,
                  n_layers: int = 3, output_dim: int = 6,
                  dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 edge_impl: str = "fused"):
         super().__init__()
+        self.edge_impl = edge_impl
         self.node_input_dim = node_input_dim
         self.hidden_dim = hidden_dim
         self.n_layers = n_layers
@@ -146,7 +194,8 @@ class NBodyGNN(nn.Module):
         self.node_encoder = _MLPBlock(node_input_dim, hidden_dim, hidden_dim,
                                       dropout)
         self.layers = nn.ModuleList(
-            ParticleInteractionLayer(hidden_dim, hidden_dim, dropout)
+            ParticleInteractionLayer(hidden_dim, hidden_dim, dropout,
+                                     edge_impl=edge_impl)
             for _ in range(n_layers))
         self.norms = nn.ModuleList(LayerNorm(hidden_dim)
                                    for _ in range(n_layers))
@@ -206,14 +255,23 @@ class NBodyGNN(nn.Module):
 def model_from_config(config: dict) -> NBodyGNN:
     """NBodyGNN from a persisted ``model_config`` dict (models/config.json).
 
-    The port computes in float32 whatever ``dtype`` the config names (the
-    serving path of the JAX package rebuilds at float32 too); the JAX-only
-    keys ``dtype``, ``remat``, ``edge_impl`` and ``gather_mode`` choose
-    nothing here.
+    ``edge_impl``: ``"fused_full"`` selects the whole-layer kernel;
+    ``"fused"``, the JAX package's ``"auto"`` and ``"xla"``, and a missing
+    key select the port's one edge stream; anything else raises.  The port
+    computes in float32 whatever ``dtype`` the config names (the serving
+    path of the JAX package rebuilds at float32 too); the JAX-only keys
+    ``dtype``, ``remat`` and ``gather_mode`` choose nothing here.
     """
     cfg = {k: v for k, v in config.items()
            if k not in ("dtype", "remat", "edge_impl", "gather_mode")}
-    return NBodyGNN(**cfg)
+    edge_impl = config.get("edge_impl", "fused")
+    if edge_impl in ("auto", "xla"):
+        edge_impl = "fused"
+    if edge_impl not in EDGE_IMPLS:
+        raise ValueError(f"model_config names edge_impl {edge_impl!r}; the "
+                         f"port has {EDGE_IMPLS} (and reads 'auto' and "
+                         f"'xla' as 'fused')")
+    return NBodyGNN(edge_impl=edge_impl, **cfg)
 
 
 def count_parameters(model: nn.Module) -> int:

@@ -1,10 +1,13 @@
-"""Graph ops, the fused edge-stream kernels and the direct-force kernels."""
+"""Graph ops, the fused edge-stream and whole-layer kernels and the
+direct-force kernels."""
 
 from nbody_gnn_hpc_torch.ops.edges import edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import (
     SourceCSR, TargetCSR, dropout_keep, fused_edge_backward,
     fused_edge_backward_reference, fused_edge_layer, fused_edge_layer_plain,
     fused_edge_layer_reference, source_csr, target_csr)
+from nbody_gnn_hpc_torch.ops.fused_edge_full import (
+    fused_full_layer, fused_full_layer_plain, fused_full_layer_reference)
 from nbody_gnn_hpc_torch.ops.knn import (KNN_BLOCK, KNN_DENSE_MAX,
                                          edge_index_for,
                                          fully_connected_edge_index,
@@ -22,5 +25,7 @@ __all__ = ["KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N", "SourceCSR",
            "edge_index_for", "fully_connected_edge_index",
            "fused_edge_backward", "fused_edge_backward_reference",
            "fused_edge_layer", "fused_edge_layer_plain",
-           "fused_edge_layer_reference", "is_row_regular", "knn_edge_index",
+           "fused_edge_layer_reference", "fused_full_layer",
+           "fused_full_layer_plain", "fused_full_layer_reference",
+           "is_row_regular", "knn_edge_index",
            "source_csr", "target_csr"]

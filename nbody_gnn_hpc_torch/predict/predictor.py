@@ -5,6 +5,12 @@ Port of ``nbody_gnn_hpc_tpu/predict/predictor.py`` (reference
 forward -> denormalise, outputs fed back in physical units.  The JAX
 package compiles the rollout into one ``lax.scan``; here it is a Python
 loop over steps whose tensors never leave the device until the end.
+
+Weight-only quantization (:mod:`~nbody_gnn_hpc_torch.predict.quantize`):
+after :meth:`Predictor.quantize`, or loading a checkpoint that carries the
+``"quantization"`` marker, the quantized parameter tree is what stays on
+the device (the model's float32 kernels are released), and every rollout
+call dequantizes it to float32 once, before its first step.
 """
 
 from typing import Dict, Optional, Tuple
@@ -14,6 +20,7 @@ import torch
 
 from nbody_gnn_hpc_torch.device import resolve_device, use_full_f32
 from nbody_gnn_hpc_torch.io.model_io import load_checkpoint, load_into
+from nbody_gnn_hpc_torch.io.model_io import params_from_jax, params_to_jax
 from nbody_gnn_hpc_torch.models.gnn import NBodyGNN
 from nbody_gnn_hpc_torch.ops.knn import (fully_connected_edge_index,
                                          knn_edge_index)
@@ -33,16 +40,64 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.k_neighbors = k_neighbors
         self.norm_stats = None
+        self.quantization = None  # None | "bf16" | "int8" (weight-only)
+        self._quantized = None    # the quantized parameter tree, on device
+        self._released = []       # (parameter, shape) of released kernels
         if model_path:
             self.load_model(model_path)
 
     def load_model(self, model_path: str) -> None:
         """Load params + normalisation stats (``predict.py:40-52``; the
-        stats are load-bearing for correctness)."""
-        self.norm_stats = load_into(self.model, load_checkpoint(model_path))
+        stats are load-bearing for correctness).  A quantized serving
+        checkpoint is checked against the model's names and shapes, then
+        kept quantized."""
+        from nbody_gnn_hpc_torch.predict.quantize import tree_to_device
+
+        ckpt = load_checkpoint(model_path)
+        self.quantization, self._quantized = None, None
+        for p, shape in self._released:  # by an earlier quantization
+            p.data = p.data.new_empty(shape)
+        self._released = []
+        self.norm_stats = load_into(self.model, ckpt)
+        if ckpt.get("quantization"):
+            self._hold_quantized(
+                tree_to_device(ckpt["model_state_dict"], self.device),
+                ckpt["quantization"])
         if self.norm_stats is not None:
             print("Loaded normalization stats")
-        print(f"Loaded model from {model_path}")
+        tag = f" [{self.quantization} weights]" if self.quantization else ""
+        print(f"Loaded model from {model_path}{tag}")
+
+    def quantize(self, mode: str) -> None:
+        """Quantize the loaded weights in place (weight-only, ``"bf16"`` or
+        ``"int8"``): a serving memory knob, no reload."""
+        from nbody_gnn_hpc_torch.predict.quantize import quantize_params
+
+        if self.quantization:
+            raise ValueError(f"params already {self.quantization}-quantized")
+        tree = params_to_jax(self.model.state_dict(), numpy=False)
+        self._hold_quantized(quantize_params(tree, mode), mode)
+
+    def _hold_quantized(self, tree, mode: str) -> None:
+        """Keep ``tree`` as the weights and release the float32 kernels it
+        replaces (the model keeps their names; its state dict is no longer
+        a checkpoint)."""
+        self._quantized, self.quantization = tree, mode
+        for p in self.model.parameters():
+            if p.dim() >= 2:
+                self._released.append((p, p.shape))
+                p.data = p.data.new_empty(0)
+
+    def _forward_fn(self):
+        """The model's forward for one rollout call: with quantized weights,
+        through a float32 state dict dequantized here, once."""
+        if self._quantized is None:
+            return self.model
+        from nbody_gnn_hpc_torch.predict.quantize import dequantize_params
+
+        weights = params_from_jax(dequantize_params(self._quantized))
+        return lambda *args: torch.func.functional_call(self.model, weights,
+                                                        args)
 
     def _mean_std(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.norm_stats is None:
@@ -71,13 +126,14 @@ class Predictor:
         use_knn = k is not None and k < n - 1
         static_edges = None if use_knn else torch.as_tensor(
             fully_connected_edge_index(n), device=self.device)
+        forward = self._forward_fn()
         ps, vs = [pos], [vel]
         for _ in range(n_steps):
             norm_pos = (pos - mean[:3]) / std[:3]
             norm_vel = (vel - mean[3:6]) / std[3:6]
             x = torch.cat([norm_pos, norm_vel, mass_feat], dim=-1)
             edges = knn_edge_index(norm_pos, k) if use_knn else static_edges
-            pred = self.model(x, edges, norm_pos)
+            pred = forward(x, edges, norm_pos)
             pos = pred[..., :3] * std[:3] + mean[:3]
             vel = pred[..., 3:6] * std[3:6] + mean[3:6]
             if trajectory:

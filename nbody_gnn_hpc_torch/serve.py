@@ -28,8 +28,18 @@ NDJSON, one line per chunk ({"frame_start", "positions", "velocities"[,
 {"error": ...} line.  Device access is serialised with a lock, released
 between chunks so long streams interleave with other requests.
 
+As it is deployed, the service sits behind three more pieces:
+:class:`MicroBatcher` coalesces concurrent single-system ``/rollout``
+requests into one batched rollout; :func:`build_replica_pool` puts one
+replica of the model on each GPU behind the single-service interface, so
+independent requests run on different cards; and ``max_inflight`` sheds
+compute requests beyond a bound with 503 + ``Retry-After`` while ``/healthz``
+and ``/metrics`` keep answering.  ``quantize`` serves weight-only bf16 or
+int8 weights (:mod:`nbody_gnn_hpc_torch.predict.quantize`).
+
 Run it with ``python -m nbody_gnn_hpc_torch.serve -m
-models/best_rollout_model.pt -c models/config.json``.
+models/best_rollout_model.pt -c models/config.json [--micro-batch 8]
+[--replicas -1] [--max-inflight 32] [--quantize int8]``.
 """
 
 import argparse
@@ -47,10 +57,13 @@ DEFAULT_MODEL_CONFIG = {"node_input_dim": 7, "hidden_dim": 256,
                         "n_layers": 6, "output_dim": 6, "dropout": 0.1}
 
 
-def build_service(model_path: str, config_path: str,
-                  device=None) -> "RolloutService":
+def build_service(model_path: str, config_path: str, device=None,
+                  quantize: Optional[str] = None) -> "RolloutService":
     """RolloutService from a checkpoint + persisted config.json (the schema
-    the JAX package's ``train_model.py`` writes); float32 inference."""
+    the JAX package's ``train_model.py`` writes); float32 inference, with
+    ``quantize`` ("bf16" / "int8") over weight-only quantized weights.  A
+    ``model_config`` that names ``edge_impl: "fused_full"`` is served
+    through the whole-layer kernel."""
     from nbody_gnn_hpc_torch.models import model_from_config
 
     cfg_path = Path(config_path)
@@ -61,7 +74,8 @@ def build_service(model_path: str, config_path: str,
     else:
         model_config, k_neighbors = DEFAULT_MODEL_CONFIG, 40
     return RolloutService(model_from_config(model_config), model_path,
-                          k_neighbors=k_neighbors, device=device)
+                          k_neighbors=k_neighbors, device=device,
+                          quantize=quantize)
 
 
 class RolloutService:
@@ -75,17 +89,22 @@ class RolloutService:
     SIM_CHUNK = 200
 
     def __init__(self, model, checkpoint_path: str, k_neighbors: int = 40,
-                 device=None):
+                 device=None, quantize: Optional[str] = None):
         import torch
 
         from nbody_gnn_hpc_torch.predict import Predictor
 
         self.predictor = Predictor(model, checkpoint_path, device=device,
                                    k_neighbors=k_neighbors)
+        if quantize and not self.predictor.quantization:
+            # A checkpoint that already carries quantized weights wins.
+            self.predictor.quantize(quantize)
         self._lock = threading.Lock()  # one device; serialise dispatches
         self.model_info = {
             "hidden_dim": model.hidden_dim, "n_layers": model.n_layers,
             "k_neighbors": k_neighbors, "checkpoint": str(checkpoint_path),
+            "edge_impl": model.edge_impl,
+            "quantization": self.predictor.quantization,
         }
         dev = self.predictor.device
         self.device = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -326,6 +345,229 @@ def _stream_rollout_chunks(run_chunk, positions, velocities, masses,
         done += todo
 
 
+def build_replica_pool(model_path: str, config_path: str,
+                       n_replicas: Optional[int] = None, device=None,
+                       quantize: Optional[str] = None) -> "ReplicaPool":
+    """One :class:`RolloutService` replica per GPU (``cuda:0`` ..), or the
+    first ``n_replicas`` of them, behind the single-service interface:
+    independent requests run at once on different cards instead of
+    serialising on one device lock.  The 2.5M-parameter model replicates
+    whole.  With ``device="cpu"`` (the tests) ``n_replicas`` is any count
+    given explicitly, each replica with its own copy of the model and its
+    own lock."""
+    import torch
+
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cpu":
+        n = 1 if n_replicas is None else int(n_replicas)
+        if n < 1:
+            raise ValueError(f"n_replicas={n}: need at least one replica")
+        devices = ["cpu"] * n
+    else:
+        from nbody_gnn_hpc_torch.device import resolve_device
+
+        resolve_device(device)  # raises where there is no GPU
+        visible = torch.cuda.device_count()
+        n = visible if n_replicas is None else int(n_replicas)
+        if not 1 <= n <= visible:
+            raise ValueError(f"n_replicas={n} but {visible} GPUs visible")
+        devices = [f"cuda:{i}" for i in range(n)]
+    services = []
+    for i, d in enumerate(devices):
+        svc = build_service(model_path, config_path, device=d,
+                            quantize=quantize)
+        svc.device = f"{d}:{i}" if d == "cpu" else f"{svc.device} ({d})"
+        services.append(svc)
+    return ReplicaPool(services)
+
+
+class ReplicaPool:
+    """Pool of replicas with the :class:`RolloutService` surface.
+
+    Each request takes a free replica (FIFO; it blocks while every replica
+    is busy, as requests to a single service wait for its lock) and runs on
+    that replica's device.  GNN streams take a replica per chunk (their
+    carry is on the host), so long streams spread over the pool; /simulate
+    streams keep one replica (their state lives on its device).  Composes
+    with :class:`MicroBatcher`: each coalesced dispatch takes one replica.
+    """
+
+    def __init__(self, services):
+        import queue
+
+        if not services:
+            raise ValueError("ReplicaPool needs at least one service")
+        self.services = list(services)
+        self._free = queue.Queue()
+        for s in self.services:
+            self._free.put(s)
+        self.STREAM_CHUNK = self.services[0].STREAM_CHUNK
+        self.model_info = {**self.services[0].model_info,
+                           "replicas": len(self.services)}
+        self.device = ", ".join(s.device for s in self.services)
+
+    def warmup(self, *args, **kwargs) -> None:
+        for s in self.services:
+            s.warmup(*args, **kwargs)
+
+    def _run(self, method, *args, **kwargs):
+        s = self._free.get()
+        try:
+            return getattr(s, method)(*args, **kwargs)
+        finally:
+            self._free.put(s)
+
+    def rollout(self, *args, **kwargs):
+        return self._run("rollout", *args, **kwargs)
+
+    def rollout_batch(self, *args, **kwargs):
+        return self._run("rollout_batch", *args, **kwargs)
+
+    def simulate(self, *args, **kwargs):
+        return self._run("simulate", *args, **kwargs)
+
+    def rollout_stream(self, positions, velocities, masses, n_steps: int,
+                       chunk: Optional[int] = None):
+        """Each chunk takes a free replica: FIFO rotation alternates the
+        replicas when several are free."""
+        chunk = int(chunk or self.STREAM_CHUNK)
+        yield from _stream_rollout_chunks(
+            lambda pos, vel, m: self._run("rollout_chunk", pos, vel, m,
+                                          chunk),
+            positions, velocities, masses, int(n_steps), chunk)
+
+    def simulate_stream(self, *args, **kwargs):
+        """The whole stream keeps its replica; exhaustion or abandonment
+        releases it."""
+        s = self._free.get()
+        try:
+            yield from s.simulate_stream(*args, **kwargs)
+        finally:
+            self._free.put(s)
+
+
+class _Job:
+    """One queued single-system rollout awaiting a coalesced dispatch."""
+
+    __slots__ = ("pos", "vel", "masses", "trajectory", "event", "result",
+                 "error")
+
+    def __init__(self, pos, vel, masses, trajectory=True):
+        self.pos, self.vel, self.masses = pos, vel, masses
+        self.trajectory = trajectory
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+
+
+class MicroBatcher:
+    """Coalesce concurrent single-system ``/rollout`` requests into one
+    batched rollout.
+
+    Without it concurrent requests serialise on the device lock: B clients
+    pay B rollouts one after the other.  With it, requests of one
+    (n_particles, n_steps) key that arrive within ``max_wait_s`` of each
+    other run as one ``rollout_batch`` (per-system masses), so B clients
+    pay about one rollout of batch B.  Batches are padded up to fixed
+    buckets (1, 2, 4, ... and ``max_batch`` itself) by repeating the last
+    system, and the padding is sliced off the results: a bounded set of
+    batch shapes, which :meth:`warmup` runs once each.
+    """
+
+    def __init__(self, service, max_batch: int = 8,
+                 max_wait_s: float = 0.005):
+        self.service = service
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_s
+        # max_batch itself is a bucket, so the lookup in _dispatch succeeds
+        # for a cap that is no power of two (6 -> (1, 2, 4, 6)).
+        self.buckets = tuple(sorted(
+            {2 ** i for i in range(max(1, max_batch).bit_length())
+             if 2 ** i <= max_batch} | {max_batch}))
+        self.dispatches = 0  # rollout_batch calls made, for the metrics
+        self._lock = threading.Lock()
+        self._pending = {}  # (n_particles, n_steps) -> list[_Job]
+
+    def warmup(self, n_particles: int, n_steps: int) -> None:
+        """Run every bucket size once for a (N, n_steps) shape."""
+        for b in self.buckets:
+            self.service.warmup(n_particles, n_steps, batch=b)
+
+    def rollout(self, positions, velocities, masses, n_steps: int,
+                trajectory: bool = True):
+        pos = np.asarray(positions, np.float32)
+        vel = np.asarray(velocities, np.float32)
+        masses = np.asarray(masses, np.float32)
+        key = (pos.shape[0], int(n_steps))
+        job = _Job(pos, vel, masses, trajectory)
+        with self._lock:
+            queue = self._pending.setdefault(key, [])
+            queue.append(job)
+            leader = len(queue) == 1
+        if leader:
+            self._lead(key, int(n_steps))
+        job.event.wait()
+        if job.error is not None:
+            raise job.error
+        return job.result
+
+    def _lead(self, key, n_steps: int) -> None:
+        # A short window for followers to join (they pile up by themselves
+        # while the device is busy with an earlier batch).
+        deadline = time.monotonic() + self.max_wait_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                # .get: an earlier leader's drain may have taken this
+                # leader's job and popped the key already.
+                if len(self._pending.get(key, ())) >= self.max_batch:
+                    break
+            time.sleep(0.0005)
+        # The key is popped whole, so a long-lived server keeps no empty
+        # list per request shape; arrivals after the pop elect their own
+        # leader.  Requests beyond the cap run as further bucketed batches.
+        with self._lock:
+            queue = self._pending.pop(key, [])
+        chunks = [queue[i:i + self.max_batch]
+                  for i in range(0, len(queue), self.max_batch)]
+        if len(chunks) <= 1:
+            for chunk in chunks:
+                self._dispatch(chunk, n_steps)
+            return
+        # Overflow chunks dispatch at once: on one device they serialise on
+        # the service lock, on a ReplicaPool each takes its own replica.
+        threads = [threading.Thread(target=self._dispatch,
+                                    args=(chunk, n_steps))
+                   for chunk in chunks]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    def _dispatch(self, jobs, n_steps: int) -> None:
+        bucket = next(b for b in self.buckets if b >= len(jobs))
+        take = jobs + [jobs[-1]] * (bucket - len(jobs))
+        with self._lock:
+            self.dispatches += 1
+        try:
+            # If nobody in this batch wants the trajectory, none is kept.
+            want_traj = any(j.trajectory for j in jobs)
+            out = self.service.rollout_batch(
+                np.stack([j.pos for j in take]),
+                np.stack([j.vel for j in take]),
+                np.stack([j.masses for j in take]), n_steps,
+                trajectory=want_traj)
+            for i, j in enumerate(jobs):
+                sel = (slice(None) if j.trajectory or not want_traj
+                       else -1)
+                j.result = {"positions": out["positions"][i][sel],
+                            "velocities": out["velocities"][i][sel]}
+        except Exception as e:  # surface to every waiter
+            for j in jobs:
+                j.error = e
+        for j in jobs:
+            j.event.set()
+
+
 def _short_repr(val, limit: int = 80) -> str:
     """Bounded repr for error messages (never echo a multi-MB field)."""
     r = repr(val)
@@ -408,8 +650,16 @@ class _Inflight:
             return self._n
 
 
-def make_handler(service: RolloutService, metrics: Optional[Metrics] = None):
+def make_handler(service: RolloutService,
+                 batcher: Optional[MicroBatcher] = None,
+                 metrics: Optional[Metrics] = None,
+                 max_inflight: Optional[int] = None):
     known_paths = _COMPUTE_PATHS + ("/healthz",)
+    # Backpressure: the server starts a thread per connection, so without a
+    # bound a burst piles threads, each holding its decoded arrays, onto the
+    # device lock.  Beyond max_inflight compute requests the next ones are
+    # shed with 503 + Retry-After; /healthz and /metrics never shed.
+    gate = threading.Semaphore(max_inflight) if max_inflight else None
     inflight = _Inflight()
 
     class Handler(BaseHTTPRequestHandler):
@@ -434,10 +684,13 @@ def make_handler(service: RolloutService, metrics: Optional[Metrics] = None):
                 metrics.observe(endpoint, self._status,
                                 time.perf_counter() - t0)
 
-        def _send(self, code: int, body: bytes, ctype: str) -> None:
+        def _send(self, code: int, body: bytes, ctype: str,
+                  headers: Optional[dict] = None) -> None:
             self._status = code
             self.send_response(code)
             self.send_header("Content-Type", ctype)
+            for key, val in (headers or {}).items():
+                self.send_header(key, val)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
@@ -503,7 +756,26 @@ def make_handler(service: RolloutService, metrics: Optional[Metrics] = None):
 
         def do_POST(self):
             with inflight:
+                self._gated_post()
+
+        def _gated_post(self):
+            if gate is not None and not gate.acquire(blocking=False):
+                self._observed(self._shed)
+                return
+            try:
                 self._observed(self._do_post)
+            finally:
+                if gate is not None:
+                    gate.release()
+
+        def _shed(self):
+            # Drain the body first: closing a socket with unread data sends
+            # a reset that can discard the 503 before the client reads it.
+            self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            self._send(503, json.dumps(
+                {"error": f"server busy: max_inflight ({max_inflight}) "
+                          "compute requests in flight"}).encode(),
+                "application/json", {"Retry-After": "1"})
 
         def _do_post(self):
             if self.path not in _COMPUTE_PATHS:
@@ -564,8 +836,12 @@ def make_handler(service: RolloutService, metrics: Optional[Metrics] = None):
                         self._start_stream(service.rollout_stream(
                             pos, vel, masses, n_steps, chunk=chunk))
                         return
-                    run = service.rollout_batch if batched else \
-                        service.rollout
+                    if batched:
+                        run = service.rollout_batch
+                    elif batcher is not None:
+                        run = batcher.rollout
+                    else:
+                        run = service.rollout
                     out = run(pos, vel, masses, n_steps, trajectory=traj)
                 if fmt == "npz":
                     self._reply_npz(out)
@@ -582,12 +858,18 @@ def make_handler(service: RolloutService, metrics: Optional[Metrics] = None):
 
 
 def serve(service: RolloutService, host: str = "127.0.0.1",
-          port: int = 8742) -> ThreadingHTTPServer:
+          port: int = 8742, batcher: Optional[MicroBatcher] = None,
+          max_inflight: Optional[int] = None) -> ThreadingHTTPServer:
     """Start the HTTP server (returns it; call ``serve_forever`` to block).
+    ``service`` is a :class:`RolloutService` or a :class:`ReplicaPool`;
+    ``batcher`` coalesces concurrent ``/rollout`` requests; ``max_inflight``
+    bounds the compute requests in progress (size it to a few times the
+    replica count or the micro-batch cap), the excess is shed with 503.
     ``httpd.metrics`` is its :class:`Metrics` registry; ``httpd.inflight``
     counts requests in progress, for a graceful drain."""
     metrics = Metrics()
-    handler = make_handler(service, metrics)
+    handler = make_handler(service, batcher, metrics,
+                           max_inflight=max_inflight)
     httpd = ThreadingHTTPServer((host, port), handler)
     httpd.metrics = metrics
     httpd.inflight = handler.inflight
@@ -607,15 +889,48 @@ def main(argv=None):
     parser.add_argument("--warm-particles", type=int, default=200,
                         help="warm up a rollout of this N (0 = skip)")
     parser.add_argument("--warm-steps", type=int, default=394)
+    parser.add_argument("--warm-batch", type=int, default=0,
+                        help="also warm up a batched rollout of this size "
+                             "(0 = skip)")
+    parser.add_argument("--micro-batch", type=int, default=0, metavar="B",
+                        help="coalesce concurrent /rollout requests into "
+                             "batched rollouts of up to B systems (padded "
+                             "to power-of-two buckets; 0 = off)")
+    parser.add_argument("--micro-batch-wait-ms", type=float, default=5.0,
+                        help="how long a micro-batch leader waits for "
+                             "followers to join")
+    parser.add_argument("--quantize", choices=("bf16", "int8"), default=None,
+                        help="weight-only quantized weights on the device "
+                             "(a smaller resident model; compute stays "
+                             "float32)")
+    parser.add_argument("--replicas", type=int, default=0, metavar="R",
+                        help="one model replica per GPU, up to R (-1 = "
+                             "every visible GPU; 0 = a single service)")
+    parser.add_argument("--max-inflight", type=int, default=0, metavar="M",
+                        help="shed compute requests beyond M in flight with "
+                             "503 + Retry-After (0 = unbounded); /healthz "
+                             "and /metrics always answer")
     parser.add_argument("--grace-period", type=float, default=10.0,
+                        metavar="S",
                         help="seconds to drain in-flight requests on "
                              "SIGTERM/Ctrl-C")
     args = parser.parse_args(argv)
 
     import signal
 
-    service = build_service(args.model_path, args.config_path,
-                            device=args.device)
+    if args.replicas:
+        service = build_replica_pool(
+            args.model_path, args.config_path,
+            n_replicas=None if args.replicas < 0 else args.replicas,
+            device=args.device, quantize=args.quantize)
+        print(f"Replica pool: {service.model_info['replicas']} replicas "
+              f"({service.device})")
+    else:
+        service = build_service(args.model_path, args.config_path,
+                                device=args.device, quantize=args.quantize)
+    batcher = MicroBatcher(service, max_batch=args.micro_batch,
+                           max_wait_s=args.micro_batch_wait_ms / 1e3) \
+        if args.micro_batch > 0 else None
 
     def _term(signum, frame):
         raise KeyboardInterrupt
@@ -626,8 +941,14 @@ def main(argv=None):
         if args.warm_particles:
             print(f"Warming up (N={args.warm_particles}, "
                   f"steps={args.warm_steps}) on {service.device}...")
-            service.warmup(args.warm_particles, args.warm_steps)
-        httpd = serve(service, host=args.host, port=args.port)
+            service.warmup(args.warm_particles, args.warm_steps,
+                           batch=args.warm_batch or None)
+            if batcher is not None:
+                print(f"Warming micro-batch buckets {batcher.buckets}...")
+                batcher.warmup(args.warm_particles, args.warm_steps)
+        httpd = serve(service, host=args.host, port=args.port,
+                      batcher=batcher,
+                      max_inflight=args.max_inflight or None)
         print(f"Serving on http://{args.host}:{httpd.server_address[1]} "
               f"(endpoints: /healthz, /metrics, /rollout, /rollout_batch, "
               f"/simulate)", flush=True)
@@ -639,6 +960,10 @@ def main(argv=None):
             deadline = time.time() + args.grace_period
             while httpd.inflight.count() and time.time() < deadline:
                 time.sleep(0.1)
+            left = httpd.inflight.count()
+            if left:
+                print(f"Grace period elapsed with {left} request(s) still "
+                      "in flight; exiting anyway.")
             httpd.server_close()
 
 

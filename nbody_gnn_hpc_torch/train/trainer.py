@@ -234,6 +234,7 @@ class Trainer:
             "n_layers": self.model.n_layers,
             "output_dim": self.model.output_dim,
             "dropout": self.model.dropout,
+            "edge_impl": self.model.edge_impl,
         }
 
     def save_model(self, filename: str) -> str:

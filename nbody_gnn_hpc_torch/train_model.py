@@ -68,6 +68,13 @@ def build_parser():
                              "training --epochs MORE epochs; 'auto' picks "
                              "the checkpoint with the highest epoch and "
                              "trains the REMAINING epochs up to --epochs")
+    parser.add_argument("--edge-impl", choices=("fused", "fused_full"),
+                        default="fused",
+                        help="how an interaction layer runs: the edge "
+                             "stream as a kernel between PyTorch's "
+                             "projections and node MLP, or the whole layer "
+                             "as one kernel (same parameters; written to "
+                             "config.json)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' only when "
                              "asked for)")
@@ -152,6 +159,7 @@ def main(argv=None) -> int:
         "output_dim": 6,
         "dropout": config.dropout,
         "dtype": "float32",
+        "edge_impl": args.edge_impl,
     }
     print(f"\n  Train samples: {len(train_dataset)}")
     if val_dataset:

@@ -262,3 +262,160 @@ def test_large_n_dispatch_runs_the_symmetric_kernel(cuda):
     both = accelerations(torch.stack([pos, pos]), torch.stack([m, m]))
     assert ops.accelerations_symmetric.launches == before + 3
     assert torch.equal(both[1], got)
+
+
+# -- the whole-layer kernel (csrc/fused_edge_full.cu) -----------------------
+
+# Forward against the plain version, relative to the output's scale: six
+# float32 products of depth 256-512 and two LayerNorms in another summation
+# order.  Gradients relative to each gradient's scale.
+FULL_RTOL_OF_SCALE, FULL_GRAD_RTOL = 1e-4, 1e-3
+
+
+def _full_inputs(b, n, k, h, device, seed=0, ho=None):
+    from nbody_gnn_hpc_torch.ops import edge_features
+
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    ho = ho or h
+    s = 1 / np.sqrt(h)
+    pos = t(rng.rand(b, n, 3) * 10 - 5)
+    ei = knn_edge_index(pos, k)
+    p = dict(wt=t(rng.randn(h, h) * s), bt=t(rng.randn(h) * .1),
+             ws=t(rng.randn(h, h) * s), we=t(rng.randn(h, 5) * .3),
+             ge=t(1 + .1 * rng.randn(h)), be=t(.1 * rng.randn(h)),
+             wout=t(rng.randn(h, h) * s), bout=t(rng.randn(h) * .1),
+             w1=t(rng.randn(h, 2 * h) * s), b1=t(rng.randn(h) * .1),
+             g1=t(1 + .1 * rng.randn(h)), be1=t(.1 * rng.randn(h)),
+             w2=t(rng.randn(ho, h) * s), b2=t(rng.randn(ho) * .1))
+    mask = t((rng.rand(b, n, h) >= .1) / .9)
+    return (t(rng.randn(b, n, h)), edge_features(pos, ei), p,
+            target_csr(ei, n, sources=True), mask)
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("b,n,k,h,ho", [
+    (1, 200, 40, 256, None), (8, 200, 40, 256, None),
+    (24, 200, 40, 256, None), (1, 13, 4, 256, None), (2, 37, 5, 32, None),
+    (3, 50, 7, 96, 64)])
+def test_whole_layer_kernel_matches_plain_version(cuda, b, n, k, h, ho,
+                                                  training):
+    from nbody_gnn_hpc_torch.ops import (fused_full_layer,
+                                         fused_full_layer_reference)
+
+    hh, ea, p, edges, mask = _full_inputs(b, n, k, h, cuda, seed=n + h,
+                                          ho=ho)
+    seed, mask, rate = (_seed(cuda), mask, 0.1) if training else (None, None,
+                                                                  0.0)
+    with torch.inference_mode():
+        before = fused_full_layer.launches
+        got = fused_full_layer(hh, ea, p, edges, seed, mask, dropout_p=rate,
+                               deterministic=not training)
+        torch.cuda.synchronize()
+        assert fused_full_layer.launches == before + 1  # cooperative
+        want, _ = fused_full_layer_reference(hh, ea, p, edges, seed, mask,
+                                             rate)
+        assert got.shape == (b, n, ho or h)
+        err = (got - want).abs().max().item()
+        assert err <= FULL_RTOL_OF_SCALE * want.abs().max().item()
+        assert torch.equal(got, fused_full_layer(
+            hh, ea, p, edges, seed, mask, dropout_p=rate,
+            deterministic=not training))  # fixed summation order
+
+
+def test_whole_layer_two_launch_form_equals_cooperative(cuda, monkeypatch):
+    from nbody_gnn_hpc_torch.ops import fused_edge_full as ff
+
+    hh, ea, p, edges, _ = _full_inputs(8, 200, 40, 256, cuda, seed=4)
+    with torch.inference_mode():
+        one = ff.fused_full_layer(hh, ea, p, edges)
+        monkeypatch.setattr(ff, "COOPERATIVE", False)
+        before = ff.fused_full_layer.launches
+        two = ff.fused_full_layer(hh, ea, p, edges)
+        assert ff.fused_full_layer.launches == before + 2
+    assert torch.equal(one, two)
+
+
+def test_whole_layer_gradients_match_plain_composition(cuda):
+    from nbody_gnn_hpc_torch.ops import (fused_full_layer,
+                                         fused_full_layer_plain)
+    from nbody_gnn_hpc_torch.ops.fused_edge_full import PARAM_KEYS
+
+    hh, ea, p, edges, mask = _full_inputs(4, 200, 40, 256, cuda, seed=3)
+    g_out = torch.randn_like(hh)
+
+    def grads(fn):
+        leaves = [hh.clone().requires_grad_(), ea.clone().requires_grad_()]
+        params = {k: v.clone().requires_grad_() for k, v in p.items()}
+        out = fn(leaves[0], leaves[1], params, edges, _seed(cuda), mask,
+                 dropout_p=0.1, deterministic=False)
+        assert out.grad_fn is not None
+        out.backward(g_out)
+        return [t.grad for t in leaves + [params[k] for k in PARAM_KEYS]]
+
+    before = fused_edge_backward.launches
+    got = grads(fused_full_layer)
+    assert fused_edge_backward.launches == before + 1  # kernel 2
+    for name, g, w in zip(("h", "edge_attr") + PARAM_KEYS, got,
+                          grads(fused_full_layer_plain)):
+        err = (g - w).abs().max().item()
+        assert err <= FULL_GRAD_RTOL * (w.abs().max().item() + 1e-6), name
+
+
+def test_whole_layer_model_equals_fused_model(cuda):
+    """``edge_impl="fused_full"`` against ``"fused"`` on one state dict:
+    kernel 7 six times and kernel 1 never, the same output."""
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.ops import fused_full_layer
+
+    kw = dict(hidden_dim=256, n_layers=6)
+    fused = NBodyGNN(generator=torch.Generator().manual_seed(0), **kw)
+    with torch.no_grad():
+        fused.decoder_out.weight.normal_(
+            0, 0.05, generator=torch.Generator().manual_seed(1))
+    full = NBodyGNN(edge_impl="fused_full", **kw)
+    full.load_state_dict(fused.state_dict())
+    fused, full = fused.to(cuda).eval(), full.to(cuda).eval()
+    x = torch.randn(8, 200, 7, device=cuda)
+    ei = knn_edge_index(x[..., :3], 40)
+    with torch.inference_mode():
+        want = fused(x, ei)
+        k7, k1 = fused_full_layer.launches, fused_edge_layer.launches
+        got = full(x, ei)
+    assert fused_full_layer.launches == k7 + 6
+    assert fused_edge_layer.launches == k1
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
+
+
+def test_whole_layer_wrapper_rejects_bad_operands(cuda):
+    from nbody_gnn_hpc_torch.ops import fused_full_layer
+
+    hh, ea, p, edges, _ = _full_inputs(1, 20, 4, 64, cuda, seed=5)
+    with pytest.raises(TypeError):
+        fused_full_layer(hh.double(), ea, p, edges)
+    with pytest.raises(ValueError, match="shape"):
+        fused_full_layer(hh, ea, dict(p, w1=p["w1"][:, :64].contiguous()),
+                         edges)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        bad = _full_inputs(1, 20, 4, 48, cuda, seed=6)
+        fused_full_layer(*bad[:4])
+
+
+def test_int8_on_cuda_tensors_equals_numpy(cuda):
+    """Quantizing on the card gives the file's numbers: ``q`` and ``scale``
+    bit for bit (CUDA divides by a Python scalar as a product with its
+    reciprocal, so the scale is divided by a tensor)."""
+    from nbody_gnn_hpc_torch.predict.quantize import (quantize_params,
+                                                      tree_to_device)
+
+    rng = np.random.RandomState(7)
+    tree = {"dense": {"kernel": rng.randn(256, 512).astype(np.float32),
+                      "bias": rng.randn(512).astype(np.float32)}}
+    on_card = quantize_params(
+        {"dense": {k: torch.from_numpy(v).to(cuda)
+                   for k, v in tree["dense"].items()}}, "int8")
+    from_host = tree_to_device(quantize_params(tree, "int8"), cuda)
+    for key in ("q", "scale"):
+        assert torch.equal(on_card["dense"]["kernel"][key],
+                           from_host["dense"]["kernel"][key]), key

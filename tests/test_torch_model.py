@@ -130,10 +130,23 @@ def test_training_mode_edge_stream_not_ported():
 
 
 def test_load_into_refuses_quantized_checkpoint(tmp_path):
+    """A checkpoint marked with a quantization the port does not know is
+    refused; "bf16" and "int8" ones load, dequantized to float32 (their
+    values are held in tests/test_torch_quantize.py)."""
+    from nbody_gnn_hpc_torch.predict import quantize_params
+
     _, jparams, model = _small()
     with pytest.raises(ValueError, match="quantized"):
         load_into(model, {"model_state_dict": jparams,
-                          "quantization": "int8"})
+                          "quantization": "fp4"})
+    before = model.decoder_0.weight.clone()
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    load_into(model, {"model_state_dict": quantize_params(tree, "int8"),
+                      "quantization": "int8"})
+    after = model.decoder_0.weight
+    assert after.dtype == torch.float32 and not torch.equal(after, before)
+    torch.testing.assert_close(after, before, rtol=0,
+                               atol=before.abs().max().item() / 127)
 
 
 def test_production_checkpoint_full_width_matches_jax():

@@ -43,7 +43,10 @@ def test_importing_the_port_loads_no_jax():
             "nbody_gnn_hpc_torch.train_model, nbody_gnn_hpc_torch.config, "
             "nbody_gnn_hpc_torch.generate_data, nbody_gnn_hpc_torch.evaluate, "
             "nbody_gnn_hpc_torch.parallel, nbody_gnn_hpc_torch.io, "
-            "nbody_gnn_hpc_torch.utils, nbody_gnn_hpc_torch.ops\n"
+            "nbody_gnn_hpc_torch.utils, nbody_gnn_hpc_torch.ops, "
+            "nbody_gnn_hpc_torch.ops.fused_edge_full, "
+            "nbody_gnn_hpc_torch.predict.quantize, "
+            "nbody_gnn_hpc_torch.quantize_model\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
@@ -133,3 +136,72 @@ def test_simulator_entry_points_refuse_cpu_unasked(no_cuda, tmp_path):
                        "-c", "models/config.json", "-o", str(tmp_path / "r")])
     assert simulate_ensemble([1, 2], 5, 2, device="cpu"
                              ).positions.device.type == "cpu"
+
+
+def test_deployed_serving_refuses_cpu_unasked(no_cuda, tmp_path):
+    """The pool, and the service command with the deployment flags, want a
+    GPU; quantizing a checkpoint file is host work and needs none."""
+    from nbody_gnn_hpc_torch.io import params_to_jax, save_checkpoint
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.quantize_model import main as quantize_main
+    from nbody_gnn_hpc_torch.serve import build_replica_pool, main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_replica_pool("models/best_rollout_model.pt",
+                           "models/config.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_replica_pool("models/best_rollout_model.pt",
+                           "models/config.json", n_replicas=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--warm-particles", "0", "--port", "0", "--replicas", "-1",
+              "--micro-batch", "8", "--max-inflight", "16", "--quantize",
+              "int8"])
+    src = tmp_path / "m.pt"
+    save_checkpoint(src, params=params_to_jax(
+        NBodyGNN(hidden_dim=32, n_layers=1).state_dict()))
+    assert quantize_main(["-m", str(src), "--mode", "int8"]) == 0
+    assert (tmp_path / "m.int8.pt").exists()
+
+
+def test_whole_layer_wrapper_runs_its_kernel_on_cuda_tensors_only(
+        monkeypatch):
+    """On the CPU the wrapper runs the plain version because its tensors
+    lie there; a CUDA tensor goes to the kernel's launcher, never to the
+    plain version; any other device is refused."""
+    from nbody_gnn_hpc_torch.ops import fused_edge_full as ff
+
+    calls = []
+    monkeypatch.setattr(ff, "_launch", lambda *a, **k: calls.append("kernel")
+                        or (_ for _ in ()).throw(RuntimeError("launched")))
+    monkeypatch.setattr(ff, "fused_full_layer_reference",
+                        lambda *a, **k: calls.append("plain")
+                        or (torch.zeros(4, 32), torch.zeros(4, 32)))
+
+    class _OnCuda:
+        """Stands in for a CUDA tensor as far as the dispatch looks."""
+        device = torch.device("cuda")
+
+        def dim(self):
+            return 3
+
+        def contiguous(self):
+            return self
+
+    class _Ctx:
+        def save_for_backward(self, *a):
+            pass
+
+        def mark_non_differentiable(self, *a):
+            pass
+
+    params = [torch.zeros(1)] * len(ff.PARAM_KEYS)
+    with pytest.raises(RuntimeError, match="launched"):
+        ff._FullLayer.forward(_Ctx(), None, None, None, 0.0, _OnCuda(),
+                              _OnCuda(), *params)
+    assert calls == ["kernel"]
+    ff._FullLayer.forward(_Ctx(), None, None, None, 0.0, torch.zeros(4, 32),
+                          torch.zeros(8, 5), *params)
+    assert calls == ["kernel", "plain"]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ff.fused_full_layer(torch.zeros(4, 32, device="meta"), None, {},
+                            None)
