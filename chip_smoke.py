@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, simulator and deployed-serving
-paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, simulator, deployed-serving and
+ceilings paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
    tiled (kernel 3) and symmetric (kernel 6) at N=10,000, 2,085 and 700,
    small (kernel 4) at (300, 200), (1, 200) and (3, 13), rtol 2e-4 with
    atol 1e-5 of the force scale; kernel 6 against kernel 3; momentum
-   neutrality; a coincident heavy pair; zero-mass rows.  Reruns must be
+   neutrality; a coincident heavy pair; zero-mass rows.  The moment form
+   (kernel 5, tensor-core products, dispatched by nothing) at N=700 offset
+   by 300 and N=2,085, rtol 2e-4 with atol 2e-5 of scale, and at N=10,000
+   against a float64 direct sum at the same tolerance, its per-particle
+   difference from its plain version and from kernel 6 reported; it must
+   then stay unlaunched on every path below (its launches are this
+   script's own, "oracle").  Reruns must be
    bit-identical (no float atomics).  Times with CUDA events, bounds from
    the bytes and float32 operations of each call; the keep fraction of the
    mask against 1-p.  The whole-layer kernel (kernel 7) on the checkpoint's
@@ -88,6 +94,16 @@ Phases (any failure exits non-zero and prints no result line):
    Retry-After; int8 and bf16 services against float32 (5e-2 / 2e-2 of
    scale, tests/test_quantize.py); an int8 checkpoint written, reloaded and
    served.  One 394-step rollout of either service under torch.profiler.
+9. The card's ceilings, the fifth main path: the rate probes (kernels 10
+   and 11) against their plain versions, rtol 1e-5, in each of the five
+   forms the measurement launches at its own shape: the one-accumulator
+   FMA and rsqrt chains at (1024, 1024) x 4,096 steps, the 4-accumulator
+   FMA chain at (512, 512) x 4,096 and the Pallas kernels' form at
+   (256, 1024) x 1,024, the last timed; then, counts zeroed just before and read just after, the
+   measurement of ``python -m nbody_gnn_hpc_torch.roofline`` in process
+   (dependent and 4-accumulator chains, both probes, the bf16 product
+   chain), its JSON line printed; any rate above 105 % of its published
+   peak fails (the timer would be wrong).
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -103,12 +119,16 @@ from pathlib import Path
 
 import numpy as np
 
+try:  # the port's published peaks and device timer
+    from nbody_gnn_hpc_torch.roofline import (PEAK_BYTES_PER_S, PEAK_F32_PER_S,
+                                              PEAK_RSQRT_PER_S, cuda_time_ms)
+except ImportError as e:
+    print(f"chip_smoke FAILED: the port package is not importable here ({e}); "
+          f"run from the root of the repository", flush=True)
+    sys.exit(1)
+
 MODEL = "models/best_rollout_model.pt"
 CONFIG = "models/config.json"
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# operations/s outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)
 # Kernel 2's gradients against the plain backward: float32 sums of up to
 # B*E = 192k edge terms in another order, relative to each gradient's
@@ -129,12 +149,13 @@ ROLLOUT_STEPS = 394  # the evaluation protocol's rollout
 # Quantized services against float32 over 5 steps, of the position scale
 # (tests/test_quantize.py).
 QUANT_RTOL = {"bf16": 2e-2, "int8": 5e-2}
-# Special-function results per second: 16 per clock per SM against 128
-# float32 FMA lanes (2 operations each).
-PEAK_SFU_PER_S = PEAK_F32_PER_S / 16
 # The force kernels against their plain versions, as the JAX package's
 # kernel tests: float32 sum order and rsqrt rounding.
 FORCE_RTOL, FORCE_ATOL_OF_SCALE = 2e-4, 1e-5
+# Kernel 5 (the moment form) against its plain version: the JAX package's
+# test of that form (tests/test_ops.py:178), whose centring cancellation
+# amplifies the rounding of the closest pairs.
+MXU_ATOL_OF_SCALE = 2e-5
 # float32 adds and multiplies the function needs per pair (an FMA is two),
 # whatever implements it.  An ordered pair (kernels 3, 4): 3 subtractions
 # for the displacement, 3 multiplies + 3 adds for d^2 + eps^2, 2 multiplies
@@ -144,6 +165,11 @@ FORCE_RTOL, FORCE_ATOL_OF_SCALE = 2e-4, 1e-5
 # accumulators.  The compare-select of the coincident-pair mask is no float
 # operation.
 FLOPS_PER_ORDERED_PAIR, FLOPS_PER_UNORDERED_PAIR = 18, 25
+# Kernels 10 and 11 against their plain versions: rsqrtf is approximate and
+# the rsqrt recurrence contracts; the plain FMA rounds once, as the kernel's.
+PROBE_RTOL = 1e-5
+# A measured rate above this share of its published peak means a wrong timer.
+CEILING_MAX_SHARE = 1.05
 DATAGEN = dict(n_sims=300, n_steps=400, n=200, box=10.0, dt=0.001, seed=42)
 LARGE_N, ODD_N = 10_000, 2_085
 # Large-N /simulate against the CPU service, per particle: at N=10,000 in a
@@ -166,30 +192,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def cuda_time_ms(fn, reps: int = 20, inner: int = 50,
-                 warmup: int = 5) -> float:
-    """Median over ``reps`` of the mean device time of ``inner``
-    back-to-back calls, by CUDA events, after a warm-up.  A sleep kernel
-    ahead of each batch holds the stream while the host enqueues the
-    calls, so the events time the device, not the host's launch rate."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # ~10 ms of device clock cycles
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
 
 
 def eval_states(b: int, n: int = N):
@@ -941,7 +943,7 @@ def force_bound_ms(n_pairs: int, flops_per_pair: int, n_particles: int) -> tuple
     (the two pipes overlap, so the larger counts), and 16 bytes in, 12 out
     per particle over HBM bandwidth."""
     t_ops = max(n_pairs * flops_per_pair / PEAK_F32_PER_S,
-                n_pairs / PEAK_SFU_PER_S) * 1e3
+                n_pairs / PEAK_RSQRT_PER_S) * 1e3
     t_bytes = 28 * n_particles / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -957,6 +959,24 @@ def protocol_system(n: int, dev):
             torch.as_tensor(masses, device=dev))
 
 
+def direct_f64(pos, m, rows: int = 1000):
+    """The direct softened sum in float64 on the card, ``rows`` receivers
+    at a time: the yardstick of the float32 forms' rounding."""
+    import torch
+
+    from nbody_gnn_hpc_torch.device import G, SOFTENING
+
+    p, gm = pos.double(), G * m.double()
+    out = torch.empty_like(p)
+    for i0 in range(0, len(p), rows):
+        d = p[None] - p[i0:i0 + rows, None]
+        d2 = (d * d).sum(-1)
+        s = torch.where(d2 > 0, (d2 + SOFTENING ** 2) ** -1.5,
+                        torch.zeros_like(d2))
+        out[i0:i0 + rows] = ((s * gm)[..., None] * d).sum(1)
+    return out
+
+
 def phase_force_kernels(dev):
     """Kernels 3, 4 and 6 against their plain versions (the ``*_reference``
     functions called on CUDA tensors); returns the timed rows and each
@@ -969,7 +989,8 @@ def phase_force_kernels(dev):
 
     rows, errs = [], {}
 
-    def held(name, kernel, plain, pos, m, label, n_pairs, flops, time_it):
+    def held(name, kernel, plain, pos, m, label, n_pairs, flops, time_it,
+             atol_of_scale=FORCE_ATOL_OF_SCALE):
         before = kernel.launches
         got = kernel(pos, m)
         torch.cuda.synchronize()
@@ -979,12 +1000,12 @@ def phase_force_kernels(dev):
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         ok = torch.allclose(got, want, rtol=FORCE_RTOL,
-                            atol=FORCE_ATOL_OF_SCALE * scale)
+                            atol=atol_of_scale * scale)
         same = torch.equal(got, kernel(pos, m))
         errs[name] = max(errs.get(name, 0.0), err)
         print(f"  {name} {label}: max abs err {err:.3e} at force scale "
               f"{scale:.3e} (tolerance rtol {FORCE_RTOL:g}, atol "
-              f"{FORCE_ATOL_OF_SCALE:g} of scale: f32 sum order, rsqrt) -> "
+              f"{atol_of_scale:g} of scale: f32 sum order, rsqrt) -> "
               f"{'ok' if ok else 'MISMATCH'}; rerun bit-identical: {same}",
               flush=True)
         check(ok, f"{name} disagrees with its plain version at {label}")
@@ -1026,6 +1047,66 @@ def phase_force_kernels(dev):
               f"|sum m a| / sum |m a| = {net[0]:.2e} (kernel 3), "
               f"{net[1]:.2e} (kernel 6) (limit 1e-5)", flush=True)
         check(max(net) < 1e-5, f"net force is not neutral at N={n}")
+
+    # Kernel 5, the moment form, which no entry point dispatches: held
+    # against its plain version at the JAX test's tolerance on an offset
+    # cloud (tests/test_ops.py:170-178) and at N=2,085.  At N=10,000, the
+    # shape it is timed at, it is held against a float64 direct sum at the
+    # same tolerance, and its close-pair error, per particle, against its
+    # plain version, kernel 6 and the float64 sum is reported.
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is enabled: kernel 5's plain version needs float32 products")
+    for n, offset in ((700, 300.0), (ODD_N, 0.0), (LARGE_N, 0.0)):
+        pos, _, m = protocol_system(n, dev)
+        pos = pos + offset
+        label = f"N={n}" + (f", offset by {offset:g}" if offset else "")
+        if n != LARGE_N:
+            held("pairwise_symmetric_mxu", ops.accelerations_symmetric_mxu,
+                 ops.accelerations_symmetric_mxu_reference, pos, m, label,
+                 n * (n - 1) // 2, FLOPS_PER_UNORDERED_PAIR, False,
+                 MXU_ATOL_OF_SCALE)
+            continue
+        got = ops.accelerations_symmetric_mxu(pos, m)
+        plain = ops.accelerations_symmetric_mxu_reference(pos, m)
+        k6 = ops.accelerations_symmetric(pos, m)
+        f64 = direct_f64(pos, m)
+        for a, b, what in ((got, plain, "kernel 5 vs its plain version"),
+                           (got, k6, "kernel 5 vs kernel 6"),
+                           (got, f64, "kernel 5 vs the float64 direct sum"),
+                           (plain, f64, "kernel 5's plain version vs float64"),
+                           (k6, f64, "kernel 6 vs float64")):
+            rel = (a.double() - b).norm(dim=1) / b.double().norm(dim=1)
+            print(f"  {label}, {what}, per particle: median relative "
+                  f"difference {rel.median().item():.3e}, largest "
+                  f"{rel.max().item():.3e} (reported)", flush=True)
+        check(bool(torch.isfinite(got).all()),
+              f"kernel 5 gave non-finite forces at {label}")
+        scale = f64.abs().max().item()
+        share = ((got.double() - f64).abs() / (
+            MXU_ATOL_OF_SCALE * scale + FORCE_RTOL * f64.abs())).max().item()
+        print(f"  {label}: kernel 5 vs the float64 direct sum at rtol "
+              f"{FORCE_RTOL:g}, atol {MXU_ATOL_OF_SCALE:g} of scale: largest "
+              f"difference {share:.3f} of the tolerance -> "
+              f"{'ok' if share <= 1 else 'MISMATCH'}", flush=True)
+        check(share <= 1, f"kernel 5 disagrees with the float64 direct sum at "
+              f"{label}")
+        # The time includes the wrapper's centring (a mean and a
+        # subtraction), part of the function as a caller runs it.
+        ms = cuda_time_ms(lambda: ops.accelerations_symmetric_mxu(pos, m))
+        plain_ms = cuda_time_ms(
+            lambda: ops.accelerations_symmetric_mxu_reference(pos, m), 3, 2, 1)
+        n_pairs = n * (n - 1) // 2
+        bound = force_bound_ms(n_pairs, FLOPS_PER_UNORDERED_PAIR, n)
+        rows.append({"kernel": "pairwise_symmetric_mxu", "shape": f"N={n}",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "pairs": n_pairs,
+                     "gpairs_per_s": n_pairs / ms / 1e6})
+        print(f"    kernel with the wrapper's centring {ms:.5f} ms "
+              f"({n_pairs / ms / 1e6:.1f} G pairs/s), "
+              f"plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms "
+              f"({bound[1]}: kernel 6's work, whatever implements it); no "
+              f"single PyTorch call computes the softened pair sum "
+              f"(library_ms null)", flush=True)
 
     masses = shared_masses(DATAGEN["n"], seed=DATAGEN["seed"])
     for b, n in ((DATAGEN["n_sims"], DATAGEN["n"]), (1, DATAGEN["n"]),
@@ -1618,6 +1699,89 @@ def phase_deployed(dev_name, fused_service, fused_traj20):
                     launches))
 
 
+def probe_bound_ms(x, steps: int, rsqrt: bool) -> tuple:
+    """Least H100 time for one probe call at four accumulators: x read and
+    the result written once over HBM bandwidth, against 2 operations per
+    FMA over the float32 peak (kernel 10), or one rsqrt per step over the
+    special-function rate against the adds over the float32 peak (kernel
+    11)."""
+    n_steps = x.numel() * steps * 4
+    t_bytes = 8 * x.numel() / PEAK_BYTES_PER_S * 1e3
+    t_ops = (max(n_steps / PEAK_RSQRT_PER_S, n_steps / PEAK_F32_PER_S)
+             if rsqrt else 2 * n_steps / PEAK_F32_PER_S) * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_ceilings(dev):
+    """Kernels 10 and 11 against their plain versions in every form the
+    ceilings measurement launches, each at its own shape, and timed in the
+    Pallas kernels' form; then that measurement in process, the main path
+    of this phase.  Returns the timed rows, each probe's largest absolute
+    error and the launches of that run."""
+    import torch
+
+    from nbody_gnn_hpc_torch import ops, roofline
+
+    rows, errs = [], {}
+    names = {ops.fma_probe: "probe_fma", ops.rsqrt_probe: "probe_rsqrt"}
+    plains = {ops.fma_probe: ops.fma_probe_reference,
+              ops.rsqrt_probe: ops.rsqrt_probe_reference}
+    for form, kernel, shape, seed, steps, kw in roofline.probe_forms(
+            **roofline.SHAPES):
+        name, plain = names[kernel], plains[kernel]
+        x = roofline.probe_input(shape, seed, dev)
+        before = kernel.launches
+        got = kernel(x, steps, **kw)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{name} did not count its launch")
+        want = plain(x, steps, **kw)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        same = torch.equal(got, kernel(x, steps, **kw))
+        errs[name] = max(errs.get(name, 0.0), (got - want).abs().max().item())
+        label = f"{tuple(x.shape)} k={steps}"
+        print(f"  {name} as {form} {label}: max relative err {rel:.3e} "
+              f"(tolerance {PROBE_RTOL:g}: rsqrtf is approximate; the plain "
+              f"FMA rounds once, as __fmaf_rn does) -> "
+              f"{'ok' if rel <= PROBE_RTOL else 'MISMATCH'}; rerun "
+              f"bit-identical: {same}", flush=True)
+        check(rel <= PROBE_RTOL, f"{name} as {form} disagrees with its plain "
+              f"version")
+        check(same, f"{name} reruns are not bit-identical")
+        if not form.startswith("kernel_"):
+            continue
+        ms = cuda_time_ms(lambda: kernel(x, steps))
+        # 16,384 (FMA) or 8,192 (rsqrt) small launches a call: a few do.
+        plain_ms = cuda_time_ms(lambda: plain(x, steps), 3, 1, 1)
+        bound = probe_bound_ms(x, steps, kernel is ops.rsqrt_probe)
+        rows.append({"kernel": name, "shape": label, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
+        print(f"    kernel {ms:.5f} ms, plain {plain_ms:.4f} ms (launch-bound "
+              f"loops), bound {bound[0]:.6f} ms ({bound[1]}); no single "
+              f"PyTorch call computes this loop (library_ms null)",
+              flush=True)
+
+    # main-path run starts here
+    ops.fma_probe.launches = ops.rsqrt_probe.launches = 0
+    result = roofline.measure_ceilings(dev, **roofline.SHAPES)
+    launches = {"probe_fma": ops.fma_probe.launches,
+                "probe_rsqrt": ops.rsqrt_probe.launches}
+    # main-path run ends here
+    print(f"  ceilings {json.dumps(result)}", flush=True)
+    for key, share in result["share_of_published_peak"].items():
+        print(f"  {key}: {result[key]:.4f} = {100 * share:.2f} % of the "
+              f"published peak {result['published_peak'][key]:g}",
+              flush=True)
+        check(0 < share <= CEILING_MAX_SHARE,
+              f"{key} reads {100 * share:.1f} % of its published peak (the "
+              f"timer is wrong above {100 * CEILING_MAX_SHARE:.0f} %)")
+    print(f"  launches of the ceilings run: probe_fma {launches['probe_fma']} "
+          f"(chain, 4-accumulator chain, kernel 10), probe_rsqrt "
+          f"{launches['probe_rsqrt']}", flush=True)
+    check(min(launches.values()) > 0, "the ceilings run launched no probe")
+    return rows, errs, launches
+
+
 def main() -> int:
     # 1. Environment
     import torch
@@ -1632,18 +1796,14 @@ def main() -> int:
     dev_name = torch.cuda.get_device_name(0)
     print(f"[1] {smi[0]} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {dev_name}", flush=True)
-    try:
-        from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
-        from nbody_gnn_hpc_torch.models import model_from_config
-        from nbody_gnn_hpc_torch.ops.cuda_build import build
-    except ImportError as e:
-        fail(f"the port package is not importable here ({e}); run from the "
-             f"root of the repository")
+    from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
+    from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops.cuda_build import build
     t_start = time.perf_counter()
 
     # 2. Build
     t0 = time.perf_counter()
-    built = build(["fused_edge", "pairwise", "fused_edge_full"])
+    built = build(["fused_edge", "pairwise", "fused_edge_full", "probes"])
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
@@ -1658,32 +1818,52 @@ def main() -> int:
         cfg = json.load(f)["model_config"]
     model = model_from_config(cfg).to(dev).eval()
     norm_stats = load_into(model, load_checkpoint(MODEL))
+    from nbody_gnn_hpc_torch.ops import accelerations_symmetric_mxu as mxu
+
     with torch.inference_mode():
         rows, errs = phase_kernels(model, norm_stats, dev)
         force_rows, force_errs = phase_force_kernels(dev)
     full_rows, full_err = phase_full_layer(model, norm_stats, dev)
+    # Kernel 5 is dispatched by no entry point: its launches so far are this
+    # script's own, and each path below must launch it no time.
+    mxu_by_path = {"oracle": mxu.launches}
+
+    def path(name, fn, *args):
+        mxu.launches = 0
+        out = fn(*args)
+        mxu_by_path[name] = mxu_by_path.get(name, 0) + mxu.launches
+        return out
 
     # 4. Serving main path
     print("[4] serving the production checkpoint", flush=True)
-    service, serve_fwd, traj20 = phase_serving(dev_name)
+    service, serve_fwd, traj20 = path("serving", phase_serving, dev_name)
 
     # 5. Where the serving time goes
     print("[5] profile", flush=True)
-    phase_profile(service)
+    path("serving", phase_profile, service)
 
     # 6. Training main path
     print("[6] training the production-width model", flush=True)
-    train_fwd, train_bwd = phase_train(dev)
+    train_fwd, train_bwd = path("training", phase_train, dev)
 
     # 7. The simulator side, the third main path
     print("[7] the simulator side: datagen, large-N /simulate, evaluation",
           flush=True)
-    sim, oracle = phase_simulator(service, dev)
+    sim, oracle = path("simulator", phase_simulator, service, dev)
 
     # 8. Serving as it is deployed, the fourth main path
     print("[8] serving as deployed: fused_full behind the pool, the "
           "micro-batcher and the gate; quantization", flush=True)
-    deployed = phase_deployed(dev_name, service, traj20)
+    deployed = path("deployed", phase_deployed, dev_name, service, traj20)
+
+    # 9. The card's ceilings, the fifth main path
+    print("[9] the card's ceilings: kernels 10 and 11, python -m "
+          "nbody_gnn_hpc_torch.roofline in process", flush=True)
+    probe_rows, probe_errs, ceilings = path("ceilings", phase_ceilings, dev)
+    print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
+          f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
+    check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
+          "an entry point launched kernel 5, which nothing dispatches")
 
     by_path = {
         "fused_edge_fwd": {"serving": serve_fwd, "training": train_fwd},
@@ -1708,7 +1888,14 @@ def main() -> int:
              force_rows, force_errs),
             ("fused_full_fwd", "fused_edge_full",
              "nbody_gnn_hpc_tpu/ops/fused_edge_full.py:78", "deployed",
-             full_rows, {"fused_full_fwd": full_err})):
+             full_rows, {"fused_full_fwd": full_err}),
+            ("pairwise_symmetric_mxu", "pairwise",
+             "nbody_gnn_hpc_tpu/ops/pairwise.py:291", f"N={LARGE_N}",
+             force_rows, force_errs),
+            ("probe_fma", "probes", "benchmarks/roofline.py:184",
+             probe_rows[0]["shape"], probe_rows, probe_errs),
+            ("probe_rsqrt", "probes", "benchmarks/roofline.py:214",
+             probe_rows[1]["shape"], probe_rows, probe_errs)):
         mine = [r for r in kernel_rows if r["kernel"] == name]
         if shape is None:  # the edge kernels: the training form at B=24
             row = next(r for r in mine
@@ -1725,7 +1912,10 @@ def main() -> int:
         paths = {"serving": 0, "training": 0, **by_path.get(name, {}),
                  "simulator": sim.get(name, 0),
                  "deployed": deployed.get(name, 0),
+                 "ceilings": ceilings.get(name, 0),
                  "oracle": oracle.get(name, 0)}
+        if name == "pairwise_symmetric_mxu":
+            paths = {key: mxu_by_path.get(key, 0) for key in paths}
         table["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"nbody_gnn_hpc_torch/csrc/{source}.cu",
@@ -1736,13 +1926,17 @@ def main() -> int:
             "library_ms": None, "shape": shape, "by_shape": mine,
             **({"composed_ms": row["composed_ms"]}
                if "composed_ms" in row else {})})
-    # Kernel 3 is the public oracle form, dispatched by no entry point: its
-    # launches are the oracle comparison's.  Every other kernel must have
-    # been launched by an entry point.
+    # Kernels 3 and 5 are dispatched by no entry point: their launches are
+    # this script's own comparisons.  The probes run on the ceilings path.
+    # Every other kernel must have been launched by an entry point.
     for k in table["kernels"]:
         by = k["launches_by_path"]
-        ran = (by["oracle"] if k["name"] == "pairwise_tiled"
-               else k["launches"] - by["oracle"])
+        if k["name"] in ("pairwise_tiled", "pairwise_symmetric_mxu"):
+            ran = by["oracle"]
+        elif k["name"].startswith("probe_"):
+            ran = by["ceilings"]
+        else:
+            ran = k["launches"] - by["oracle"]
         check(ran > 0, f"{k['name']} was never launched on a path")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)

@@ -1,5 +1,6 @@
 // Direct O(N^2) softened-gravity accelerations for Hopper (sm_90a): three
-// kernels for the three regimes of the simulator.
+// kernels for the three regimes of the simulator, and a fourth that no
+// dispatch calls.
 //
 //   a_i = sum_j G m_j (x_j - x_i) / (|x_j - x_i|^2 + eps^2)^{3/2}
 //
@@ -11,6 +12,9 @@
 //   kernel 6  _pairwise_sym_kernel  (pallas_accelerations_symmetric): every
 //             tile pair (I, J >= I) computed once, the reaction on the j side
 //             by Newton's third law.
+//   kernel 5  _pairwise_sym_mxu_kernel (pallas_accelerations_symmetric_mxu):
+//             kernel 6's schedule with the mass weighting and the sums done
+//             as tensor-core products (its note is below kernel 6's code).
 // The TPU layout is not carried over: no (8, N_pad) packing, no transposed
 // copy, no padding of N. Positions are read as (N, 3) rows, G*m is formed
 // while a tile is staged, a ragged last tile is filled with zero-mass
@@ -18,7 +22,7 @@
 // are never written.
 //
 // A coincident pair (d^2 == 0, the self pair included) contributes exactly
-// zero in all three kernels: the factor is selected away, not multiplied by a
+// zero in all four kernels: the factor is selected away, not multiplied by a
 // zero displacement, so G*m/eps^3 overflowing float32 at very large masses
 // cannot turn into inf * 0 = NaN. The TPU kernels 4 and 6 rely on s * 0 = 0
 // with s finite; the results are equal wherever those are finite.
@@ -65,6 +69,8 @@
 // designs keep every pair term in registers. Register tiling (several
 // receivers per thread), splitting j over threads at small grids and
 // persistent blocks are later work.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -263,12 +269,189 @@ __global__ void sum_slots_kernel(const float* __restrict__ partial,
   acc[c] = s;
 }
 
+// Kernel 5 (symmetric, tensor-core moments). The TPU kernel moved the mass
+// weighting and the six reductions of kernel 6 onto the matrix unit through
+// the moment decomposition: with positions centred by the wrapper and
+// W_j = G m_j [1, x_j, y_j, z_j, 0, 0, 0, 0],
+//   a_i = sum_j s_ij W_j[1:4] - x_i sum_j s_ij W_j[0],  s = (d^2 + eps^2)^-3/2,
+// so a tile pair's i side is M = s @ W_J and its j side (Newton's third law)
+// Mj = W_I^T @ s, a_j = Mj[1:4] - x_j Mj[0]. On the TPU it was a measured
+// negative result, dispatched by nothing: the two terms of the difference
+// are |x| / |d| times the force, so rounding is amplified for close pairs.
+// The port keeps that status: a public function that no entry point calls.
+//
+// Schedule: kernel 6's. One block per tile pair (I, J >= I) of 128 x 128
+// writes partial[J, rows of I] (i side) and partial[I, rows of J] (j side;
+// the diagonal block only the former, over its whole plane), one writer per
+// (slot, tile) cell, and sum_slots_kernel adds the slots in order: no float
+// atomics, reruns are bit-identical.
+//
+// A block of 8 warps stages both tiles and their W rows, builds the s-plane
+// in shared memory (128 rows of 132 floats, 66 KB of dynamic shared memory;
+// zero where d^2 == 0, so a coincident pair and the self pair drop out), and
+// then warp w computes rows 16w..16w+15 of M and of Mj^T = s^T @ W_I with
+// mma.sync m16n8k8 TF32 tensor-core operations over k = 128 in 16 steps:
+// W's width of 8 is exactly the instruction's n. The row pitch of 132 puts
+// the i-side fragment loads on 32 distinct banks; the j side reads the plane
+// transposed, with 2-way conflicts.
+//
+// Precision: 3xTF32. A TF32 operand keeps 10 bits of mantissa, about three
+// decimal digits, and the moment form multiplies that error by |x| / |d|:
+// one TF32 pass misses the float32 tolerance of the JAX package's test by
+// orders of magnitude. Each operand is split into hi = tf32(v) and
+// lo = tf32(v - hi), and each k step issues lo_a hi_b, hi_a lo_b and
+// hi_a hi_b, which keeps about 21 bits of every product (only lo_a lo_b,
+// ~2^-22 of it, is dropped). The running sums stay out of the tensor core: its float32
+// accumulation does not round as float32 adds do, and carrying the sums
+// through every instruction of a row (3 x 16 a tile pair) left one particle
+// of an N = 2,085 system 1.6 times the tolerance from the plain version on
+// the card. Each k step's three products go into a zeroed fragment, which
+// float32 adds then fold into the sums; the kernel is then nearer a float64
+// evaluation than the float32 plain version is.
+//
+// Bounds on an H100. The function's work is kernel 6's (25 float32
+// operations and one rsqrt per unordered pair): at N = 10,000, 19 us. This
+// design builds each pair's s in 11 float32 operations and one rsqrt (12 us
+// of rsqrt), and issues 3 x 2 x 16 x 8 = 768 m16n8k8 operations per tile pair
+// (96 TF32 operations a pair, 10 us at the dense 495 TFLOP/s). What bounds it
+// is shared memory: 64 KB of s stored and read twice, and 64 KB of W read,
+// per tile pair, ~2,000 cycles of the 128 bytes a clock an SM moves, so about
+// 26 us at N = 10,000. Fewer passes over the plane (fragments built in
+// registers, one product per warp pair) are later work.
+constexpr int kMmaThreads = 256;     // 8 warps, 16 rows of each product apiece
+constexpr int kSPitch = kTile + 4;   // the s-plane's row pitch in floats
+constexpr int kWCols = 8;            // G m [1, x, y, z] padded to the mma's n
+constexpr size_t kMmaSmem =
+    2 * kTile * sizeof(float4) +
+    (static_cast<size_t>(kTile) * kSPitch + 4 * kTile * kWCols) * sizeof(float);
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// c += a @ b for one m16n8k8 tile: a 16 x 8 (row), b 8 x 8 (col), TF32 in,
+// float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: out (16 x 8) = A (16 x 128) @ w (128 x 8) in 3xTF32, both in
+// shared memory, A[r][k] = a[r * kRow + k * kCol] (the s-plane's rows for
+// the i side, its columns for the j side). Fragment layout of m16n8k8 TF32:
+// lane = 4 g + t holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4),
+// B (t, g), (t + 4, g) and C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+template <int kRow, int kCol>
+__device__ __forceinline__ void warp_moments(const float* a, const float* w,
+                                             float* out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int k0 = 0; k0 < kTile; k0 += 8) {
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    split_tf32(a[g * kRow + (k0 + t) * kCol], ah[0], al[0]);
+    split_tf32(a[(g + 8) * kRow + (k0 + t) * kCol], ah[1], al[1]);
+    split_tf32(a[g * kRow + (k0 + t + 4) * kCol], ah[2], al[2]);
+    split_tf32(a[(g + 8) * kRow + (k0 + t + 4) * kCol], ah[3], al[3]);
+    split_tf32(w[(k0 + t) * kWCols + g], bh[0], bl[0]);
+    split_tf32(w[(k0 + t + 4) * kWCols + g], bh[1], bl[1]);
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(d, al, bh);  // the small terms first
+    mma_tf32(d, ah, bl);
+    mma_tf32(d, ah, bh);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[q] += d[q];
+  }
+  out[g * kWCols + 2 * t] = c[0];
+  out[g * kWCols + 2 * t + 1] = c[1];
+  out[(g + 8) * kWCols + 2 * t] = c[2];
+  out[(g + 8) * kWCols + 2 * t + 1] = c[3];
+}
+
+// Kernel 5, first launch. grid (tiles, tiles), block kMmaThreads, kMmaSmem
+// bytes of dynamic shared memory; block (x = J, y = I) works when J >= I.
+// pos is centred; partial is (tiles, n, 3).
+__global__ void __launch_bounds__(kMmaThreads)
+pairwise_sym_mma_kernel(const float* __restrict__ pos,
+                        const float* __restrict__ mass,
+                        float* __restrict__ partial, int n, float soft2) {
+  const int tile_i = blockIdx.y, tile_j = blockIdx.x;
+  if (tile_j < tile_i) return;  // the whole block: the pair is (J, I)'s
+  extern __shared__ float4 mma_smem[];
+  float4* src_i = mma_smem;  // (x, y, z, G m) of I's and J's particles
+  float4* src_j = src_i + kTile;
+  float* s = reinterpret_cast<float*>(src_j + kTile);  // [kTile][kSPitch]
+  float* w_i = s + kTile * kSPitch;                    // [kTile][kWCols]
+  float* w_j = w_i + kTile * kWCols;
+  float* m_i = w_j + kTile * kWCols;  // M, the i side's moments
+  float* m_j = m_i + kTile * kWCols;  // Mj^T, the j side's
+  const int tid = threadIdx.x, warp = tid >> 5, r = tid & (kTile - 1);
+  const bool diag = tile_i == tile_j, j_half = tid >= kTile;
+  {
+    // Threads 0..127 stage I's particles, 128..255 J's. A row beyond n is a
+    // zero-mass particle at the origin: its W row is zero, so its s values
+    // (finite: at most eps^-3) add nothing, and its result is not written.
+    const float4 q =
+        load_source(pos, mass, (j_half ? tile_j : tile_i) * kTile + r, n);
+    (j_half ? src_j : src_i)[r] = q;
+    float* w = (j_half ? w_j : w_i) + r * kWCols;
+    w[0] = q.w;
+    w[1] = q.w * q.x;
+    w[2] = q.w * q.y;
+    w[3] = q.w * q.z;
+    w[4] = w[5] = w[6] = w[7] = 0.f;
+  }
+  __syncthreads();
+  {
+    // The s-plane: this thread owns column r (a J particle) and every
+    // second row; a warp writes 32 consecutive floats of one row.
+    const float4 pj = src_j[r];
+    for (int row = tid / kTile; row < kTile; row += kMmaThreads / kTile) {
+      const float4 pi = src_i[row];
+      const float dx = pj.x - pi.x, dy = pj.y - pi.y, dz = pj.z - pi.z;
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      const float inv_r = rsqrtf(d2 + soft2);
+      s[row * kSPitch + r] = d2 > 0.f ? inv_r * inv_r * inv_r : 0.f;
+    }
+  }
+  __syncthreads();
+  warp_moments<kSPitch, 1>(s + warp * 16 * kSPitch, w_j,
+                           m_i + warp * 16 * kWCols);
+  if (!diag) {
+    warp_moments<1, kSPitch>(s + warp * 16, w_i, m_j + warp * 16 * kWCols);
+  }
+  __syncthreads();
+  // a = M[1:4] - x M[0]: threads 0..127 for I's rows, 128..255 for J's.
+  if (j_half && diag) return;
+  const int p = (j_half ? tile_j : tile_i) * kTile + r;
+  if (p >= n) return;
+  const float* m = (j_half ? m_j : m_i) + r * kWCols;
+  const float4 q = (j_half ? src_j : src_i)[r];
+  float* out =
+      partial + (static_cast<size_t>(j_half ? tile_i : tile_j) * n + p) * 3;
+  out[0] = m[1] - q.x * m[0];
+  out[1] = m[2] - q.y * m[0];
+  out[2] = m[3] - q.z * m[0];
+}
+
 }  // namespace
 
 // Plain C entry points, called through ctypes. pos (b, n, 3), mass (b, n),
 // acc (b, n, 3) float32, contiguous, on one device; soft2 = eps^2. The
-// symmetric form takes one system (n, 3) and a (ceil(n / 128), n, 3) float32
-// scratch. They launch on `stream` and return cudaGetLastError() (0 on
+// symmetric forms (kernels 6 and 5) take one system (n, 3) and a
+// (ceil(n / 128), n, 3) float32 scratch. They launch on `stream` and return cudaGetLastError() (0 on
 // success).
 
 extern "C" int nbody_pairwise_tiled(const float* pos, const float* mass,
@@ -307,6 +490,30 @@ extern "C" int nbody_pairwise_symmetric(const float* pos, const float* mass,
   pairwise_sym_kernel<<<dim3(tiles, tiles), kTile, 0, s>>>(pos, mass, partial,
                                                            n, soft2);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cols = 3 * n;
+  sum_slots_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, acc, tiles,
+                                                      cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 5: pos is one centred system (n, 3), partial a (ceil(n / 128), n, 3)
+// float32 scratch, as for the symmetric form.
+extern "C" int nbody_pairwise_symmetric_mma(const float* pos, const float* mass,
+                                            float* partial, float* acc, int n,
+                                            float soft2, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const int tiles = (n + kTile - 1) / kTile;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      pairwise_sym_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMmaSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  pairwise_sym_mma_kernel<<<dim3(tiles, tiles), kMmaThreads, kMmaSmem, s>>>(
+      pos, mass, partial, n, soft2);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cols = 3 * n;
   sum_slots_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, acc, tiles,

@@ -13,6 +13,11 @@ Port of ``nbody_gnn_hpc_tpu/ops/pairwise.py``:
 - :func:`accelerations_symmetric` (kernel 6,
   ``pallas_accelerations_symmetric``): every tile pair (I, J >= I) once,
   the reaction on the j side by Newton's third law; one system (N, 3).
+- :func:`accelerations_symmetric_mxu` (kernel 5,
+  ``pallas_accelerations_symmetric_mxu``): kernel 6's schedule with the
+  mass weighting and the sums as tensor-core products (the moment
+  decomposition).  Like its JAX counterpart it is dispatched by nothing:
+  numerically unsound for close pairs, kept as a public function.
 
 CUDA tensors go to the kernels in ``csrc/pairwise.cu`` (its source note
 states the designs and the H100 bounds); each wrapper's ``launches`` counts
@@ -114,6 +119,40 @@ def accelerations_symmetric_reference(positions: torch.Tensor,
     return acc
 
 
+def accelerations_symmetric_mxu_reference(positions: torch.Tensor,
+                                          masses: torch.Tensor,
+                                          softening: float = SOFTENING,
+                                          tile: int = TILE) -> torch.Tensor:
+    """Plain version of kernel 5 for one system (N, 3): the moment
+    decomposition of ``pallas_accelerations_symmetric_mxu``.  Positions are
+    centred and W = G m [1, x, y, z] (the kernel pads W to 8 columns, the
+    tensor-core instruction's width; zero columns change nothing here).  For
+    each tile pair (I, J >= I), with s = (d2 + eps^2)^(-3/2) zeroed where
+    d2 == 0, the i side takes M = s @ W_J, a_i += M[:, 1:4] - x_i M[:, 0],
+    and the j side Mj = s^T @ W_I, a_j += Mj[:, 1:4] - x_j Mj[:, 0]; the
+    diagonal tile is the full plane, i side only.  On CUDA tensors the
+    products are float32 cuBLAS calls as long as
+    ``torch.backends.cuda.matmul.allow_tf32`` stays False (the default)."""
+    soft2 = softening ** 2
+    pos = positions - positions.mean(0, keepdim=True)
+    gm = (G * masses)[:, None]
+    w = torch.cat([gm, gm * pos], dim=1)
+    n = pos.shape[0]
+    acc = torch.zeros_like(pos)
+    for i0 in range(0, n, tile):
+        rows = slice(i0, i0 + tile)
+        for j0 in range(i0, n, tile):
+            cols = slice(j0, j0 + tile)
+            s = _pair_planes(pos[rows], pos[cols], soft2)[0]
+            m = s @ w[cols]
+            acc[rows] += m[:, 1:4] - pos[rows] * m[:, :1]
+            if j0 == i0:
+                continue
+            mj = s.t() @ w[rows]
+            acc[cols] += mj[:, 1:4] - pos[cols] * mj[:, :1]
+    return acc
+
+
 def _cuda_operands(name: str, positions: torch.Tensor, masses: torch.Tensor,
                    batched_ok: bool = True):
     """Check what the kernels take and return contiguous (B, N, 3) positions
@@ -194,6 +233,29 @@ def accelerations_small(positions: torch.Tensor, masses: torch.Tensor,
                            positions, masses, softening)
 
 
+def _launch_symmetric(symbol: str, wrapper, pos, m, softening):
+    """Launch kernel 6 or 5 (the same C signature: one system (1, N, 3), a
+    (tiles, N, 3) slot scratch, pair pass + slot sum) and count it once."""
+    from nbody_gnn_hpc_torch.ops.cuda_build import load_library
+
+    n = pos.shape[1]
+    fn = getattr(load_library("pairwise"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    acc = torch.empty_like(pos)
+    partial = torch.empty((-(-n // TILE), n, 3), dtype=torch.float32,
+                          device=pos.device)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        rc = fn(pos.data_ptr(), m.data_ptr(), partial.data_ptr(),
+                acc.data_ptr(), n, float(softening) ** 2, stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return acc[0]
+
+
 def accelerations_symmetric(positions: torch.Tensor, masses: torch.Tensor,
                             softening: float = SOFTENING) -> torch.Tensor:
     """Newton's-third-law all-pairs accelerations of one system (kernel 6;
@@ -206,29 +268,39 @@ def accelerations_symmetric(positions: torch.Tensor, masses: torch.Tensor,
     :func:`accelerations_symmetric_reference`."""
     if positions.device.type == "cpu":
         return accelerations_symmetric_reference(positions, masses, softening)
-    from nbody_gnn_hpc_torch.ops.cuda_build import load_library
-
     pos, m = _cuda_operands("accelerations_symmetric", positions, masses,
                             batched_ok=False)
-    n = pos.shape[1]
-    fn = load_library("pairwise").nbody_pairwise_symmetric
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    acc = torch.empty_like(pos)
-    partial = torch.empty((-(-n // TILE), n, 3), dtype=torch.float32,
-                          device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        rc = fn(pos.data_ptr(), m.data_ptr(), partial.data_ptr(),
-                acc.data_ptr(), n, float(softening) ** 2, stream)
-    if rc != 0:
-        raise RuntimeError(f"nbody_pairwise_symmetric launch failed: CUDA "
-                           f"error {rc}")
-    accelerations_symmetric.launches += 1
-    return acc[0]
+    return _launch_symmetric("nbody_pairwise_symmetric",
+                             accelerations_symmetric, pos, m, softening)
+
+
+def accelerations_symmetric_mxu(positions: torch.Tensor,
+                                masses: torch.Tensor,
+                                softening: float = SOFTENING) -> torch.Tensor:
+    """Symmetric all-pairs accelerations of one system with tensor-core
+    moment reductions (kernel 5; JAX counterpart
+    ``pallas_accelerations_symmetric_mxu``).  positions (N, 3) float32,
+    masses (N,), both contiguous -> (N, 3).  No entry point calls it: the
+    moment form's error grows as |x| / |d| for close pairs (the JAX kernel's
+    docstring records that as a measured negative result), so the
+    simulator dispatches kernel 6.  The wrapper centres the positions; CUDA
+    tensors then launch the kernel (pair pass + slot sum, counted as one in
+    ``launches``), CPU tensors take
+    :func:`accelerations_symmetric_mxu_reference`."""
+    if positions.device.type == "cpu":
+        return accelerations_symmetric_mxu_reference(positions, masses,
+                                                     softening)
+    if not (positions.is_contiguous() and masses.is_contiguous()):
+        raise ValueError("accelerations_symmetric_mxu takes contiguous "
+                         "positions and masses")
+    pos, m = _cuda_operands("accelerations_symmetric_mxu", positions, masses,
+                            batched_ok=False)
+    return _launch_symmetric("nbody_pairwise_symmetric_mma",
+                             accelerations_symmetric_mxu,
+                             pos - pos.mean(1, keepdim=True), m, softening)
 
 
 accelerations_tiled.launches = 0
 accelerations_small.launches = 0
 accelerations_symmetric.launches = 0
+accelerations_symmetric_mxu.launches = 0

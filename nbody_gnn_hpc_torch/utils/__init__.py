@@ -1,4 +1,4 @@
-"""Host-side utilities: accuracy metrics and stage timers."""
+"""Host-side utilities: accuracy metrics, stage timers and trace hooks."""
 
 from nbody_gnn_hpc_torch.utils.metrics import (compute_all_metrics,
                                                compute_energy_error,
@@ -7,8 +7,10 @@ from nbody_gnn_hpc_torch.utils.metrics import (compute_all_metrics,
                                                compute_rmse,
                                                compute_trajectory_divergence,
                                                format_metrics_report)
-from nbody_gnn_hpc_torch.utils.profiling import StageTimer
+from nbody_gnn_hpc_torch.utils.profiling import (StageTimer, annotate,
+                                                 device_trace)
 
-__all__ = ["StageTimer", "compute_all_metrics", "compute_energy_error",
-           "compute_mae", "compute_momentum_error", "compute_rmse",
-           "compute_trajectory_divergence", "format_metrics_report"]
+__all__ = ["StageTimer", "annotate", "compute_all_metrics",
+           "compute_energy_error", "compute_mae", "compute_momentum_error", "compute_rmse",
+           "compute_trajectory_divergence", "device_trace",
+           "format_metrics_report"]

@@ -419,3 +419,109 @@ def test_int8_on_cuda_tensors_equals_numpy(cuda):
     for key in ("q", "scale"):
         assert torch.equal(on_card["dense"]["kernel"][key],
                            from_host["dense"]["kernel"][key]), key
+
+
+# -- kernel 5, the tensor-core moment force (csrc/pairwise.cu) ---------------
+
+# The JAX package's test of the moment form (tests/test_ops.py:162-178):
+# float32 sum order and rsqrt rounding, amplified by the centring
+# cancellation for the closest pairs.
+MXU_RTOL, MXU_ATOL_OF_SCALE = 2e-4, 2e-5
+
+
+@pytest.mark.parametrize("n,offset", [(700, 300.0), (2085, 0.0), (128, 0.0),
+                                      (5, 0.0)])
+def test_moment_force_kernel_matches_plain_version(cuda, n, offset):
+    from nbody_gnn_hpc_torch import ops
+
+    pos, m = _system(n, cuda, seed=n)
+    pos = pos + offset
+    before = ops.accelerations_symmetric_mxu.launches
+    got = ops.accelerations_symmetric_mxu(pos, m)
+    torch.cuda.synchronize()
+    assert ops.accelerations_symmetric_mxu.launches == before + 1
+    assert got.shape == (n, 3)
+    want = ops.accelerations_symmetric_mxu_reference(pos, m)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=MXU_RTOL,
+                               atol=MXU_ATOL_OF_SCALE * scale)
+    assert torch.equal(got, ops.accelerations_symmetric_mxu(pos, m))
+    assert ops.accelerations_symmetric_mxu.launches == before + 2
+
+
+def test_moment_force_kernel_is_dispatched_by_nothing(cuda):
+    from nbody_gnn_hpc_torch import ops
+    from nbody_gnn_hpc_torch.sim import accelerations
+
+    pos, m = _system(2085, cuda, seed=3)
+    before = ops.accelerations_symmetric_mxu.launches
+    accelerations(pos, m)
+    accelerations(*_system(200, cuda, seed=4))
+    assert ops.accelerations_symmetric_mxu.launches == before
+
+
+def test_moment_force_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from nbody_gnn_hpc_torch import ops
+
+    pos, m = _system(40, cuda)
+    with pytest.raises(TypeError):
+        ops.accelerations_symmetric_mxu(pos.double(), m.double())
+    with pytest.raises(ValueError):
+        ops.accelerations_symmetric_mxu(pos, m.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.accelerations_symmetric_mxu(pos.t().contiguous().t(), m)
+    with pytest.raises(ValueError):
+        ops.accelerations_symmetric_mxu(pos[None], m[None])
+
+
+# -- kernels 10 and 11, the rate probes (csrc/probes.cu) ---------------------
+
+# The plain FMA rounds each step once, as __fmaf_rn does (its multiply and
+# add are taken in float64); rsqrtf is approximate, and the rsqrt recurrence
+# contracts (by 1/2 a step near its fixed point), so that gap does not grow.
+PROBE_RTOL = 1e-5
+
+
+def _probe_input(shape, device, seed=3):
+    x = np.random.RandomState(seed).uniform(0.5, 1.5, shape)
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("form", ["kernel", "chain", "chain4"])
+@pytest.mark.parametrize("probe", ["fma", "rsqrt"])
+def test_probe_kernel_matches_plain_version(cuda, probe, form):
+    from nbody_gnn_hpc_torch import ops
+
+    kernel = ops.fma_probe if probe == "fma" else ops.rsqrt_probe
+    plain = (ops.fma_probe_reference if probe == "fma"
+             else ops.rsqrt_probe_reference)
+    kw = {"kernel": {},
+          "chain": dict(start=(0.0,), add=1e-4),
+          "chain4": dict(start=(0.0, 1.0, 2.0, 3.0), add=1e-4)}[form]
+    if probe == "fma" and form != "kernel":
+        kw["mul"] = (0.9999,) * len(kw["start"])
+    shape, steps = ((256, 1024), 1024) if form == "kernel" else ((64, 512),
+                                                                 256)
+    x = _probe_input(shape, cuda)
+    before = kernel.launches
+    got = kernel(x, steps, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(got, plain(x, steps, **kw), rtol=PROBE_RTOL,
+                               atol=0)
+    assert torch.equal(got, kernel(x, steps, **kw))
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from nbody_gnn_hpc_torch import ops
+
+    x = _probe_input((64, 128), cuda)
+    for probe in (ops.fma_probe, ops.rsqrt_probe):
+        with pytest.raises(TypeError):
+            probe(x.double(), 4)
+        with pytest.raises(ValueError, match="contiguous"):
+            probe(x.t(), 4)
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            probe(x.to("meta"), 4)
+        with pytest.raises(ValueError, match="accumulators"):
+            probe(x, 4, start=(0.0, 1.0))

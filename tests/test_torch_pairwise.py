@@ -19,6 +19,7 @@ from nbody_gnn_hpc_torch.sim import pairwise_accelerations
 from nbody_gnn_hpc_tpu.ops import (pallas_accelerations,
                                    pallas_accelerations_small,
                                    pallas_accelerations_symmetric)
+from nbody_gnn_hpc_tpu.ops.pairwise import pallas_accelerations_symmetric_mxu
 
 KERNELS = {
     "tiled": (ops.accelerations_tiled, ops.accelerations_tiled_reference,
@@ -143,3 +144,67 @@ def test_cuda_operand_checks_raise_before_any_launch():
         with pytest.raises(ValueError, match="cuda or cpu"):
             fn(pos, m)
         assert fn.launches == 0
+
+
+def _mxu_case(case):
+    """The three systems of tests/test_ops.py:162-202."""
+    rng = np.random.RandomState({"offset_cloud": 700, "momentum": 1024,
+                                 "solar": 512}[case])
+    if case == "offset_cloud":
+        pos = (rng.rand(700, 3) - 0.5) * 10.0 + 300.0
+        m = rng.uniform(1e10, 1e12, 700)
+    elif case == "momentum":
+        pos = (rng.rand(1024, 3) - 0.5) * 10.0
+        m = rng.uniform(1e10, 1e12, 1024)
+    else:
+        pos = np.concatenate([[[0, 0, 0], [1.496e11, 0, 0]],
+                              rng.rand(510, 3) * 1e11])
+        m = np.concatenate([[1.989e30, 5.97e24], rng.uniform(1e20, 1e22, 510)])
+    return pos.astype(np.float32), m.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["offset_cloud", "momentum", "solar"])
+def test_moment_form_matches_pallas_mxu_kernel(case):
+    """Kernel 5's plain version (the CPU path of
+    ``accelerations_symmetric_mxu``) against ``pallas_accelerations_symmetric_mxu``
+    in interpret mode, as tests/test_ops.py:162-202 holds the Pallas kernel,
+    in every case to rtol 2e-4, atol 2e-5 of scale (the centring
+    cancellation; the largest gap measured 0.57 of that tolerance, in the
+    momentum case): an offset cloud at a non-tile-multiple N, momentum
+    neutrality across tiles (under 5e-5, the moment form's measured 2.7e-5
+    there) and solar masses (finite: the self pair is zeroed in the
+    s-plane)."""
+    pos, m = _mxu_case(case)
+    t_pos, t_m = torch.from_numpy(pos), torch.from_numpy(m)
+    got = ops.accelerations_symmetric_mxu(t_pos, t_m)
+    assert got.shape == pos.shape and got.dtype == torch.float32
+    assert torch.equal(got, ops.accelerations_symmetric_mxu_reference(t_pos,
+                                                                      t_m))
+    want = np.asarray(pallas_accelerations_symmetric_mxu(
+        jnp.asarray(pos), jnp.asarray(m), interpret=True))
+    assert np.isfinite(got.numpy()).all() and np.isfinite(want).all()
+    _close(got, want, atol_of_scale=2e-5)
+    if case == "offset_cloud":
+        _close(got, pairwise_accelerations(t_pos, t_m), atol_of_scale=2e-5)
+    elif case == "momentum":
+        for acc in (got.numpy(), want):
+            f = m.astype(np.float64)[:, None] * acc.astype(np.float64)
+            assert np.abs(f.sum(0)).max() < 5e-5 * np.abs(f).sum()
+    assert ops.accelerations_symmetric_mxu.launches == 0
+
+
+def test_moment_form_tile_size_only_reorders_the_sum():
+    pos, m = _system(333, seed=8)
+    t_pos, t_m = torch.from_numpy(pos), torch.from_numpy(m)
+    want = pairwise_accelerations(t_pos, t_m)
+    for tile in (32, 128, 512):
+        _close(ops.accelerations_symmetric_mxu_reference(t_pos, t_m,
+                                                         tile=tile),
+               want, atol_of_scale=2e-5)
+
+
+def test_moment_form_wrapper_refuses_other_devices():
+    pos = torch.empty(40, 3, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.accelerations_symmetric_mxu(pos, torch.empty(40, device="meta"))
+    assert ops.accelerations_symmetric_mxu.launches == 0

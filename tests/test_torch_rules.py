@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "nbody_gnn_hpc_torch.utils, nbody_gnn_hpc_torch.ops, "
             "nbody_gnn_hpc_torch.ops.fused_edge_full, "
             "nbody_gnn_hpc_torch.predict.quantize, "
-            "nbody_gnn_hpc_torch.quantize_model\n"
+            "nbody_gnn_hpc_torch.quantize_model, "
+            "nbody_gnn_hpc_torch.ops.probes, nbody_gnn_hpc_torch.roofline, "
+            "nbody_gnn_hpc_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
@@ -161,6 +163,15 @@ def test_deployed_serving_refuses_cpu_unasked(no_cuda, tmp_path):
         NBodyGNN(hidden_dim=32, n_layers=1).state_dict()))
     assert quantize_main(["-m", str(src), "--mode", "int8"]) == 0
     assert (tmp_path / "m.int8.pt").exists()
+
+
+def test_ceilings_command_refuses_cpu_unasked(no_cuda):
+    from nbody_gnn_hpc_torch.roofline import main, measure_ceilings
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_ceilings(None, (8, 128), 4, (8, 128), (8, 128), 4, 16, 1)
 
 
 def test_whole_layer_wrapper_runs_its_kernel_on_cuda_tensors_only(
