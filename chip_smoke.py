@@ -33,10 +33,11 @@ Phases (any failure exits non-zero and prints no result line):
    mask against 1-p.  The whole-layer kernel (kernel 7) on the checkpoint's
    layer 0 against ``fused_full_layer_reference`` at B=1, 8 (inference
    form), B=24 (training form: edge dropout and node mask) and N=13, 1e-4
-   of the output's scale; its two-launch form bit-equal to the cooperative
-   one; one layer's gradients against the plain composition at 1e-3 of
-   scale; timed beside the port's composed layer (two cuBLAS projections,
-   kernel 1, the node side in PyTorch), its plain version and its bound.
+   of the output's scale; its ordinary-launch form (one launch a phase)
+   bit-equal to the cooperative one; one layer's gradients against the
+   plain composition at 1e-3 of scale; timed beside the port's composed
+   layer (two cuBLAS projections, kernel 1, the node side in PyTorch), its
+   plain version and its bound, and against its time before the redesign.
 4. Serving: ``build_service(models/best_rollout_model.pt,
    models/config.json)`` on the default device behind the HTTP server,
    driven through the port's client: /healthz, /rollout N=200 x 394 steps
@@ -139,6 +140,11 @@ MODEL_GRAD_RTOL = 1e-3
 # Kernel 7 against its plain version, of the output's scale: six float32
 # products of depth 256-512 and two LayerNorms in another summation order.
 FULL_RTOL_OF_SCALE = 1e-4
+# Kernel 7's times before its redesign (8-row tiles, two phases), by form
+# and batch: this script on an NVIDIA H100 80GB HBM3 at 700 W.
+FULL_MS_BEFORE_REDESIGN = {("inference", 1): 0.16216,
+                           ("inference", 8): 0.22350,
+                           ("training", 24): 0.67023}
 N, K = 200, 40
 DROPOUT_P = 0.1
 DROP_SEED = 20261016
@@ -432,7 +438,7 @@ def full_layer_inputs(model, norm_stats, b: int, n: int, k: int, dev):
 
 
 def phase_full_layer(model, norm_stats, dev):
-    """Kernel 7 against its plain version, its two-launch form, one
+    """Kernel 7 against its plain version, its ordinary-launch form, one
     layer's gradients, and its times; returns the timed rows and the
     largest absolute error."""
     import torch
@@ -442,7 +448,7 @@ def phase_full_layer(model, norm_stats, dev):
                                          fused_full_layer_plain,
                                          fused_full_layer_reference)
     from nbody_gnn_hpc_torch.ops import fused_edge_full
-    from nbody_gnn_hpc_torch.ops.fused_edge_full import PARAM_KEYS
+    from nbody_gnn_hpc_torch.ops.fused_edge_full import PARAM_KEYS, PHASES
 
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
     layer = model.layers[0]  # the composed ("fused") form of the same layer
@@ -477,8 +483,8 @@ def phase_full_layer(model, norm_stats, dev):
             same = torch.equal(got, run())
             fused_edge_full.COOPERATIVE = False
             before = fused_full_layer.launches
-            two = run()
-            two_launches = fused_full_layer.launches - before
+            phased = run()
+            phased_launches = fused_full_layer.launches - before
             fused_edge_full.COOPERATIVE = True
         worst = max(worst, err)
         ok = err <= FULL_RTOL_OF_SCALE * scale
@@ -486,13 +492,14 @@ def phase_full_layer(model, norm_stats, dev):
               f"{err:.3e} at output scale {scale:.3e} (tolerance "
               f"{FULL_RTOL_OF_SCALE:g} of scale, f32 sum order) -> "
               f"{'ok' if ok else 'MISMATCH'}; one cooperative launch; rerun "
-              f"bit-identical: {same}; two-launch form ({two_launches} "
-              f"launches) bit-equal: {torch.equal(got, two)}", flush=True)
+              f"bit-identical: {same}; ordinary-launch form "
+              f"({phased_launches} launches) bit-equal: "
+              f"{torch.equal(got, phased)}", flush=True)
         check(ok, f"fused_full_fwd ({form}) disagrees with its plain "
                   f"version at B={b} N={n} k={k}")
         check(same, "fused_full_fwd reruns are not bit-identical")
-        check(two_launches == 2 and torch.equal(got, two),
-              "the two-launch form of kernel 7 differs from the "
+        check(phased_launches == PHASES and torch.equal(got, phased),
+              "the ordinary-launch form of kernel 7 differs from the "
               "cooperative one")
         if n != N:
             continue
@@ -503,7 +510,7 @@ def phase_full_layer(model, norm_stats, dev):
         def composed():
             return layer(h, ea, edges, deg, gen)
 
-        def two_launch():
+        def phased_form():
             fused_edge_full.COOPERATIVE = False
             try:
                 return run()
@@ -512,7 +519,14 @@ def phase_full_layer(model, norm_stats, dev):
 
         with torch.inference_mode():
             ms = cuda_time_ms(run)
-            two_ms = cuda_time_ms(two_launch)
+            phased_ms = cuda_time_ms(phased_form)
+            phase_ms = []
+            for alone in range(1, PHASES + 1):
+                fused_edge_full.PHASE_ALONE = alone
+                try:
+                    phase_ms.append(cuda_time_ms(run))
+                finally:
+                    fused_edge_full.PHASE_ALONE = None
             # ~20 and ~60 launches a call: ten calls fit behind the sleep
             # that holds the stream, fifty would time the host.
             composed_ms = cuda_time_ms(composed, inner=10)
@@ -523,14 +537,25 @@ def phase_full_layer(model, norm_stats, dev):
         layer.eval()
         bound = full_layer_bound_ms(h, ea, p, edges, mk, training)
         rows.append({"kernel": "fused_full_fwd", "form": form, "B": b, "N": n,
-                     "k": k, "ms": ms, "two_launch_ms": two_ms,
+                     "k": k, "ms": ms, "phased_ms": phased_ms,
+                     "phase_ms": phase_ms,
                      "composed_ms": composed_ms, "plain_ms": plain_ms,
                      "bound_ms": bound[0], "bound_by": bound[1]})
-        print(f"    kernel {ms:.5f} ms (two-launch form {two_ms:.5f} ms), "
-              f"composed layer (2 cuBLAS projections, kernel 1, node side "
-              f"in PyTorch) {composed_ms:.5f} ms, plain {plain_ms:.5f} ms, "
-              f"bound {bound[0]:.6f} ms ({bound[1]}); no single PyTorch call "
-              f"computes the layer (library_ms null)", flush=True)
+        print(f"    kernel {ms:.5f} ms (ordinary-launch form "
+              f"{phased_ms:.5f} ms), composed layer (2 cuBLAS projections, "
+              f"kernel 1, node side in PyTorch) {composed_ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}); no "
+              f"single PyTorch call computes the layer (library_ms null)",
+              flush=True)
+        print(f"    each phase alone (projections, stream, edge output, "
+              f"first node product, LayerNorm, second node product): "
+              f"{', '.join(f'{t:.5f}' for t in phase_ms)} ms", flush=True)
+        before_ms = FULL_MS_BEFORE_REDESIGN[(form, b)]
+        print(f"    kernel 7 {form} B={b}: {ms:.5f} ms = "
+              f"{ms / composed_ms:.3f} x the composed layer "
+              f"({'below' if ms < composed_ms else 'NOT below'} it), "
+              f"{ms / before_ms:.3f} x the design before ({before_ms} ms)",
+              flush=True)
 
     # One layer's gradients, kernel path against the plain composition.
     h, ea, p, edges = full_layer_inputs(model, norm_stats, 4, N, K, dev)

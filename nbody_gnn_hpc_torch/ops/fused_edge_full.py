@@ -20,10 +20,11 @@ TPU layout and are not carried over: the edges come as the
 take, and the in-degree is read off its offsets.
 
 Forward on CUDA tensors: ``csrc/fused_edge_full.cu`` (its source note has
-the design and the H100 bound), one cooperative launch per layer, or two
-ordinary launches where the device has no cooperative launch or
-:data:`COOPERATIVE` is False; ``fused_full_layer.launches`` counts every
-launch.  Backward, as in the JAX package: the node side is recomputed and
+the design and the H100 bound), six phases (projections, the edge stream,
+edge output, first node product, LayerNorm and SiLU, second node product)
+in one cooperative launch per layer, or six ordinary launches, one a phase,
+where the device has no cooperative launch or :data:`COOPERATIVE` is False;
+``fused_full_layer.launches`` counts every launch.  Backward, as in the JAX package: the node side is recomputed and
 differentiated in PyTorch from the saved ``summed``, the stream's backward
 is kernel 2 (:func:`~nbody_gnn_hpc_torch.ops.fused_edge.fused_edge_backward`)
 and the projection backward is matrix products.  CPU tensors run
@@ -54,8 +55,13 @@ from nbody_gnn_hpc_torch.ops.fused_edge import (EPS, MAX_EDGE_DIM, MAX_HIDDEN,
 PARAM_KEYS = ("wt", "bt", "ws", "we", "ge", "be", "wout", "bout", "w1", "b1",
               "g1", "be1", "w2", "b2")
 # One cooperative launch per layer where the device can; False asks for the
-# two-launch form (projections; stream and node side).
+# ordinary-launch form (one launch a phase, the same bits).
 COOPERATIVE = True
+# Phases of the kernel: the launches of the ordinary-launch form.
+PHASES = 6
+# Timing hook: run only this phase (1 .. PHASES) as one ordinary launch; the
+# outputs are then incomplete.  None runs the layer.
+PHASE_ALONE: Optional[int] = None
 
 
 def _layer_norm_silu(z, gamma, beta):
@@ -101,6 +107,15 @@ def fused_full_layer_reference(h, edge_attr, params, edges: TargetCSR,
                       node_mask), summed
 
 
+# The weight matrices the kernel stages with 16-byte asynchronous copies.
+_COPIED = ("wt", "ws", "wout", "w1", "w2")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh (16-byte aligned) copy where it starts off 16."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
     """Check the (B, N, H) operands and launch ``nbody_fused_full_fwd``;
     returns (h_new, summed)."""
@@ -136,10 +151,13 @@ def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
         _check(name, t, dtype, shape, dev)
     fn = load_library("fused_edge_full").nbody_fused_full_fwd
     fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    tp, sp, summed = (torch.empty_like(h) for _ in range(3))
+    # The kernel reads these with 16-byte copies; a view may start anywhere.
+    h = _aligned(h)
+    p = {k: _aligned(v) if k in _COPIED else v for k, v in p.items()}
+    tp, sp, agg, z1, summed = (torch.empty_like(h) for _ in range(5))
     h_new = torch.empty((b, n, ho), dtype=f32, device=dev)
     seed_ptr, thr, scale = _dropout_args(seed, dropout_p)
     launched = ctypes.c_int(0)
@@ -150,8 +168,10 @@ def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
                 *(p[k].data_ptr() for k in PARAM_KEYS),
                 None if node_mask is None else node_mask.data_ptr(),
                 seed_ptr, thr, scale, tp.data_ptr(), sp.data_ptr(),
-                h_new.data_ptr(), summed.data_ptr(), b, n, e, d, hdim, ho,
-                int(COOPERATIVE), ctypes.byref(launched), stream)
+                agg.data_ptr(), z1.data_ptr(), h_new.data_ptr(),
+                summed.data_ptr(), b, n, e, d, hdim, ho,
+                -PHASE_ALONE if PHASE_ALONE else int(COOPERATIVE),
+                ctypes.byref(launched), stream)
     fused_full_layer.launches += launched.value
     if rc != 0:
         raise RuntimeError(f"fused full-layer kernel launch failed: CUDA "

@@ -297,7 +297,11 @@ def _full_inputs(b, n, k, h, device, seed=0, ho=None):
 @pytest.mark.parametrize("b,n,k,h,ho", [
     (1, 200, 40, 256, None), (8, 200, 40, 256, None),
     (24, 200, 40, 256, None), (1, 13, 4, 256, None), (2, 37, 5, 32, None),
-    (3, 50, 7, 96, 64)])
+    (3, 50, 7, 96, 64),
+    # the 16-row tile's edges, and a batch whose items outnumber the
+    # persistent grid in every phase
+    (2, 15, 6, 256, None), (2, 16, 6, 256, None), (2, 17, 6, 96, 64),
+    (64, 200, 40, 256, None)])
 def test_whole_layer_kernel_matches_plain_version(cuda, b, n, k, h, ho,
                                                   training):
     from nbody_gnn_hpc_torch.ops import (fused_full_layer,
@@ -326,14 +330,46 @@ def test_whole_layer_kernel_matches_plain_version(cuda, b, n, k, h, ho,
 def test_whole_layer_two_launch_form_equals_cooperative(cuda, monkeypatch):
     from nbody_gnn_hpc_torch.ops import fused_edge_full as ff
 
-    hh, ea, p, edges, _ = _full_inputs(8, 200, 40, 256, cuda, seed=4)
-    with torch.inference_mode():
-        one = ff.fused_full_layer(hh, ea, p, edges)
-        monkeypatch.setattr(ff, "COOPERATIVE", False)
+    hh, ea, p, edges, mask = _full_inputs(8, 200, 40, 256, cuda, seed=4)
+    for seed, node_mask, rate in ((None, None, 0.0), (_seed(cuda), mask, 0.1)):
+        with torch.inference_mode():
+            monkeypatch.setattr(ff, "COOPERATIVE", True)
+            one = ff.fused_full_layer(hh, ea, p, edges, seed, node_mask,
+                                      dropout_p=rate, deterministic=not rate)
+            monkeypatch.setattr(ff, "COOPERATIVE", False)
+            before = ff.fused_full_layer.launches
+            phased = ff.fused_full_layer(hh, ea, p, edges, seed, node_mask,
+                                         dropout_p=rate,
+                                         deterministic=not rate)
+            assert ff.fused_full_layer.launches == before + ff.PHASES
+        assert torch.equal(one, phased)
+    for alone in range(1, ff.PHASES + 1):  # the timing hook: one launch
+        monkeypatch.setattr(ff, "PHASE_ALONE", alone)
         before = ff.fused_full_layer.launches
-        two = ff.fused_full_layer(hh, ea, p, edges)
-        assert ff.fused_full_layer.launches == before + 2
-    assert torch.equal(one, two)
+        with torch.inference_mode():
+            ff.fused_full_layer(hh, ea, p, edges)
+        assert ff.fused_full_layer.launches == before + 1
+
+
+def test_whole_layer_takes_views_that_start_off_16_bytes(cuda):
+    """The kernel stages h and the weights with 16-byte copies; views that
+    start one float into their storage give the same bits."""
+    from nbody_gnn_hpc_torch.ops import fused_full_layer
+
+    hh, ea, p, edges, _ = _full_inputs(2, 37, 5, 96, cuda, seed=7)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    with torch.inference_mode():
+        want = fused_full_layer(hh, ea, p, edges)
+        got = fused_full_layer(shifted(hh), ea,
+                               {k: shifted(v) for k, v in p.items()}, edges)
+    assert torch.equal(got, want)
 
 
 def test_whole_layer_gradients_match_plain_composition(cuda):
