@@ -13,11 +13,14 @@ Phases (any failure exits non-zero and prints no result line):
 3. Each kernel against its plain PyTorch version on the card, on the
    production checkpoint's layer-0 operands with evaluation-protocol states
    (box 10, seeds 9999+i, masses from seed 42): the edge forward (kernel 1)
-   in inference form at B=1, 8 and in training form (dropout p=0.1, fixed
-   seed, the same Philox mask on both sides) at B=1, 24, and the edge
+   in inference form at B=1, 8, 10 and in training form (dropout p=0.1,
+   fixed seed, the same Philox mask on both sides) at B=1, 24, and the edge
    backward (kernel 2) at B=1, 24, all at N=200, k=40, H=256, plus an odd
-   N=13, k=4.  Tolerances: forward atol=rtol=1e-4; backward 1e-4 of each
-   gradient's scale (float32 sum order only).  The direct-force kernels:
+   N=13, k=4; kernel 1 also in both forms on two states with hubs (half the
+   particles in a small ball; every second edge sent to one target), where
+   it must also be zero wherever its plain version is, each input's largest
+   in-degree printed.  Tolerances: forward atol=rtol=1e-4; backward 1e-4 of
+   each gradient's scale (float32 sum order only).  The direct-force kernels:
    tiled (kernel 3) and symmetric (kernel 6) at N=10,000, 2,085 and 700,
    small (kernel 4) at (300, 200), (1, 200) and (3, 13), rtol 2e-4 with
    atol 1e-5 of the force scale; kernel 6 against kernel 3; momentum
@@ -111,6 +114,7 @@ and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -190,6 +194,38 @@ SIM_MEDIAN_REL, SIM_FAR_REL, SIM_FAR_SHARE = 1e-5, 1e-3, 0.01
 EVAL_POS_RMSE_MAX, EVAL_VEL_RMSE_MAX = 60.0, 400.0
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel: the length-prefixed name that
+    ends in ``_kernel`` and its integer template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for k in range(len(digits)):  # a hash's digits may run into it
+            end = m.end() + int(digits[k:])
+            name = mangled[m.end():end]
+            if name.endswith("_kernel"):
+                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+                values = re.findall(r"-?\d+", args[1]) if args else []
+                return name + (f"<{','.join(values)}>" if values else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, "N registers, spills") of each entry function in an nvcc
+    ``-Xptxas -v`` log."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = _kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and entry:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((entry, f"{regs.group(1) if regs else '?'} registers, "
+                               f"{spill}"))
+            entry = None
+    return out
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", flush=True)
     sys.exit(1)
@@ -210,14 +246,27 @@ def eval_states(b: int, n: int = N):
             shared_masses(n))
 
 
-def edge_layer_inputs(model, norm_stats, b: int, n: int, k: int, dev):
-    """The operands the serving path hands layer 0's edge kernel."""
+def edge_layer_inputs(model, norm_stats, b: int, n: int, k: int, dev,
+                      state: str = "protocol"):
+    """The operands the serving path hands layer 0's edge kernel.
+
+    ``state``: "protocol" (the evaluation states); "clustered" (half the
+    particles moved into a ball of radius 0.3 at the centre of the others,
+    density falling as r^-2); "hub" (the protocol states' k-NN edges with
+    every second edge sent to target 0, which then holds half of them).
+    """
     import torch
 
     from nbody_gnn_hpc_torch.ops import (edge_features, knn_edge_index,
                                          target_csr)
 
     pos, vel, masses = eval_states(b, n)
+    if state == "clustered":
+        rng = np.random.RandomState(0)
+        v = rng.randn(b, n // 2, 3)
+        v *= 0.3 * rng.rand(b, n // 2, 1) / np.linalg.norm(v, axis=-1,
+                                                            keepdims=True)
+        pos[:, :n // 2] = pos[:, n // 2:].mean(1, keepdims=True) + v
     mean = torch.as_tensor(norm_stats["state_mean"], device=dev)
     std = torch.as_tensor(norm_stats["state_std"], device=dev)
     p = (torch.as_tensor(pos, device=dev) - mean[:3]) / std[:3]
@@ -225,6 +274,9 @@ def edge_layer_inputs(model, norm_stats, b: int, n: int, k: int, dev):
     m = torch.as_tensor(masses / masses.mean(), device=dev)
     x = torch.cat([p, v, m[None, :, None].expand(b, n, 1)], dim=-1)
     ei = knn_edge_index(p, k)
+    if state == "hub":
+        ei = ei.clone()
+        ei[:, 1, ::2] = 0
     layer = model.layers[0]
     with torch.inference_mode():
         h = model.node_encoder(x)
@@ -292,16 +344,18 @@ def _grad_errors(got, want) -> tuple:
     return abs_err, rel_err
 
 
-def _timed_row(rows, kernel, form, b, n, k, fn, plain_fn, bound, reps):
+def _timed_row(rows, kernel, form, b, n, k, fn, plain_fn, bound, reps,
+               max_in_degree):
     ms = cuda_time_ms(fn)
     plain_ms = cuda_time_ms(plain_fn, *reps)
     row = {"kernel": kernel, "form": form, "B": b, "N": n, "k": k, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+           "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+           "max_in_degree": max_in_degree}
     rows.append(row)
-    print(f"  {kernel} {form} B={b} N={n} k={k}: kernel {ms:.5f} ms, plain "
-          f"{plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}); no "
-          f"single PyTorch call computes this function (library_ms null)",
-          flush=True)
+    print(f"  {kernel} {form} B={b} N={n} k={k} (largest in-degree "
+          f"{max_in_degree}): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          f"bound {bound[0]:.6f} ms ({bound[1]}); no single PyTorch call "
+          f"computes this function (library_ms null)", flush=True)
 
 
 def phase_kernels(model, norm_stats, dev):
@@ -318,41 +372,61 @@ def phase_kernels(model, norm_stats, dev):
 
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
     rows, errs = [], {"fused_edge_fwd": 0.0, "fused_edge_bwd": 0.0}
-    for b, n, k in ((1, N, K), (8, N, K), (24, N, K), (1, 13, 4)):
+
+    def forward_held(args, b, n, k, form, sd, p, label=""):
+        """Kernel 1 against its plain version, and a rerun bit for bit."""
+        before = fused_edge_layer.launches
+        got = fused_edge_layer(*args, sd, dropout_p=p,
+                               deterministic=sd is None)
+        torch.cuda.synchronize()
+        check(fused_edge_layer.launches == before + 1,
+              "fused_edge_layer did not count its launch")
+        want = fused_edge_layer_reference(*args, sd, p)
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, **KERNEL_TOL)
+        same = torch.equal(got, fused_edge_layer(
+            *args, sd, dropout_p=p, deterministic=sd is None))
+        zeros = bool((got[want == 0] == 0).all())
+        errs["fused_edge_fwd"] = max(errs["fused_edge_fwd"], err)
+        degree = int(args[6].degree.max().item())
+        print(f"  fused_edge_fwd {form} B={b} N={n} k={k}{label} (largest "
+              f"in-degree {degree}): max abs err {err:.3e} (tolerance "
+              f"atol=rtol=1e-4, f32 sum order) -> "
+              f"{'ok' if ok else 'MISMATCH'}; rerun bit-identical: {same}; "
+              f"zero where the plain version is zero: {zeros}", flush=True)
+        check(ok, f"fused_edge_fwd ({form}) disagrees with its plain "
+                  f"version at B={b} N={n} k={k}{label}")
+        check(same, "fused_edge_fwd reruns are not bit-identical")
+        check(zeros, "fused_edge_fwd is not zero where its plain version is")
+        return degree
+
+    # Hubs: a clustered state, and every second edge sent to one target
+    # (its edges cross warps and blocks), in both forms.
+    for state in ("clustered", "hub"):
+        for b, form, sd, p in ((1, "inference", None, 0.0),
+                               (1, "training", seed, DROPOUT_P),
+                               (24, "training", seed, DROPOUT_P)):
+            args = edge_layer_inputs(model, norm_stats, b, N, K, dev, state)
+            forward_held(args, b, N, K, form, sd, p, f" {state}")
+    timed = {"inference": (1, 8, 10), "training": (1, 24)}
+    for b, n, k in ((1, N, K), (8, N, K), (10, N, K), (24, N, K),
+                    (1, 13, 4)):
         args = edge_layer_inputs(model, norm_stats, b, n, k, dev)
         full = (n, k) == (N, K)
         forms = [("inference", None, 0.0)]
-        if b != 8:
+        if b not in (8, 10):
             forms.append(("training", seed, DROPOUT_P))
         for form, sd, p in forms:
-            before = fused_edge_layer.launches
-            got = fused_edge_layer(*args, sd, dropout_p=p,
-                                   deterministic=sd is None)
-            torch.cuda.synchronize()
-            check(fused_edge_layer.launches == before + 1,
-                  "fused_edge_layer did not count its launch")
-            want = fused_edge_layer_reference(*args, sd, p)
-            err = (got - want).abs().max().item()
-            ok = torch.allclose(got, want, **KERNEL_TOL)
-            same = torch.equal(got, fused_edge_layer(
-                *args, sd, dropout_p=p, deterministic=sd is None))
-            errs["fused_edge_fwd"] = max(errs["fused_edge_fwd"], err)
-            print(f"  fused_edge_fwd {form} B={b} N={n} k={k}: max abs err "
-                  f"{err:.3e} (tolerance atol=rtol=1e-4, f32 sum order) -> "
-                  f"{'ok' if ok else 'MISMATCH'}; rerun bit-identical: "
-                  f"{same}", flush=True)
-            check(ok, f"fused_edge_fwd ({form}) disagrees with its plain "
-                      f"version at B={b} N={n} k={k}")
-            check(same, "fused_edge_fwd reruns are not bit-identical")
-            if full and b in ((1, 8) if sd is None else (1, 24)):
+            degree = forward_held(args, b, n, k, form, sd, p)
+            if full and b in timed[form]:
                 _timed_row(rows, "fused_edge_fwd", form, b, n, k,
                            lambda: fused_edge_layer(
                                *args, sd, dropout_p=p,
                                deterministic=sd is None),
                            lambda: fused_edge_layer_reference(*args, sd, p),
                            edge_bound_ms(args, sd is not None),
-                           (5, 10) if b == 24 else ())
-        if b == 8:
+                           (5, 10) if b == 24 else (), degree)
+        if b in (8, 10):
             continue
         g_out = torch.randn(args[0].shape, device=dev,
                             generator=torch.Generator(dev).manual_seed(b))
@@ -382,7 +456,8 @@ def phase_kernels(model, norm_stats, dev):
                        lambda: fused_edge_backward_reference(
                            *args, g_out, seed, DROPOUT_P),
                        edge_bwd_bound_ms(args, True),
-                       (5, 10) if b == 24 else ())
+                       (5, 10) if b == 24 else (),
+                       int(args[6].degree.max().item()))
         if b == 24:
             keep = dropout_keep(seed, DROPOUT_P, b, args[2].shape[1],
                                 args[0].shape[2]).float().mean().item()
@@ -1832,9 +1907,8 @@ def main() -> int:
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}", flush=True)
+        for entry, report in ptxas_report(info["log"]):
+            print(f"    {name}: {entry}: {report}", flush=True)
 
     # 3. Kernels against their plain versions
     print("[3] kernels vs plain versions on the card", flush=True)

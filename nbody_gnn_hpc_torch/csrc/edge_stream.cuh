@@ -1,9 +1,9 @@
 // Device functions shared by the edge-stream kernels (fused_edge.cu) and the
 // whole-layer kernel (fused_edge_full.cu): the Philox4x32-10 dropout mask,
-// the warp sum and the pre-LayerNorm stream of one edge.  Both files draw
-// the same mask bits for the same (seed, graph, edge, channel), so a layer
-// run through either agrees with the other and with the plain PyTorch
-// version (ops/fused_edge.py).
+// the warp sum, the pre-LayerNorm stream of one edge and the per-lane layout
+// of W_e.  Both files draw the same mask bits for the same (seed, graph,
+// edge, channel), so a layer run through either agrees with the other and
+// with the plain PyTorch version (ops/fused_edge.py).
 
 #pragma once
 
@@ -104,5 +104,15 @@ __device__ __forceinline__ void load_attr(const float* ea_e, int d,
 #pragma unroll
   for (int q = 0; q < kMaxD; ++q) a[q] = q < d ? ea_e[q] : 0.f;
 }
+
+// W_e laid out per lane for 16-byte reads: lane l's channels l + 32j of
+// edge feature k at s_wl[l * kStride + k * CPL4 + j], rows padded so eight
+// neighbouring lanes read distinct banks.
+template <int CPL>
+struct LaneWe {
+  static constexpr int CPL4 = (CPL + 3) / 4 * 4;
+  static constexpr int kStride = kMaxD * CPL4 + 4;
+  static constexpr int kFloats = 32 * kStride;
+};
 
 }  // namespace nbody_edge

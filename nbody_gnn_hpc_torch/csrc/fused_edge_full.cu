@@ -374,16 +374,6 @@ __device__ __forceinline__ void products(bool mid, const Product& o,
   }
 }
 
-// We^T laid out per lane for 16-byte reads: lane l's channels l + 32j of
-// edge feature k at s_wl[l * kStride + k * CPL4 + j], rows padded so eight
-// neighbouring lanes read distinct banks.
-template <int CPL>
-struct LaneWe {
-  static constexpr int CPL4 = (CPL + 3) / 4 * 4;
-  static constexpr int kStride = kMaxD * CPL4 + 4;
-  static constexpr int kFloats = 32 * kStride;
-};
-
 // Share `sub` of the stream of target t of graph b: its edges lo + sub,
 // lo + sub + split, ... in that order, summed into acc.
 template <int CPL>

@@ -31,6 +31,7 @@ compare a kernel path with its plain path on the card.
 """
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -289,25 +290,84 @@ def _dropout_args(seed, p):
     return seed.data_ptr(), dropout_threshold(p), 1.0 / (1.0 - p)
 
 
+FWD_MAX_CHUNK = 128  # CSR positions a block of kernel 1 (csrc/fused_edge.cu)
+FWD_MIN_RUN, FWD_MAX_RUN = 4, 32  # edges a warp of kernel 1 walks in a row
+FWD_WARPS_PER_SM = 16  # warps an SM that kernel 1's grid aims to fill
+
+
+def fwd_schedule(b: int, e: int, sm_count: int) -> tuple:
+    """(chunk, warps): CSR positions and warps a block of kernel 1.
+
+    Each warp walks a run of ``chunk / warps`` consecutive edges of its
+    block's slice, whatever their targets, so the longest chain is set by
+    the run, not by the largest in-degree.  The run is as short as keeps
+    ``FWD_WARPS_PER_SM`` warps on every SM busy, within 4-32 edges: at B=1
+    (N=200, k=40) runs of 4 spread the 8,000 edges over 2,000 warps; from
+    B=8 up, runs of 32 pay the block's staging and its arrival at the
+    targets it shares with other blocks least often.  A block holds 32-128
+    positions: 8 warps for short runs, 4 for long ones (so the grid of B=10
+    fits the card in one round).  A function of the batch, the edge count
+    and the SM count alone, so reruns on one card are bit-identical.
+    """
+    run = -(-b * e // (sm_count * FWD_WARPS_PER_SM))
+    run = min(max(run, FWD_MIN_RUN), FWD_MAX_RUN)
+    warps = min(WARPS, max(4, FWD_MAX_CHUNK // run), max(1, -(-e // run)))
+    return run * warps, warps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_ARRIVALS = {}  # (device index, stream) -> int32 counters, zero between launches
+
+
+def _arrivals(device: torch.device, stream: int, size: int) -> torch.Tensor:
+    """Kernel 1's arrival counters for launches on ``stream``: zero before
+    and after every launch (the kernel resets what it counts), so they are
+    made once; launches on one stream never overlap."""
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
 def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
                 p: float) -> torch.Tensor:
     """Check the (B, N, H) operands and launch ``nbody_fused_edge_fwd``."""
     from nbody_gnn_hpc_torch.ops.cuda_build import load_library
 
     b, n, e, d, h = _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed)
+    col = edges.col
+    if (col.dtype != torch.int64 or col.device != tp.device
+            or tuple(col.shape) != (b, e) or (e > 1 and col.stride(1) != 1)):
+        raise ValueError(f"col must be a (B, E) int64 tensor on {tp.device} "
+                         f"with unit stride along E")
     fn = load_library("fused_edge").nbody_fused_edge_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float,
-                                             ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong,
+                                             ctypes.c_void_p, ctypes.c_uint,
+                                             ctypes.c_float]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    chunk, warps = fwd_schedule(b, e, _sm_count(tp.device.index))
+    blocks = max(1, -(-e // chunk))
     out = torch.empty_like(tp)
+    part = torch.empty((b, blocks, 2, h), dtype=torch.float32,
+                       device=tp.device)
     seed_ptr, thr, scale = _dropout_args(seed, p)
     with torch.cuda.device(tp.device):
         stream = torch.cuda.current_stream(tp.device).cuda_stream
+        arrivals = _arrivals(tp.device, stream, b * blocks)
         rc = fn(tp.data_ptr(), sp.data_ptr(), ea.data_ptr(), w_e.data_ptr(),
                 gamma.data_ptr(), beta.data_ptr(), edges.perm.data_ptr(),
-                edges.src.data_ptr(), edges.offsets.data_ptr(), seed_ptr,
-                thr, scale, out.data_ptr(), b, n, e, d, h, stream)
+                edges.src.data_ptr(), edges.offsets.data_ptr(),
+                col.data_ptr(), col.stride(0) if b else e, seed_ptr, thr,
+                scale, out.data_ptr(), part.data_ptr(), arrivals.data_ptr(),
+                b, n, e, d, h, chunk, warps, stream)
     if rc != 0:
         raise RuntimeError(f"fused edge forward kernel launch failed: CUDA "
                            f"error {rc}")

@@ -157,6 +157,93 @@ def test_wrapper_rejects_bad_operands(cuda):
         fused_edge_layer(*bad)
 
 
+# Kernel 1 splits the CSR into equal runs of edges, whatever their targets:
+# graphs whose in-degrees are far from even.
+
+def _graph(kind, b, n, rng):
+    """(B, 2, E) int64 edges of one kind, made with numpy."""
+    graphs = []
+    for _ in range(b):
+        if kind == "hub":  # one target holds ~80 % of the edges
+            e = 40 * n
+            col = np.where(rng.rand(e) < 0.8, n // 3, rng.randint(0, n, e))
+        elif kind == "gaps":  # in-degree 0 at the start, middle and end
+            e = 20 * n
+            col = rng.choice(np.r_[3:n // 2 - 2, n // 2 + 3:n - 4], e)
+        else:  # "sparse": N > E, most targets without edges
+            e = n // 3
+            col = rng.randint(0, n, e)
+        graphs.append(np.stack([rng.randint(0, n, e), col]))
+    return torch.from_numpy(np.stack(graphs).astype(np.int64))
+
+
+def _graph_inputs(kind, b, n, h, d, device, seed, big=False):
+    """Operands over a ``_graph``; ``big``: LayerNorm scale and shift that
+    put pre-activations out to about +-100."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    ei = _graph(kind, b, n, rng).to(device)
+    e = ei.shape[-1]
+    return (t(rng.randn(b, n, h)), t(rng.randn(b, n, h)),
+            t(rng.randn(b, e, d)), t(rng.randn(d, h) * 0.3),
+            t((40.0 if big else 1.0) + 0.1 * rng.randn(h)),
+            t((30.0 if big else 0.1) * rng.randn(h)),
+            target_csr(ei, n))
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("kind,b,n,h,d,big", [
+    ("hub", 1, 200, 256, 5, False),   # the hub crosses warps and blocks
+    ("hub", 3, 50, 96, 8, False),
+    ("hub", 24, 200, 256, 5, False),
+    ("gaps", 1, 200, 32, 1, False),
+    ("gaps", 3, 64, 256, 5, True),
+    ("sparse", 1, 300, 96, 5, False),
+    ("sparse", 24, 90, 32, 8, False),
+])
+def test_kernel_with_uneven_in_degrees(cuda, training, kind, b, n, h, d,
+                                       big):
+    args = _graph_inputs(kind, b, n, h, d, cuda, seed=n + h + d, big=big)
+    sd, p = (_seed(cuda, 99), 0.1) if training else (None, 0.0)
+    got = fused_edge_layer(*args, sd, dropout_p=p, deterministic=not training)
+    want = fused_edge_layer_reference(*args, sd, p)
+    torch.testing.assert_close(got, want, **TOL)
+    assert bool((got[want == 0] == 0).all())
+    assert torch.equal(got, fused_edge_layer(*args, sd, dropout_p=p,
+                                             deterministic=not training))
+
+
+def test_kernel_on_edges_shared_by_the_batch(cuda):
+    """Training hands over one (2, E) edge index expanded over the batch:
+    its target row has stride 0."""
+    b, n, k, h = 3, 40, 6, 64
+    rng = np.random.RandomState(6)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa
+    pos = t(rng.rand(n, 3) * 10 - 5)
+    edges = target_csr(knn_edge_index(pos, k).expand(b, -1, -1), n)
+    assert edges.col.stride(0) == 0
+    args = (t(rng.randn(b, n, h)), t(rng.randn(b, n, h)),
+            t(rng.randn(b, n * k, 5)), t(rng.randn(5, h) * 0.3),
+            t(1 + 0.1 * rng.randn(h)), t(0.1 * rng.randn(h)), edges)
+    for sd, p in ((None, 0.0), (_seed(cuda, 8), 0.1)):
+        torch.testing.assert_close(
+            fused_edge_layer(*args, sd, dropout_p=p, deterministic=sd is None),
+            fused_edge_layer_reference(*args, sd, p), **TOL)
+
+
+def test_kernel_pre_activations_out_to_100(cuda):
+    """The fast SiLU (one exp, one approximate reciprocal) at |y| ~ 100."""
+    args = _graph_inputs("gaps", 2, 40, 256, 5, cuda, seed=4, big=True)
+    tp, sp, ea, we, gamma, beta, edges = args
+    from nbody_gnn_hpc_torch.ops.fused_edge import _stream
+    _, y, _, _ = _stream(tp, sp, ea, we, gamma, beta, edges)
+    assert y.abs().max().item() > 100.0
+    for sd, p in ((None, 0.0), (_seed(cuda, 5), 0.1)):
+        torch.testing.assert_close(
+            fused_edge_layer(*args, sd, dropout_p=p, deterministic=sd is None),
+            fused_edge_layer_reference(*args, sd, p), **TOL)
+
+
 # -- direct-force kernels (csrc/pairwise.cu) --------------------------------
 
 # As the JAX package's kernel tests (tests/test_ops.py): float32 sum order

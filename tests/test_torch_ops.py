@@ -20,7 +20,10 @@ from nbody_gnn_hpc_torch.ops import (dropout_keep, edge_features,
                                      fused_edge_layer_reference,
                                      is_row_regular, knn_edge_index,
                                      target_csr)
-from nbody_gnn_hpc_torch.ops.fused_edge import philox4x32
+from nbody_gnn_hpc_torch.ops.fused_edge import (FWD_MAX_CHUNK, FWD_MAX_RUN,
+                                                FWD_MIN_RUN, WARPS,
+                                                _arrivals, fwd_schedule,
+                                                philox4x32)
 from nbody_gnn_hpc_tpu.models.gnn import target_adjacency
 from nbody_gnn_hpc_tpu.ops import edges as jedges
 from nbody_gnn_hpc_tpu.ops import knn as jknn
@@ -150,6 +153,29 @@ def test_fused_reference_matches_jax_kernel(n, k, h):
         adj.T, jnp.zeros((1, 1), jnp.int32), k=k, interpret=True)
     got = _port_stream(d, torch.tensor(np.asarray(ei)).long())
     assert got.shape == (n, h)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["hub", "gaps"])
+def test_fused_reference_matches_jax_kernel_on_uneven_in_degrees(kind):
+    """Row-regular sources (as the k-NN graph) with targets far from
+    regular: one target taking ~80 % of the edges, or targets without
+    edges at the start, middle and end."""
+    n, k, h = 16, 4, 32
+    d = _stream_inputs(n, k, h, seed=23)
+    rng = np.random.RandomState(24)
+    row = np.repeat(np.arange(n), k)
+    if kind == "hub":
+        col = np.where(rng.rand(n * k) < 0.8, 5, rng.randint(0, n, n * k))
+    else:
+        col = rng.choice(np.r_[2:7, 9:13], n * k)
+    ei = np.stack([row, col]).astype(np.int32)
+    adj, _ = target_adjacency(jnp.asarray(ei), n, jnp.float32)
+    want = jfused_edge_layer(
+        jnp.asarray(d["tp"]), jnp.asarray(d["sp"]), jnp.asarray(d["ea"]),
+        jnp.asarray(d["we"]), jnp.asarray(d["gamma"]), jnp.asarray(d["beta"]),
+        adj.T, jnp.zeros((1, 1), jnp.int32), k=k, interpret=True)
+    got = _port_stream(d, torch.from_numpy(ei).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -335,3 +361,43 @@ def test_batched_plain_versions_match_jax_batched_kernels():
     np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), **TOL)
     got = fused_edge_backward_reference(*args, torch.from_numpy(g_out))
     _assert_grads([g.numpy() for g in got], want)
+
+
+@pytest.mark.parametrize("b,e,sm_count", [
+    (1, 0, 132), (65535, 0, 132),       # no edges
+    (1, 3, 132), (2, 7, 132),           # fewer edges than warps
+    (1, 8000, 132), (8, 8000, 132), (10, 8000, 132), (24, 8000, 132),
+    (65535, 8000, 132), (1, 8000, 1), (1, 1, 1)])
+def test_forward_schedule(b, e, sm_count):
+    """Kernel 1's (chunk, warps): the same for the same inputs, runs of
+    4-32 edges a warp, a chunk the kernel takes, and no warp of a one-block
+    graph without edges."""
+    chunk, warps = fwd_schedule(b, e, sm_count)
+    assert (chunk, warps) == fwd_schedule(b, e, sm_count)
+    assert 1 <= warps <= WARPS and chunk % warps == 0
+    assert FWD_MIN_RUN <= chunk // warps <= FWD_MAX_RUN
+    assert chunk <= FWD_MAX_CHUNK
+    if 0 < e < WARPS * FWD_MIN_RUN:
+        assert (warps - 1) * (chunk // warps) < e <= chunk
+
+
+def test_forward_schedule_at_the_main_paths():
+    """At N=200, k=40 on 132 SMs: runs of 4 edges, 8 warps a block at B=1
+    (250 blocks); runs of 31-32, 4 warps a block from B=8 up."""
+    assert fwd_schedule(1, 8000, 132) == (32, 8)
+    assert fwd_schedule(8, 8000, 132) == (124, 4)
+    for b in (10, 24):
+        assert fwd_schedule(b, 8000, 132) == (128, 4)
+
+
+def test_forward_arrival_counters_are_made_once_a_stream():
+    """Kernel 1's counters start at zero and are kept for later launches
+    on the same stream (the kernel leaves them zero), made anew only to
+    grow; another stream gets its own."""
+    cpu = torch.device("cpu")
+    first = _arrivals(cpu, 11, 10)
+    assert first.dtype == torch.int32 and not first.any()
+    assert _arrivals(cpu, 11, first.numel()) is first
+    grown = _arrivals(cpu, 11, first.numel() + 1)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert _arrivals(cpu, 12, 10) is not grown
