@@ -1,9 +1,9 @@
 // Device functions shared by the edge-stream kernels (fused_edge.cu) and the
 // whole-layer kernel (fused_edge_full.cu): the Philox4x32-10 dropout mask,
-// the warp sum, the pre-LayerNorm stream of one edge and the per-lane layout
-// of W_e.  Both files draw the same mask bits for the same (seed, graph,
-// edge, channel), so a layer run through either agrees with the other and
-// with the plain PyTorch version (ops/fused_edge.py).
+// the warp sum, an edge's features and the per-lane layout of W_e.  Both
+// files draw the same mask bits for the same (seed, graph, edge, channel), so
+// a layer run through either agrees with the other and with the plain
+// PyTorch version (ops/fused_edge.py).
 
 #pragma once
 
@@ -69,34 +69,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Pre-LayerNorm stream z of one edge (lane's channels) and its statistics.
-template <int CPL>
-__device__ __forceinline__ void edge_z(const float* tp_row, const float* sp_row,
-                                       const float (&a)[kMaxD], int d,
-                                       const float* s_we, int lane,
-                                       float (&z)[CPL], float& mu,
-                                       float& rstd) {
-  constexpr int H = CPL * 32;
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    float pe = 0.f;
-#pragma unroll
-    for (int q = 0; q < kMaxD; ++q) {
-      if (q < d) pe = fmaf(a[q], s_we[q * H + c], pe);
-    }
-    const float v = tp_row[c] + sp_row[c] + pe;
-    z[j] = v;
-    s1 += v;
-    s2 = fmaf(v, v, s2);
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  mu = s1 * (1.f / H);
-  rstd = rsqrtf(s2 * (1.f / H) - mu * mu + kEps);
 }
 
 __device__ __forceinline__ void load_attr(const float* ea_e, int d,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries go to
 ``build/kernels/`` at the repo root, named by a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is reused.  The
-build runs at first use, never at import.
+flags, so an edited source is rebuilt and an unchanged one is reused; the
+compiler's report is kept beside each library.  The build runs at first
+use, never at import.
 """
 
 import ctypes
@@ -64,8 +65,18 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, path)  # atomic: a reader never sees a partial file
+        path.with_suffix(".log").write_text(log)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return report
+
+
+def build_log(name: str) -> str:
+    """The compiler's report of the built library for ``csrc/<name>.cu``
+    (registers, shared memory, spills), or "" if it is not built.
+    ``compare_checkouts`` runs its source in other checkouts, beside their
+    ``library_path``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)

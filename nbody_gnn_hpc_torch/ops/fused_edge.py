@@ -11,11 +11,11 @@ forward Pallas kernel ``_fwd_kernel``, the backward ``_bwd_kernel`` and the
 
 The TPU kernel's one-hot ``adjT`` matmuls are replaced by a target-major
 CSR (:func:`target_csr`): edge ids stably sorted by target, their sources,
-and per-target offsets; the backward also walks a source-major CSR for
-``d_s_proj``.  Both are index bookkeeping, computed once per forward and
-shared by every layer.  The kernels (``csrc/fused_edge.cu``) take every sum
-in a fixed order, so reruns are bit-identical; its source note states the
-design and the H100 bounds.
+and per-target offsets; the backward also walks a source-major CSR (its
+heavy pass, which forms ``d_s_proj``).  Both are index bookkeeping,
+computed once per forward and shared by every layer.  The kernels
+(``csrc/fused_edge.cu``) take every sum in a fixed order, so reruns are
+bit-identical; its source note states the design and the H100 bounds.
 
 Dropout bits come from Philox4x32-10 keyed on the layer's int seed, one
 32-bit word per (graph, original edge id, channel) (:func:`dropout_keep`);
@@ -41,7 +41,7 @@ from nbody_gnn_hpc_torch.ops.edges import gather_nodes
 EPS = 1e-6  # flax.linen.LayerNorm default
 MAX_EDGE_DIM = 8
 MAX_HIDDEN = 256
-WARPS = 8  # warps per block of the kernels (targets per block in backward)
+WARPS = 8  # most warps a block of the edge-stream kernels
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -290,9 +290,25 @@ def _dropout_args(seed, p):
     return seed.data_ptr(), dropout_threshold(p), 1.0 / (1.0 - p)
 
 
-FWD_MAX_CHUNK = 128  # CSR positions a block of kernel 1 (csrc/fused_edge.cu)
-FWD_MIN_RUN, FWD_MAX_RUN = 4, 32  # edges a warp of kernel 1 walks in a row
+MAX_CHUNK = 128  # CSR positions a block of kernels 1 and 2
+MAX_RUN = 32  # most edges a warp of kernels 1 and 2 walks in a row
+FWD_MIN_RUN = 4  # least edges a warp of kernel 1 walks in a row
 FWD_WARPS_PER_SM = 16  # warps an SM that kernel 1's grid aims to fill
+# Kernel 2's passes keep ~165 registers a thread, so 12 warps fit an SM: its
+# grid aims at two rounds of them, in runs of at least 8 edges.
+BWD_MIN_RUN, BWD_WARPS_PER_SM = 8, 24
+
+
+def _walk_schedule(b: int, e: int, sm_count: int, warps_per_sm: int,
+                   min_run: int) -> tuple:
+    """(chunk, warps) of a walk that aims ``warps_per_sm`` warps at every
+    SM: runs as short as give each of them one, within ``min_run``-32
+    edges; 8 warps a block for short runs, down to 4 for long ones; no
+    more warps than a graph's edges need."""
+    run = -(-b * e // (sm_count * warps_per_sm))
+    run = min(max(run, min_run), MAX_RUN)
+    warps = min(WARPS, max(4, MAX_CHUNK // run), max(1, -(-e // run)))
+    return run * warps, warps
 
 
 def fwd_schedule(b: int, e: int, sm_count: int) -> tuple:
@@ -309,10 +325,20 @@ def fwd_schedule(b: int, e: int, sm_count: int) -> tuple:
     fits the card in one round).  A function of the batch, the edge count
     and the SM count alone, so reruns on one card are bit-identical.
     """
-    run = -(-b * e // (sm_count * FWD_WARPS_PER_SM))
-    run = min(max(run, FWD_MIN_RUN), FWD_MAX_RUN)
-    warps = min(WARPS, max(4, FWD_MAX_CHUNK // run), max(1, -(-e // run)))
-    return run * warps, warps
+    return _walk_schedule(b, e, sm_count, FWD_WARPS_PER_SM, FWD_MIN_RUN)
+
+
+def bwd_schedule(b: int, e: int, sm_count: int) -> tuple:
+    """(chunk, warps): CSR positions and warps a block of both passes of
+    kernel 2 (the source-major and the target-major pass walk as many
+    positions).  As :func:`fwd_schedule`, but aiming ``BWD_WARPS_PER_SM``
+    warps at every SM in runs of ``BWD_MIN_RUN`` to 32 edges: at B=1
+    (N=200, k=40) runs of 8, 8 warps a block (125 blocks); at B=8 runs of
+    21, 6 warps a block (508 blocks, two rounds of 12 warps an SM); from
+    B=24 runs of 32, 4 warps a block.  A function of the batch, the edge
+    count and the SM count alone, so reruns on one card are bit-identical.
+    """
+    return _walk_schedule(b, e, sm_count, BWD_WARPS_PER_SM, BWD_MIN_RUN)
 
 
 @functools.lru_cache(maxsize=None)
@@ -324,9 +350,10 @@ _ARRIVALS = {}  # (device index, stream) -> int32 counters, zero between launche
 
 
 def _arrivals(device: torch.device, stream: int, size: int) -> torch.Tensor:
-    """Kernel 1's arrival counters for launches on ``stream``: zero before
-    and after every launch (the kernel resets what it counts), so they are
-    made once; launches on one stream never overlap."""
+    """The walks' arrival counters (kernels 1 and 2) for launches on
+    ``stream``: zero before and after every launch (the kernels reset what
+    they count), so they are made once; launches on one stream never
+    overlap."""
     key = (device.index, stream)
     buf = _ARRIVALS.get(key)
     if buf is None or buf.numel() < size:
@@ -335,17 +362,23 @@ def _arrivals(device: torch.device, stream: int, size: int) -> torch.Tensor:
     return buf
 
 
+def _node_index(name, t, b: int, e: int, device) -> torch.Tensor:
+    """Check the node of every edge id the walks read: (B, E) int64, unit
+    stride along E (row stride 0 where the graphs share their edges)."""
+    if (t.dtype != torch.int64 or t.device != device
+            or tuple(t.shape) != (b, e) or (e > 1 and t.stride(1) != 1)):
+        raise ValueError(f"{name} must be a (B, E) int64 tensor on {device} "
+                         f"with unit stride along E")
+    return t
+
+
 def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
                 p: float) -> torch.Tensor:
     """Check the (B, N, H) operands and launch ``nbody_fused_edge_fwd``."""
     from nbody_gnn_hpc_torch.ops.cuda_build import load_library
 
     b, n, e, d, h = _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed)
-    col = edges.col
-    if (col.dtype != torch.int64 or col.device != tp.device
-            or tuple(col.shape) != (b, e) or (e > 1 and col.stride(1) != 1)):
-        raise ValueError(f"col must be a (B, E) int64 tensor on {tp.device} "
-                         f"with unit stride along E")
+    col = _node_index("col", edges.col, b, e, tp.device)
     fn = load_library("fused_edge").nbody_fused_edge_fwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong,
                                              ctypes.c_void_p, ctypes.c_uint,
@@ -377,7 +410,7 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
 
 def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
                 p: float, want_d_ea: bool):
-    """Check the operands and launch ``nbody_fused_edge_bwd`` (passes A, B
+    """Check the operands and launch ``nbody_fused_edge_bwd`` (passes S, T
     and C of kernel 2, counted as one launch)."""
     from nbody_gnn_hpc_torch.ops.cuda_build import load_library
 
@@ -393,28 +426,43 @@ def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
                ("sperm", sources.perm, i32, (b, e)),
                ("sdst", sources.dst, i32, (b, e)),
                ("soffsets", sources.offsets, i32, (b, n + 1))])
+    col = _node_index("col", edges.col, b, e, tp.device)
+    row = _node_index("row", edges.row, b, e, tp.device)
     fn = load_library("fused_edge").nbody_fused_edge_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    chunk, warps = bwd_schedule(b, e, _sm_count(tp.device.index))
+    blocks = max(1, -(-e // chunk))
+    dev = tp.device
     d_tp = torch.empty_like(tp)
     d_sp = torch.empty_like(sp)
     d_ea = torch.empty_like(ea) if want_d_ea else None
-    part = torch.empty((b, -(-n // WARPS), d + 2, h), dtype=torch.float32,
-                       device=tp.device)
-    d_params = torch.empty((d + 2, h), dtype=torch.float32, device=tp.device)
+    part = torch.empty((b, blocks, 2, h), dtype=torch.float32, device=dev)
+    # Pass S's record of each edge for pass T: 4 scalars and H/32 words of
+    # keep bits.
+    rec = torch.empty((b, e, 4 + h // 32), dtype=i32, device=dev)
+    part_par = torch.empty((b * blocks, d + 2, h), dtype=torch.float32,
+                           device=dev)
+    d_params = torch.empty((d + 2, h), dtype=torch.float32, device=dev)
     seed_ptr, thr, scale = _dropout_args(seed, p)
-    with torch.cuda.device(tp.device):
-        stream = torch.cuda.current_stream(tp.device).cuda_stream
+    stride = lambda t: t.stride(0) if b else e  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        arrivals = _arrivals(dev, stream, b * blocks)
         rc = fn(tp.data_ptr(), sp.data_ptr(), ea.data_ptr(), w_e.data_ptr(),
                 gamma.data_ptr(), beta.data_ptr(), edges.perm.data_ptr(),
                 edges.src.data_ptr(), edges.offsets.data_ptr(),
-                sources.perm.data_ptr(), sources.dst.data_ptr(),
-                sources.offsets.data_ptr(), g_out.data_ptr(), seed_ptr, thr,
+                col.data_ptr(), stride(col), sources.perm.data_ptr(),
+                sources.dst.data_ptr(), sources.offsets.data_ptr(),
+                row.data_ptr(), stride(row), g_out.data_ptr(), seed_ptr, thr,
                 scale, d_tp.data_ptr(), d_sp.data_ptr(),
-                None if d_ea is None else d_ea.data_ptr(),
-                part.data_ptr(), d_params.data_ptr(), b, n, e, d, h, stream)
+                None if d_ea is None else d_ea.data_ptr(), part.data_ptr(),
+                arrivals.data_ptr(), rec.data_ptr(), part_par.data_ptr(),
+                d_params.data_ptr(), b, n, e, d, h, chunk, warps, stream)
     if rc != 0:
         raise RuntimeError(f"fused edge backward kernel launch failed: CUDA "
                            f"error {rc}")

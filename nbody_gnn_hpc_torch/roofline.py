@@ -85,6 +85,33 @@ def cuda_time_ms(fn: Callable, reps: int = 20, inner: int = 50,
     return float(np.median(times))
 
 
+def kernel_times_ms(fn, calls=20):
+    """Device time of one call of each kernel that ``fn`` launches, by
+    torch.profiler over ``calls`` calls: {kernel name: ms}.  Imports what
+    it needs itself (``compare_checkouts`` runs its source in other
+    checkouts)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
+            name = re.search(r"(\w+_kernel)\b", ev.key)
+            key = name[1] if name else ev.key[:40]
+            out[key] = out.get(key, 0.0) + ev.device_time_total / 1e3 / calls
+    return out
+
+
 def host_time_ms(fn: Callable, reps: int = 5, inner: int = 1,
                  warmup: int = 1) -> float:
     """Median host-clock time of ``fn`` (CPU tensors)."""

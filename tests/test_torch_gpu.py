@@ -178,8 +178,9 @@ def _graph(kind, b, n, rng):
 
 
 def _graph_inputs(kind, b, n, h, d, device, seed, big=False):
-    """Operands over a ``_graph``; ``big``: LayerNorm scale and shift that
-    put pre-activations out to about +-100."""
+    """Operands over a ``_graph`` (with the source-major CSR the backward
+    walks); ``big``: LayerNorm scale and shift that put pre-activations out
+    to about +-100."""
     rng = np.random.RandomState(seed)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
     ei = _graph(kind, b, n, rng).to(device)
@@ -188,7 +189,7 @@ def _graph_inputs(kind, b, n, h, d, device, seed, big=False):
             t(rng.randn(b, e, d)), t(rng.randn(d, h) * 0.3),
             t((40.0 if big else 1.0) + 0.1 * rng.randn(h)),
             t((30.0 if big else 0.1) * rng.randn(h)),
-            target_csr(ei, n))
+            target_csr(ei, n, sources=True))
 
 
 @pytest.mark.parametrize("training", [False, True])
@@ -242,6 +243,106 @@ def test_kernel_pre_activations_out_to_100(cuda):
         torch.testing.assert_close(
             fused_edge_layer(*args, sd, dropout_p=p, deterministic=sd is None),
             fused_edge_layer_reference(*args, sd, p), **TOL)
+
+
+# Kernel 2 walks both CSRs in equal runs of edges, whatever their nodes: the
+# same uneven graphs (random sources: the source CSR is no identity), in
+# training form (dropout, no d_edge_attr) and the rollout fine-tune's form
+# (no dropout, with d_edge_attr).
+
+def _backward_held(args, g_out, form):
+    """Kernel 2 against its plain version in ``form``, rows of nodes
+    without edges exactly zero, a rerun bit for bit."""
+    sd, p = (_seed(g_out.device, 31), 0.1) if form == "training" else (None,
+                                                                       0.0)
+    d_ea = form == "fine-tune"
+    got = fused_edge_backward(*args, g_out, sd, p, need_d_edge_attr=d_ea)
+    want = fused_edge_backward_reference(*args, g_out, sd, p)
+    assert (got[2] is None) == (not d_ea)
+    names = [i for i in range(6) if d_ea or i != 2]
+    for i in names:
+        scale = want[i].abs().max().item() + 1e-6
+        err = (got[i] - want[i]).abs().max().item()
+        assert err <= GRAD_RTOL * scale, (NAMES[i], err, scale)
+    edges = args[6]
+    d_tp, d_sp = (g if g.dim() == 3 else g[None] for g in got[:2])
+    no_in = edges.offsets[:, 1:] == edges.offsets[:, :-1]
+    no_out = edges.sources.offsets[:, 1:] == edges.sources.offsets[:, :-1]
+    assert not d_tp[no_in].any() and not d_sp[no_out].any()
+    again = fused_edge_backward(*args, g_out, sd, p, need_d_edge_attr=d_ea)
+    for i in names:
+        assert torch.equal(got[i], again[i]), NAMES[i]
+    return no_in, no_out
+
+
+@pytest.mark.parametrize("form", ["training", "fine-tune"])
+@pytest.mark.parametrize("kind,b,n,h,d", [
+    ("hub", 1, 200, 256, 5),   # the hub crosses warps and blocks
+    ("hub", 3, 50, 96, 8),
+    ("hub", 24, 200, 256, 5),
+    ("gaps", 1, 200, 32, 1),
+    ("gaps", 3, 64, 256, 5),
+    ("sparse", 1, 300, 96, 5),
+    ("sparse", 24, 90, 32, 8),
+])
+def test_backward_with_uneven_degrees(cuda, form, kind, b, n, h, d):
+    args = _graph_inputs(kind, b, n, h, d, cuda, seed=2 * n + h + d)
+    g_out = torch.randn(args[0].shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(b))
+    no_in, no_out = _backward_held(args, g_out, form)
+    if kind == "sparse":  # most nodes have no edges on either side
+        assert no_in.any() and no_out.any()
+
+
+def test_backward_on_edges_shared_by_the_batch(cuda):
+    """Training hands over one (2, E) edge index expanded over the batch:
+    the target and source rows have stride 0."""
+    b, n, k, h = 3, 40, 6, 64
+    rng = np.random.RandomState(7)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa
+    pos = t(rng.rand(n, 3) * 10 - 5)
+    edges = target_csr(knn_edge_index(pos, k).expand(b, -1, -1), n,
+                       sources=True)
+    assert edges.col.stride(0) == 0 and edges.row.stride(0) == 0
+    args = (t(rng.randn(b, n, h)), t(rng.randn(b, n, h)),
+            t(rng.randn(b, n * k, 5)), t(rng.randn(5, h) * 0.3),
+            t(1 + 0.1 * rng.randn(h)), t(0.1 * rng.randn(h)), edges)
+    g_out = t(rng.randn(b, n, h))
+    for form in ("training", "fine-tune"):
+        _backward_held(args, g_out, form)
+
+
+def test_graphs_without_edges(cuda):
+    """No edges: both kernels give zeros (and an empty d_edge_attr)."""
+    b, n, h = 2, 10, 64
+    rng = np.random.RandomState(8)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa
+    edges = target_csr(torch.zeros((b, 2, 0), dtype=torch.int64,
+                                   device=cuda), n, sources=True)
+    args = (t(rng.randn(b, n, h)), t(rng.randn(b, n, h)),
+            t(rng.randn(b, 0, 5)), t(rng.randn(5, h)),
+            t(1 + 0.1 * rng.randn(h)), t(0.1 * rng.randn(h)), edges)
+    for sd, p in ((None, 0.0), (_seed(cuda, 9), 0.1)):
+        out = fused_edge_layer(*args, sd, dropout_p=p,
+                               deterministic=sd is None)
+        assert out.shape == (b, n, h) and not out.any()
+        grads = fused_edge_backward(*args, t(rng.randn(b, n, h)), sd, p)
+        assert grads[2].shape == (b, 0, 5)
+        for name, g in zip(NAMES, grads):
+            assert not g.any(), name
+
+
+def test_backward_pre_activations_out_to_100(cuda):
+    """silu' from the fast sigmoid (one exp, one approximate reciprocal) at
+    |y| ~ 100, in both forms."""
+    args = _graph_inputs("gaps", 2, 40, 256, 5, cuda, seed=4, big=True)
+    from nbody_gnn_hpc_torch.ops.fused_edge import _stream
+    _, y, _, _ = _stream(*args)
+    assert y.min().item() < -100.0 and y.max().item() > 100.0
+    g_out = torch.randn(args[0].shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(3))
+    for form in ("training", "fine-tune"):
+        _backward_held(args, g_out, form)
 
 
 # -- direct-force kernels (csrc/pairwise.cu) --------------------------------

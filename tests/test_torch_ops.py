@@ -20,10 +20,10 @@ from nbody_gnn_hpc_torch.ops import (dropout_keep, edge_features,
                                      fused_edge_layer_reference,
                                      is_row_regular, knn_edge_index,
                                      target_csr)
-from nbody_gnn_hpc_torch.ops.fused_edge import (FWD_MAX_CHUNK, FWD_MAX_RUN,
-                                                FWD_MIN_RUN, WARPS,
-                                                _arrivals, fwd_schedule,
-                                                philox4x32)
+from nbody_gnn_hpc_torch.ops.fused_edge import (BWD_MIN_RUN, FWD_MIN_RUN,
+                                                MAX_CHUNK, MAX_RUN, WARPS,
+                                                _arrivals, bwd_schedule,
+                                                fwd_schedule, philox4x32)
 from nbody_gnn_hpc_tpu.models.gnn import target_adjacency
 from nbody_gnn_hpc_tpu.ops import edges as jedges
 from nbody_gnn_hpc_tpu.ops import knn as jknn
@@ -156,6 +156,19 @@ def test_fused_reference_matches_jax_kernel(n, k, h):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _uneven_edges(kind, n, k):
+    """(2, N*k) int32 edges with row-regular sources (as the k-NN graph)
+    and targets far from regular: "hub", one target taking ~80 % of the
+    edges; "gaps", targets without edges at the start, middle and end."""
+    rng = np.random.RandomState(24)
+    row = np.repeat(np.arange(n), k)
+    if kind == "hub":
+        col = np.where(rng.rand(n * k) < 0.8, 5, rng.randint(0, n, n * k))
+    else:
+        col = rng.choice(np.r_[2:7, 9:13], n * k)
+    return np.stack([row, col]).astype(np.int32)
+
+
 @pytest.mark.parametrize("kind", ["hub", "gaps"])
 def test_fused_reference_matches_jax_kernel_on_uneven_in_degrees(kind):
     """Row-regular sources (as the k-NN graph) with targets far from
@@ -163,13 +176,7 @@ def test_fused_reference_matches_jax_kernel_on_uneven_in_degrees(kind):
     edges at the start, middle and end."""
     n, k, h = 16, 4, 32
     d = _stream_inputs(n, k, h, seed=23)
-    rng = np.random.RandomState(24)
-    row = np.repeat(np.arange(n), k)
-    if kind == "hub":
-        col = np.where(rng.rand(n * k) < 0.8, 5, rng.randint(0, n, n * k))
-    else:
-        col = rng.choice(np.r_[2:7, 9:13], n * k)
-    ei = np.stack([row, col]).astype(np.int32)
+    ei = _uneven_edges(kind, n, k)
     adj, _ = target_adjacency(jnp.asarray(ei), n, jnp.float32)
     want = jfused_edge_layer(
         jnp.asarray(d["tp"]), jnp.asarray(d["sp"]), jnp.asarray(d["ea"]),
@@ -268,6 +275,29 @@ def test_plain_backward_matches_jax_bwd_kernel(n, k, h):
         *_port_args(d, torch.tensor(np.asarray(ei)).long()),
         torch.from_numpy(g_out))
     _assert_grads([g.numpy() for g in got], want)
+
+
+@pytest.mark.parametrize("kind", ["hub", "gaps"])
+def test_plain_backward_matches_jax_bwd_kernel_on_uneven_in_degrees(kind):
+    """The six gradients of the plain backward == jax.vjp of the JAX fused
+    layer (the Pallas _bwd_kernel in interpret mode) on the uneven graphs
+    of the forward's test: a hub target, and targets without edges (whose
+    d_t_proj rows are zero on both sides; both graphs have some)."""
+    n, k, h = 16, 4, 32
+    d = _stream_inputs(n, k, h, seed=25)
+    ei = _uneven_edges(kind, n, k)
+    jargs, adj_t = _jax_stream_args(d, jnp.asarray(ei), n)
+    g_out = np.random.RandomState(26).randn(n, h).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jfused_edge_layer(
+        *a, adj_t, jnp.zeros((1, 1), jnp.int32), k=k, interpret=True,
+        deterministic=True), *jargs)
+    want = vjp(jnp.asarray(g_out))
+    got = fused_edge_backward_reference(
+        *_port_args(d, torch.from_numpy(ei).long()), torch.from_numpy(g_out))
+    _assert_grads([g.numpy() for g in got], want)
+    no_in = np.bincount(ei[1], minlength=n) == 0
+    assert no_in.any()
+    assert not got[0].numpy()[no_in].any()
 
 
 @pytest.mark.parametrize("batch", [None, 3])
@@ -375,8 +405,8 @@ def test_forward_schedule(b, e, sm_count):
     chunk, warps = fwd_schedule(b, e, sm_count)
     assert (chunk, warps) == fwd_schedule(b, e, sm_count)
     assert 1 <= warps <= WARPS and chunk % warps == 0
-    assert FWD_MIN_RUN <= chunk // warps <= FWD_MAX_RUN
-    assert chunk <= FWD_MAX_CHUNK
+    assert FWD_MIN_RUN <= chunk // warps <= MAX_RUN
+    assert chunk <= MAX_CHUNK
     if 0 < e < WARPS * FWD_MIN_RUN:
         assert (warps - 1) * (chunk // warps) < e <= chunk
 
@@ -388,6 +418,46 @@ def test_forward_schedule_at_the_main_paths():
     assert fwd_schedule(8, 8000, 132) == (124, 4)
     for b in (10, 24):
         assert fwd_schedule(b, 8000, 132) == (128, 4)
+
+
+def _walk_positions(e, chunk, warps):
+    """The CSR positions each warp of a walk takes (csrc/fused_edge.cu):
+    block x the positions [x * chunk, min((x + 1) * chunk, e)), its warp w
+    the ceil(chunk / warps) of them that start at x * chunk + w * run."""
+    run = -(-chunk // warps)
+    out = []
+    for x in range(max(1, -(-e // chunk))):
+        hi = min((x + 1) * chunk, e)
+        for w in range(warps):
+            a = x * chunk + w * run
+            out.extend(range(a, min(a + run, hi)))
+    return out
+
+
+@pytest.mark.parametrize("b,e,sm_count", [
+    (1, 0, 132), (65535, 0, 132),       # no edges
+    (1, 3, 132), (2, 7, 132),           # fewer edges than warps
+    (1, 8000, 132), (8, 8000, 132), (24, 8000, 132), (1, 8001, 132),
+    (65535, 8000, 132), (1, 8000, 1), (1, 1, 1), (3, 130, 132)])
+def test_backward_schedule(b, e, sm_count):
+    """Kernel 2's (chunk, warps), which both its passes walk: the same for
+    the same inputs, runs of 4-32 edges a warp, a chunk the kernel takes,
+    and every CSR position walked by exactly one warp."""
+    chunk, warps = bwd_schedule(b, e, sm_count)
+    assert (chunk, warps) == bwd_schedule(b, e, sm_count)
+    assert 1 <= warps <= WARPS and chunk % warps == 0
+    assert BWD_MIN_RUN <= chunk // warps <= MAX_RUN
+    assert chunk <= MAX_CHUNK
+    assert sorted(_walk_positions(e, chunk, warps)) == list(range(e))
+
+
+def test_backward_schedule_at_the_main_paths():
+    """At N=200, k=40 on 132 SMs: runs of 8 edges, 8 warps a block at B=1
+    (125 blocks); runs of 21, 6 warps a block at the fine-tune's B=8 (508
+    blocks); runs of 32, 4 warps a block at training's B=24."""
+    assert bwd_schedule(1, 8000, 132) == (64, 8)
+    assert bwd_schedule(8, 8000, 132) == (126, 6)
+    assert bwd_schedule(24, 8000, 132) == (128, 4)
 
 
 def test_forward_arrival_counters_are_made_once_a_stream():
