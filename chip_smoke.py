@@ -28,9 +28,11 @@ Phases (any failure exits non-zero and prints no result line):
    each gradient's scale (float32 sum order only).  Kernel 2's timed rows
    also give each of its launches' device time (torch.profiler).  The
    direct-force kernels: tiled (kernel 3) and symmetric (kernel 6) at
-   N=10,000, 2,085 and 700, small (kernel 4) at (300, 200), (1, 200) and
-   (3, 13), rtol 2e-4 with atol 1e-5 of the force scale; kernel 6 against
-   kernel 3; momentum neutrality; a coincident heavy pair; zero-mass rows.
+   N=10,000, 2,085 and 700, kernel 6 also at the edges of its schedule
+   (``SYM_EDGE_N``), small (kernel 4) at (B, N) = (300, 200), (100, 200),
+   (1, 200), (3, 13), (2000, 13), (2000, 1024) and (256, 926), rtol 2e-4
+   with atol 1e-5 of the force scale; kernel 6 against kernel 3; momentum
+   neutrality; a coincident heavy pair; zero-mass rows.
    The moment form
    (kernel 5, tensor-core products, dispatched by nothing) at N=700 offset
    by 300 and N=2,085, rtol 2e-4 with atol 2e-5 of scale, and at N=10,000
@@ -195,6 +197,11 @@ PROBE_RTOL = 1e-5
 CEILING_MAX_SHARE = 1.05
 DATAGEN = dict(n_sims=300, n_steps=400, n=200, box=10.0, dt=0.001, seed=42)
 LARGE_N, ODD_N = 10_000, 2_085
+# Kernel 6 at the edges of its schedule (ops.sym_schedule): tiny systems,
+# the dispatch's least N (sim.forces.PALLAS_MIN_N), and one below and one
+# above a multiple of each tile it takes on an H100 (32 at N=2,085, 64 at
+# 4,097-8,192, 128 at N=10,000).
+SYM_EDGE_N = (1, 3, 2_048, 2_079, 2_081, 4_159, 4_161, 9_983, 9_985)
 # Large-N /simulate against the CPU service, per particle: at N=10,000 in a
 # box of 10 the closest pairs sit ~1e-3 apart, where one ulp of a position
 # (5e-7) changes the pair force by ~1e-3, so a max-abs tolerance would
@@ -1212,6 +1219,17 @@ def phase_force_kernels(dev):
               f"|sum m a| / sum |m a| = {net[0]:.2e} (kernel 3), "
               f"{net[1]:.2e} (kernel 6) (limit 1e-5)", flush=True)
         check(max(net) < 1e-5, f"net force is not neutral at N={n}")
+    # Kernel 6's schedule at its edges: the dispatch's least N, one below and
+    # one above a multiple of the tile at each rows-a-lane choice (32, 64
+    # and 128 particles), tiny systems.
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in SYM_EDGE_N:
+        pos, _, m = protocol_system(n, dev)
+        tile = 32 * ops.sym_schedule(n, sm_count)
+        held("pairwise_symmetric", ops.accelerations_symmetric,
+             ops.accelerations_symmetric_reference, pos, m,
+             f"N={n} (tiles of {tile})", n * (n - 1) // 2,
+             FLOPS_PER_UNORDERED_PAIR, False)
 
     # Kernel 5, the moment form, which no entry point dispatches: held
     # against its plain version at the JAX test's tolerance on an offset
@@ -1273,17 +1291,32 @@ def phase_force_kernels(dev):
               f"single PyTorch call computes the softened pair sum "
               f"(library_ms null)", flush=True)
 
+    def small_plain(pos, m):
+        # The plain version 100 systems at a time: its pair planes at
+        # B=2,000, N=1,024 would take ~60 GB at once.
+        return torch.cat([ops.accelerations_small_reference(
+            pos[i:i + 100], m[i:i + 100]) for i in range(0, len(pos), 100)])
+
+    # Kernel 4 at the datagen batch (300), generate_data's default batch
+    # (100) and one system, timed; its schedule's edges untimed: a ragged
+    # N, the largest N, a large B, and a block of two per SM whose size is
+    # not a power-of-two count of warps.
     masses = shared_masses(DATAGEN["n"], seed=DATAGEN["seed"])
-    for b, n in ((DATAGEN["n_sims"], DATAGEN["n"]), (1, DATAGEN["n"]),
-                 (3, 13)):
+    for b, n in ((DATAGEN["n_sims"], DATAGEN["n"]), (100, DATAGEN["n"]),
+                 (1, DATAGEN["n"]), (3, 13), (2000, 13),
+                 (2000, ops.SMALL_MAX_N), (256, 926)):
         state = build_ensemble_state(
             [DATAGEN["seed"] + i for i in range(b)], n, DATAGEN["box"],
             masses if n == DATAGEN["n"] else None, device=dev,
             accel_fn=lambda p, m: torch.zeros_like(p))
+        r, k, threads = ops.small_schedule(b, n, sm_count)
         held("pairwise_small", ops.accelerations_small,
-             ops.accelerations_small_reference, state.positions,
-             state.masses, f"B={b} N={n}", b * n * n,
+             small_plain if b * n > DATAGEN["n_sims"] * DATAGEN["n"]
+             else ops.accelerations_small_reference,
+             state.positions, state.masses, f"B={b} N={n}", b * n * n,
              FLOPS_PER_ORDERED_PAIR, n == DATAGEN["n"])
+        print(f"    schedule: {r} receivers a lane group, {k} lanes a "
+              f"receiver, {threads} threads a block", flush=True)
 
     # A coincident heavy pair (G*m/eps^3 overflows float32) stays finite,
     # and zero-mass particles are force-neutral, in all three kernels.

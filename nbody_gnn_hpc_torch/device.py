@@ -5,6 +5,7 @@ with ``device="cpu"`` (the tests do); a missing GPU is an error, never a
 quiet switch to the CPU.
 """
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -29,6 +30,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device available (torch.cuda.is_available() is False); "
             "pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: what the
+    kernels' schedules size their grids by."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def use_full_f32() -> None:

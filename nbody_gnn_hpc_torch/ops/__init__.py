@@ -16,7 +16,8 @@ from nbody_gnn_hpc_torch.ops.pairwise import (
     SMALL_MAX_N, accelerations_small, accelerations_small_reference,
     accelerations_symmetric, accelerations_symmetric_mxu,
     accelerations_symmetric_mxu_reference, accelerations_symmetric_reference,
-    accelerations_tiled, accelerations_tiled_reference)
+    accelerations_tiled, accelerations_tiled_reference, small_schedule,
+    sym_schedule)
 from nbody_gnn_hpc_torch.ops.probes import (fma_probe, fma_probe_reference,
                                             rsqrt_probe,
                                             rsqrt_probe_reference)
@@ -35,4 +36,5 @@ __all__ = ["KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N", "SourceCSR",
            "fused_edge_layer_reference", "fused_full_layer",
            "fused_full_layer_plain", "fused_full_layer_reference",
            "is_row_regular", "knn_edge_index", "rsqrt_probe",
-           "rsqrt_probe_reference", "source_csr", "target_csr"]
+           "rsqrt_probe_reference", "small_schedule", "source_csr",
+           "sym_schedule", "target_csr"]

@@ -31,11 +31,11 @@ compare a kernel path with its plain path on the card.
 """
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from nbody_gnn_hpc_torch.device import sm_count
 from nbody_gnn_hpc_torch.ops.edges import gather_nodes
 
 EPS = 1e-6  # flax.linen.LayerNorm default
@@ -341,11 +341,6 @@ def bwd_schedule(b: int, e: int, sm_count: int) -> tuple:
     return _walk_schedule(b, e, sm_count, BWD_WARPS_PER_SM, BWD_MIN_RUN)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _ARRIVALS = {}  # (device index, stream) -> int32 counters, zero between launches
 
 
@@ -386,7 +381,7 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    chunk, warps = fwd_schedule(b, e, _sm_count(tp.device.index))
+    chunk, warps = fwd_schedule(b, e, sm_count(tp.device.index))
     blocks = max(1, -(-e // chunk))
     out = torch.empty_like(tp)
     part = torch.empty((b, blocks, 2, h), dtype=torch.float32,
@@ -435,7 +430,7 @@ def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    chunk, warps = bwd_schedule(b, e, _sm_count(tp.device.index))
+    chunk, warps = bwd_schedule(b, e, sm_count(tp.device.index))
     blocks = max(1, -(-e // chunk))
     dev = tp.device
     d_tp = torch.empty_like(tp)

@@ -8,13 +8,16 @@ Port of ``nbody_gnn_hpc_tpu/ops/pairwise.py``:
 - :func:`accelerations_tiled` (kernel 3, ``pallas_accelerations``): one
   thread per receiver, sources staged in tiles; (N, 3) or (B, N, 3).
 - :func:`accelerations_small` (kernel 4, ``pallas_accelerations_small``):
-  N <= ``SMALL_MAX_N``, each system staged whole; an ensemble (B, N, 3) is
-  one launch (what ``jax.vmap`` of the TPU kernel gave).
+  N <= ``SMALL_MAX_N``; an ensemble (B, N, 3) is one launch (what
+  ``jax.vmap`` of the TPU kernel gave), its receivers flattened over the
+  ensemble in groups of r, k lanes a group, one block an SM
+  (:func:`small_schedule`).
 - :func:`accelerations_symmetric` (kernel 6,
   ``pallas_accelerations_symmetric``): every tile pair (I, J >= I) once,
-  the reaction on the j side by Newton's third law; one system (N, 3).
+  one warp each, the reaction on the j side by Newton's third law; one
+  system (N, 3); tiles of 32 r particles (:func:`sym_schedule`).
 - :func:`accelerations_symmetric_mxu` (kernel 5,
-  ``pallas_accelerations_symmetric_mxu``): kernel 6's schedule with the
+  ``pallas_accelerations_symmetric_mxu``): a block per tile pair with the
   mass weighting and the sums as tensor-core products (the moment
   decomposition).  Like its JAX counterpart it is dispatched by nothing:
   numerically unsound for close pairs, kept as a public function.
@@ -34,13 +37,79 @@ bit-identical.
 """
 
 import ctypes
+import itertools
 
 import torch
 
-from nbody_gnn_hpc_torch.device import G, SOFTENING
+from nbody_gnn_hpc_torch.device import G, SOFTENING, sm_count
 
-TILE = 128          # receivers per block / sources per staged tile / kernel 6's tile
+TILE = 128          # kernel 3's receivers a block / the plain versions' tile
 SMALL_MAX_N = 1024  # kernel 4 stages a whole system in shared memory
+# Kernel 4: lanes a receiver grow until the grid gives every SM
+# SMALL_WARPS_PER_SM warps; two receivers a group where that still leaves
+# SMALL_PAIRED_MIN_WARPS at 8 lanes a receiver.  Kernel 6: the largest tile
+# whose triangle gives every SM SYM_WARPS_PER_SM warps.
+SMALL_WARPS_PER_SM, SMALL_PAIRED_MIN_WARPS, SYM_WARPS_PER_SM = 24, 8, 16
+SMALL_SMEM = 48 * 1024  # kernel 4 stages at most what a launch takes unasked
+
+
+def small_schedule(b: int, n: int, sm_count: int) -> tuple:
+    """(r, k, threads) of kernel 4: receivers a lane group, lanes a
+    receiver and threads a block.
+
+    A receiver group is ``r`` consecutive receivers of one system (one
+    staged source serves ``r`` pairs); ``k`` lanes share it, each taking
+    every ``k``-th source.  ``r`` = 2 (for N >= 16) unless the ensemble is
+    too small to give every SM ``SMALL_PAIRED_MIN_WARPS`` warps even at
+    ``k`` = 8; ``k`` is the least of 1, 2, 4, 8 (at most N / 4) that gives
+    every SM ``SMALL_WARPS_PER_SM`` warps, else the largest.  Groups are
+    dealt to blocks in order; a block is sized so that one block an SM
+    holds the whole grid (128 to 1,024 threads, whole warps; 256 for
+    larger grids), or two, three, ... blocks an SM where the systems one
+    block stages would not fit ``SMALL_SMEM``.  At N=200:
+    (2, 4, 928) for 300 systems, (2, 8, 608) for 100, (1, 8, 128) for
+    one.  A function of the shape and the SM count alone, so reruns on one
+    card are bit-identical.
+    """
+    parts = [k for k in (1, 2, 4, 8) if k == 1 or k <= n // 4]
+    paired = b * -(-n // 2) * parts[-1] >= (sm_count * SMALL_PAIRED_MIN_WARPS
+                                            * 32)
+    r = 2 if n >= 16 and paired else 1
+    per_system = -(-n // r)
+    groups = b * per_system
+    k = next((k for k in parts
+              if groups * k >= sm_count * SMALL_WARPS_PER_SM * 32), parts[-1])
+    if groups * k > sm_count * 1024:
+        return r, k, 256
+    # The fewest blocks an SM whose staged systems fit: at 128 threads a
+    # block stages at most 2 N + 256 rows, which fits for N <= 1024.
+    for per_sm in itertools.count(1):
+        lanes = -(-groups // (sm_count * per_sm)) * k
+        threads = min(1024, max(128, -(-lanes // 32) * 32))
+        if small_staged(b, n, r, k, threads) * n * 16 <= SMALL_SMEM:
+            return r, k, threads
+
+
+def small_staged(b: int, n: int, r: int, k: int, threads: int) -> int:
+    """The most systems one block of kernel 4 stages (its groups' span)."""
+    per_system, per_block = -(-n // r), threads // k
+    return min(b, (per_system + per_block - 2) // per_system + 1)
+
+
+def sym_schedule(n: int, sm_count: int) -> int:
+    """Rows a lane of kernel 6: tiles of ``32 * rows`` particles.
+
+    One warp computes one tile pair (I, J >= I), so the launch is the
+    triangle of tile pairs.  The largest of 4, 2, 1 rows whose triangle
+    gives every SM ``SYM_WARPS_PER_SM`` warps, else 1: N=10,000 takes 4
+    (3,160 pairs of 128-particle tiles), N=2,085 takes 1 (2,211 pairs of
+    32).  A function of N and the SM count alone.
+    """
+    for rows in (4, 2, 1):
+        tiles = -(-n // (32 * rows))
+        if tiles * (tiles + 1) // 2 >= sm_count * SYM_WARPS_PER_SM:
+            return rows
+    return 1
 
 
 def _pair_planes(pos_i: torch.Tensor, pos_j: torch.Tensor, soft2: float):
@@ -181,25 +250,23 @@ def _cuda_operands(name: str, positions: torch.Tensor, masses: torch.Tensor,
     return pos.contiguous(), masses.expand(b, n).contiguous()
 
 
-def _launch_batched(symbol: str, wrapper, positions, masses, softening):
-    """Launch kernel 3 or 4 (the same C signature) and count it."""
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _launch(symbol: str, wrapper, dev, argtypes, *args) -> None:
+    """Call the C entry point ``symbol`` (``argtypes``, then the stream) on
+    ``dev``'s current stream; raise on a CUDA error, else count the launch
+    on ``wrapper``."""
     from nbody_gnn_hpc_torch.ops.cuda_build import load_library
 
-    pos, m = _cuda_operands(wrapper.__name__, positions, masses)
-    b, n, _ = pos.shape
     fn = getattr(load_library("pairwise"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    acc = torch.empty_like(pos)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        rc = fn(pos.data_ptr(), m.data_ptr(), acc.data_ptr(), b, n,
-                float(softening) ** 2, stream)
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
     wrapper.launches += 1
-    return acc.view(positions.shape)
 
 
 def accelerations_tiled(positions: torch.Tensor, masses: torch.Tensor,
@@ -211,8 +278,13 @@ def accelerations_tiled(positions: torch.Tensor, masses: torch.Tensor,
     :func:`accelerations_tiled_reference`."""
     if positions.device.type == "cpu":
         return accelerations_tiled_reference(positions, masses, softening)
-    return _launch_batched("nbody_pairwise_tiled", accelerations_tiled,
-                           positions, masses, softening)
+    pos, m = _cuda_operands("accelerations_tiled", positions, masses)
+    b, n, _ = pos.shape
+    acc = torch.empty_like(pos)
+    _launch("nbody_pairwise_tiled", accelerations_tiled, pos.device,
+            (_P, _P, _P, _I, _I, _F), pos.data_ptr(), m.data_ptr(),
+            acc.data_ptr(), b, n, float(softening) ** 2)
+    return acc.view(positions.shape)
 
 
 def accelerations_small(positions: torch.Tensor, masses: torch.Tensor,
@@ -220,8 +292,9 @@ def accelerations_small(positions: torch.Tensor, masses: torch.Tensor,
     """Whole-system accelerations for N <= ``SMALL_MAX_N`` (kernel 4; JAX
     counterpart ``pallas_accelerations_small``, an ensemble being its
     ``vmap``).  positions (N, 3) or (B, N, 3) float32, masses (N,) or
-    (B, N); one launch for the whole ensemble (``launches`` counts it).
-    CPU tensors take :func:`accelerations_small_reference`."""
+    (B, N); one launch for the whole ensemble on the grid of
+    :func:`small_schedule` (``launches`` counts it).  CPU tensors take
+    :func:`accelerations_small_reference`."""
     n = positions.shape[-2]
     if n > SMALL_MAX_N:
         raise ValueError(f"accelerations_small takes N <= {SMALL_MAX_N}, "
@@ -229,30 +302,30 @@ def accelerations_small(positions: torch.Tensor, masses: torch.Tensor,
                          f"accelerations_symmetric")
     if positions.device.type == "cpu":
         return accelerations_small_reference(positions, masses, softening)
-    return _launch_batched("nbody_pairwise_small", accelerations_small,
-                           positions, masses, softening)
-
-
-def _launch_symmetric(symbol: str, wrapper, pos, m, softening):
-    """Launch kernel 6 or 5 (the same C signature: one system (1, N, 3), a
-    (tiles, N, 3) slot scratch, pair pass + slot sum) and count it once."""
-    from nbody_gnn_hpc_torch.ops.cuda_build import load_library
-
-    n = pos.shape[1]
-    fn = getattr(load_library("pairwise"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    pos, m = _cuda_operands("accelerations_small", positions, masses)
+    b, n, _ = pos.shape
+    r, k, threads = small_schedule(b, n, sm_count(pos.device.index))
     acc = torch.empty_like(pos)
-    partial = torch.empty((-(-n // TILE), n, 3), dtype=torch.float32,
+    _launch("nbody_pairwise_small", accelerations_small, pos.device,
+            (_P, _P, _P, _I, _I, _F, _I, _I, _I), pos.data_ptr(),
+            m.data_ptr(), acc.data_ptr(), b, n, float(softening) ** 2, r, k,
+            threads)
+    return acc.view(positions.shape)
+
+
+def _launch_symmetric(symbol: str, wrapper, pos, m, softening, tile: int,
+                      *schedule):
+    """Launch kernel 6 or 5 (one system (1, N, 3), a (ceil(N / tile), N, 3)
+    slot scratch, pair pass + slot sum; kernel 6 also takes its rows a
+    lane) and count it once."""
+    n = pos.shape[1]
+    acc = torch.empty_like(pos)
+    partial = torch.empty((-(-n // tile), n, 3), dtype=torch.float32,
                           device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        rc = fn(pos.data_ptr(), m.data_ptr(), partial.data_ptr(),
-                acc.data_ptr(), n, float(softening) ** 2, stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
-    wrapper.launches += 1
+    _launch(symbol, wrapper, pos.device,
+            (_P, _P, _P, _P, _I, _F) + (_I,) * len(schedule), pos.data_ptr(),
+            m.data_ptr(), partial.data_ptr(), acc.data_ptr(), n,
+            float(softening) ** 2, *schedule)
     return acc[0]
 
 
@@ -263,15 +336,17 @@ def accelerations_symmetric(positions: torch.Tensor, masses: torch.Tensor,
     once.  positions (N, 3) float32, masses (N,) -> (N, 3).  Equal to the
     JAX kernel wherever that is finite; coincident pairs are masked as in
     :func:`accelerations_tiled`, so they stay finite at any mass.  CUDA
-    tensors launch the kernel (pair pass + slot sum, counted as one in
-    ``launches``), CPU tensors take
+    tensors launch the kernel on the tiles of :func:`sym_schedule` (pair
+    pass + slot sum, counted as one in ``launches``), CPU tensors take
     :func:`accelerations_symmetric_reference`."""
     if positions.device.type == "cpu":
         return accelerations_symmetric_reference(positions, masses, softening)
     pos, m = _cuda_operands("accelerations_symmetric", positions, masses,
                             batched_ok=False)
+    rows = sym_schedule(pos.shape[1], sm_count(pos.device.index))
     return _launch_symmetric("nbody_pairwise_symmetric",
-                             accelerations_symmetric, pos, m, softening)
+                             accelerations_symmetric, pos, m, softening,
+                             32 * rows, rows)
 
 
 def accelerations_symmetric_mxu(positions: torch.Tensor,
@@ -297,7 +372,8 @@ def accelerations_symmetric_mxu(positions: torch.Tensor,
                             batched_ok=False)
     return _launch_symmetric("nbody_pairwise_symmetric_mma",
                              accelerations_symmetric_mxu,
-                             pos - pos.mean(1, keepdim=True), m, softening)
+                             pos - pos.mean(1, keepdim=True), m, softening,
+                             TILE)
 
 
 accelerations_tiled.launches = 0

@@ -378,11 +378,24 @@ def _force_kernels():
                           ops.accelerations_symmetric_reference)}
 
 
+# Beyond the main paths' shapes, the edges of the schedules
+# (ops.small_schedule, ops.sym_schedule): kernel 4 at generate_data's
+# default batch, a large B with a ragged and with the largest N, two
+# blocks an SM of an odd count of warps (B=256, N=926); kernel 6
+# at tiny N, the dispatch's least N and one below and one above a multiple
+# of each tile it takes on an H100 (32, 64, 128 particles).
 @pytest.mark.parametrize("name,n,batch", [
     ("tiled", 700, None), ("tiled", 2085, None), ("tiled", 128, None),
     ("tiled", 200, 5), ("symmetric", 700, None), ("symmetric", 2085, None),
     ("symmetric", 128, None), ("symmetric", 5, None), ("small", 200, 300),
-    ("small", 200, None), ("small", 13, 3), ("small", 1024, 2)])
+    ("small", 200, None), ("small", 13, 3), ("small", 1024, 2),
+    ("small", 200, 100), ("small", 13, 2000), ("small", 1024, 200),
+    ("small", 926, 256),
+    ("symmetric", 1, None), ("symmetric", 3, None),
+    ("symmetric", 2048, None), ("symmetric", 2079, None),
+    ("symmetric", 2081, None), ("symmetric", 4159, None),
+    ("symmetric", 4161, None), ("symmetric", 9983, None),
+    ("symmetric", 9985, None)])
 def test_force_kernel_matches_plain_version(cuda, name, n, batch):
     kernel, plain = _force_kernels()[name]
     pos, m = _system(n, cuda, seed=n, batch=batch)

@@ -208,3 +208,117 @@ def test_moment_form_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.accelerations_symmetric_mxu(pos, torch.empty(40, device="meta"))
     assert ops.accelerations_symmetric_mxu.launches == 0
+
+
+# -- the launch schedules of kernels 4 and 6 ---------------------------------
+# The kernels cannot run here; these tests repeat their index arithmetic
+# (csrc/pairwise.cu: pairwise_small_kernel, nbody_pairwise_small,
+# tile_pair) on the schedules the wrappers pass, and check that every pair
+# is covered exactly once and every scratch cell has exactly one writer.
+
+
+def _small_lanes(b, n, r, k, threads):
+    """Per lane of kernel 4's grid: (live, system, first receiver, part),
+    and per block the systems it stages (first, count)."""
+    groups = -(-n // r)
+    total = b * groups
+    per_block = threads // k
+    blocks = -(-total // per_block)
+    lane = np.arange(blocks * threads)
+    first = lane // threads * per_block
+    mine = first + lane % threads // k
+    g = np.minimum(mine, total - 1)
+    sys = g // groups
+    i0 = (g - sys * groups) * r
+    block_first = np.arange(blocks) * per_block
+    last = np.minimum(block_first + per_block, total) - 1
+    sys0 = block_first // groups
+    staged = (sys0, last // groups - sys0 + 1)
+    return mine < total, sys, i0, lane % threads % k, staged
+
+
+@pytest.mark.parametrize("sm_count", [132, 8])
+@pytest.mark.parametrize("b,n", [(300, 200), (100, 200), (1, 200), (3, 13),
+                                 (2000, 13), (2000, 1024), (1, 1), (7, 3),
+                                 (65, 1000), (33, 517), (5, 64),
+                                 (256, 926), (255, 795), (256, 862)])
+def test_small_schedule_covers_every_pair_once(b, n, sm_count):
+    """Every (system, receiver) is written by exactly one lane group, the
+    k lanes of a group split the sources into a partition of range(N), and
+    every block's staged systems hold its groups' and fit shared memory."""
+    r, k, threads = ops.small_schedule(b, n, sm_count)
+    assert r in (1, 2) and k in (1, 2, 4, 8)
+    assert threads % 32 == 0 and 32 <= threads <= 1024 and threads % k == 0
+    live, sys, i0, part, (sys0, span) = _small_lanes(b, n, r, k, threads)
+    written = np.zeros((b, n), np.int64)
+    for q in range(r):
+        keep = live & (part == 0) & (i0 + q < n)
+        np.add.at(written, (sys[keep], i0[keep] + q), 1)
+    assert (written == 1).all()
+    sources = np.zeros(n, np.int64)
+    for p in range(k):  # lane p: j = p + k t for t < n // k, then a tail j
+        js = list(range(p, p + k * (n // k), k))
+        js += [p + k * (n // k)] if p + k * (n // k) < n else []
+        np.add.at(sources, js, 1)
+    assert (sources == 1).all()
+    block = np.arange(len(live)) // threads
+    assert ((sys >= sys0[block]) & (sys < sys0[block] + span[block])).all()
+    staged = ops.pairwise.small_staged(b, n, r, k, threads)
+    assert span.max() <= staged
+    assert staged * n * 16 <= ops.pairwise.SMALL_SMEM
+
+
+def test_small_schedule_fills_the_card_at_the_datagen_shapes():
+    """One block an SM at most, and as many warps as the rule asks."""
+    for b, want in ((300, (2, 4, 928)), (100, (2, 8, 608)),
+                    (1, (1, 8, 128))):
+        r, k, threads = ops.small_schedule(b, 200, 132)
+        assert (r, k, threads) == want
+        assert -(-b * -(-200 // r) // (threads // k)) <= 132
+
+
+def _tile_pairs(tiles):
+    """Kernel 6's item -> (I, J) decode (tile_pair) for every item."""
+    q = np.arange(tiles * (tiles + 1) // 2, dtype=np.int64)
+    d = 2.0 * tiles + 1.0
+    i = ((d - np.sqrt(d * d - 8.0 * q)) * 0.5).astype(np.int64)
+    start = lambda r: r * tiles - r * (r - 1) // 2  # noqa: E731
+    for _ in range(3):  # the kernel's correction loops, run to a fixed point
+        i = np.where((i > 0) & (start(i) > q), i - 1, i)
+        i = np.where((i + 1 < tiles) & (start(i + 1) <= q), i + 1, i)
+    return i, i + q - start(i)
+
+
+@pytest.mark.parametrize("sm_count", [132, 8])
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 32, 33, 100, 1000, 2047, 2048,
+                               2049, 2079, 2081, 2085, 4096, 4097, 4159,
+                               4161, 8192, 8193, 9983, 9985, 10000, 12000])
+def test_symmetric_schedule_covers_every_pair_once(n, sm_count):
+    """The triangle of tile pairs is launched whole and once (so every
+    unordered particle pair falls in exactly one item), and every (slot,
+    row tile) cell of the scratch has exactly one writer."""
+    rows = ops.sym_schedule(n, sm_count)
+    assert rows in (1, 2, 4)
+    tiles = -(-n // (32 * rows))
+    ti, tj = _tile_pairs(tiles)
+    assert (ti <= tj).all() and (tj < tiles).all()
+    pairs = np.zeros((tiles, tiles), np.int64)
+    np.add.at(pairs, (ti, tj), 1)
+    assert (pairs == np.triu(np.ones_like(pairs))).all()
+    writers = np.zeros((tiles, tiles), np.int64)  # [slot, row tile]
+    np.add.at(writers, (tj, ti), 1)               # i side: slot J, rows of I
+    off = ti != tj
+    np.add.at(writers, (ti[off], tj[off]), 1)     # j side: slot I, rows of J
+    assert (writers == 1).all()
+    if n <= 2100:  # particle pairs, where the count stays small
+        tile_of = np.arange(n) // (32 * rows)
+        lo, hi = np.minimum.outer(tile_of, tile_of), np.maximum.outer(
+            tile_of, tile_of)
+        assert (pairs[lo, hi] == 1).all()
+
+
+def test_symmetric_schedule_at_the_simulate_shapes():
+    assert ops.sym_schedule(10_000, 132) == 4  # 3,160 pairs of 128-tiles
+    assert ops.sym_schedule(2_085, 132) == 1   # 2,211 pairs of 32-tiles
+    assert ops.sym_schedule(5_000, 132) == 2
+    assert ops.sym_schedule(10_000, 8) == 4
