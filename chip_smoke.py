@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, simulator, deployed-serving and
-ceilings paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, simulator, deployed-serving,
+ceilings and rollout fine-tune paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --full-finetune   # the production curriculum
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -118,8 +119,34 @@ Phases (any failure exits non-zero and prints no result line):
    chain), its JSON line printed; any rate above 105 % of its published
    peak fails (the timer would be wrong).
 
+10. The rollout fine-tune and checkpoint selection, the sixth main path,
+   on phase 7's datagen states (the first 240 sims train, 240-243 score):
+   (a) gradients of the unrolled loss for all 2,550,150 parameters of
+   ``models/best_model.pt`` at B=8 and K = 1, 2, 4, 8, through the kernels
+   and through the plain versions (the gradient reaches each step's edge
+   features through kernel 2's ``d_edge_attr``), for ``fused`` and
+   ``fused_full``; K=8 within 1e-3 of each tensor's scale.  Counts zeroed
+   just before and read just after: (b) ``finetune_rollout`` over the cut
+   curriculum 8:100,16:40 (``log_every`` 20) through ``fused``, then one
+   rung 8:20 through ``fused_full``: kernel 1 (or 7) 6 K times for each
+   update and validation, kernel 2 6 K times for each update; rung 1's
+   validation loss must fall.  After: synchronised step times and one
+   step's peak memory at K=8 and 16, (c) three K=8 steps under
+   torch.profiler with kernel 2's split, (d) ``score_checkpoints`` of
+   ``best_model.pt`` and ``best_rollout_model.pt`` at horizon 395 from
+   step 5: the second must win.
+
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
+
+``--full-finetune`` runs phases 1 and 2, simulates the datagen states and
+fine-tunes ``models/best_model.pt`` with the production curriculum
+8:1500,16:900 on the first 240 sims through the command's own code
+(``finetune_rollout.finetune_curriculum``, the watchdog armed), saving
+``build/chip_smoke_finetune/best_rollout_model.pt``; then ``evaluate
+--f64-ground-truth`` of that file (inside < 60 / < 400) and its score
+against its base and the committed fine-tune (it must beat its base); it
+ends with a JSON summary line, the nvidia-smi line and the same last line.
 """
 
 import json
@@ -170,6 +197,7 @@ DROP_SEED = 20261016
 TRAIN_DIR = Path("build/chip_smoke_train")  # git-ignored
 SIM_DIR = Path("build/chip_smoke_sim")      # git-ignored
 SERVE_DIR = Path("build/chip_smoke_serve")  # git-ignored
+FINETUNE_DIR = Path("build/chip_smoke_finetune")  # git-ignored
 ROLLOUT_STEPS = 394  # the evaluation protocol's rollout
 # Quantized services against float32 over 5 steps, of the position scale
 # (tests/test_quantize.py).
@@ -212,6 +240,19 @@ SIM_MEDIAN_REL, SIM_FAR_REL, SIM_FAR_SHARE = 1e-5, 1e-3, 0.01
 # (RESULTS.md); a wrong port lands near the reference recipe's 121.9 /
 # 23,956.
 EVAL_POS_RMSE_MAX, EVAL_VEL_RMSE_MAX = 60.0, 400.0
+# The rollout fine-tune (phase 10, --full-finetune): its base is the
+# committed one-step checkpoint; the train split is the first 80 % of the
+# datagen sims, the selection's validation sims the first 4 of the rest.
+BASE_MODEL = "models/best_model.pt"
+TRAIN_SIMS, SELECT_SIMS = 240, 4
+SELECT_START, SELECT_HORIZON = 5, 395
+# The JAX package's full-horizon score of best_model.pt on its validation
+# sims (models/checkpoint_selection.json).
+JAX_BASE_SCORE = 579.33
+CUT_CURRICULUM, CUT_LOG_EVERY = "8:100,16:40", 20
+FULL_LAYER_RUNG, FULL_LAYER_LOG_EVERY = "8:20", 10  # through kernel 7
+FULL_CURRICULUM = "8:1500,16:900"  # the production recipe (RESULTS.md)
+GRAD_HORIZONS = (1, 2, 4, 8)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -854,10 +895,11 @@ def phase_serving(dev_name):
     return service, launches, traj20
 
 
-def profile_window(label: str, fn, steps: int = 0) -> None:
+def profile_window(label: str, fn, steps: int = 0):
     """Run ``fn`` once plain and once under torch.profiler; print the wall
     times, the device-busy share, the launches (per step where ``steps``)
-    and the top kernels by device time."""
+    and the top kernels by device time.  Returns the device rows (name,
+    device µs, count), or None where no device time was recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -883,7 +925,7 @@ def profile_window(label: str, fn, steps: int = 0) -> None:
                    and e.device_time_total > 0), key=lambda r: -r[1])
     if not rows:
         print(f"  profile {label}: no device time recorded (not measured)")
-        return
+        return None
     busy_us = sum(t for _, t, _ in rows)
     n_launches = sum(c for _, _, c in rows)
     per_step = (f" = {n_launches / steps:.1f} a step, wall "
@@ -894,6 +936,7 @@ def profile_window(label: str, fn, steps: int = 0) -> None:
           f"{n_launches} kernels, copies and memsets{per_step}", flush=True)
     for key, t, count in rows[:15]:
         print(f"    {t / 1e3:9.3f} ms  {count:6d}x  {key[:90]}", flush=True)
+    return rows
 
 
 def phase_profile(service, label: str = "fused"):
@@ -1640,7 +1683,10 @@ def phase_simulator(service, dev):
           "the evaluation RMSE is outside the band")
     names = ("fused_edge_fwd", "fused_edge_bwd", "pairwise_tiled",
              "pairwise_small", "pairwise_symmetric")
-    return dict(zip(names, launches)), dict(zip(names, oracle))
+    # The datagen run's (sims, saves, N, 6) states: phase 10's data.
+    states = np.concatenate([host.positions, host.velocities], -1)
+    return (dict(zip(names, launches)), dict(zip(names, oracle)), states,
+            host.masses[0])
 
 
 class _Served:
@@ -1980,7 +2026,403 @@ def phase_ceilings(dev):
     return rows, errs, launches
 
 
-def main() -> int:
+def _finetune_model(edge_impl, dev):
+    """The committed config's model, with ``edge_impl`` where one is given,
+    holding ``models/best_model.pt``; returns (model, norm_stats)."""
+    from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
+    from nbody_gnn_hpc_torch.models import model_from_config
+
+    with open(CONFIG) as f:
+        cfg = json.load(f)["model_config"]
+    if edge_impl is not None:
+        cfg = {**cfg, "edge_impl": edge_impl}
+    model = model_from_config(cfg).to(dev)
+    return model, load_into(model, load_checkpoint(BASE_MODEL))
+
+
+def unroll_gradients_agree(data, masses, dev, edge_impl: str) -> float:
+    """Gradients of the unrolled loss for every parameter of
+    ``best_model.pt`` at B=8, through the kernels of ``edge_impl`` and
+    through the plain versions, at each horizon of ``GRAD_HORIZONS``.
+    Returns the error at the last, relative to each tensor's scale."""
+    import torch
+
+    from nbody_gnn_hpc_torch.models import count_parameters
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_edge_layer,
+                                         fused_edge_layer_plain,
+                                         fused_full_layer,
+                                         fused_full_layer_plain)
+    from nbody_gnn_hpc_torch.train import make_unroll_loss
+
+    model, norm_stats = _finetune_model(edge_impl, dev)
+    check(count_parameters(model) == 2_550_150, "parameter count")
+    mass_feat = (masses / masses.mean())[:, None].astype(np.float32)
+    rng = np.random.RandomState(11)
+    k_max = max(GRAD_HORIZONS)
+    si = torch.as_tensor(rng.randint(0, TRAIN_SIMS, 8), device=dev)
+    ti = torch.as_tensor(rng.randint(0, data.shape[1] - k_max - 1, 8),
+                         device=dev)
+    seq = data[si[:, None], ti[:, None] + torch.arange(k_max + 1,
+                                                       device=dev)]
+    counted = fused_full_layer if edge_impl == "fused_full" else \
+        fused_edge_layer
+
+    def grads(k, loss_fn, edge_stream, full_layer):
+        for layer in model.layers:
+            layer.edge_stream, layer.full_layer = edge_stream, full_layer
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(seq[:, :k + 1])
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in model.parameters()]
+
+    for k in GRAD_HORIZONS:
+        loss_fn = make_unroll_loss(model, norm_stats, mass_feat, K, N, k)
+        before = counted.launches, fused_edge_backward.launches
+        loss_k, g_k = grads(k, loss_fn, fused_edge_layer, fused_full_layer)
+        check((counted.launches - before[0],
+               fused_edge_backward.launches - before[1]) == (6 * k, 6 * k),
+              f"the {edge_impl} kernel path did not launch its forward and "
+              f"kernel 2 {6 * k} times each at K={k}")
+        loss_p, g_p = grads(k, loss_fn, fused_edge_layer_plain,
+                            fused_full_layer_plain)
+        rel = max((a - b).abs().max().item() / (b.abs().max().item() + 1e-12)
+                  for a, b in zip(g_k, g_p))
+        zero = sum(int(b.abs().max().item() == 0) for b in g_p)
+        print(f"  unroll gradients, edge_impl {edge_impl}, K={k}, B=8, all "
+              f"{sum(g.numel() for g in g_k):,} parameters of "
+              f"{BASE_MODEL}: loss {loss_k:.8f} kernels vs {loss_p:.8f} "
+              f"plain; max error / tensor scale {rel:.3e}; tensors with an "
+              f"all-zero gradient: {zero}", flush=True)
+        check(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+              f"unroll losses disagree at K={k}")
+    check(rel <= MODEL_GRAD_RTOL and zero == 0,
+          f"{edge_impl}: kernel-path unroll gradients at K={k} disagree with "
+          f"the plain path beyond {MODEL_GRAD_RTOL:g} of scale")
+    return rel
+
+
+def _timed_steps(model, norm_stats, masses, data, horizon: int,
+                 reps: int = 7) -> tuple:
+    """Median and minimum ms of synchronised fine-tune steps at B=8 (after
+    one warm-up step), and the peak device memory of one step above what
+    was allocated before it, in GiB."""
+    import torch
+
+    from nbody_gnn_hpc_torch.train import (make_optimizer, make_unroll_loss,
+                                           make_unroll_step)
+
+    mass_feat = (masses / masses.mean())[:, None].astype(np.float32)
+    step = make_unroll_step(
+        model, make_unroll_loss(model, norm_stats, mass_feat, K, N, horizon),
+        make_optimizer(model, 5e-5, 1e-4))
+    rng = np.random.RandomState(horizon)
+    win = torch.arange(horizon + 1, device=data.device)
+    times, peak = [], 0.0
+    for i in range(reps + 1):
+        si = torch.as_tensor(rng.randint(0, TRAIN_SIMS, 8),
+                             device=data.device)
+        ti = torch.as_tensor(rng.randint(0, data.shape[1] - horizon - 1, 8),
+                             device=data.device)
+        seq = data[si[:, None], ti[:, None] + win]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(seq)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, (torch.cuda.max_memory_allocated() - base)
+                       / 2 ** 30)
+    return float(np.median(times)), min(times), peak
+
+
+def curriculum_launches(spec: str, log_every: int) -> tuple:
+    """Forward and kernel-2 launches of a curriculum: 6 layers x K steps
+    for each update and each validation (the initial one, then every
+    ``log_every`` steps and the last), the backward for each update."""
+    from nbody_gnn_hpc_torch.finetune_rollout import parse_curriculum
+
+    rungs = parse_curriculum(spec)
+    return (sum(6 * h * (s + 1 + -(-s // log_every)) for h, s in rungs),
+            sum(6 * h * s for h, s in rungs))
+
+
+def run_curriculum(model, norm_stats, train_states, masses, spec: str,
+                   log_every: int, label: str) -> list:
+    """The rungs of ``spec`` through ``finetune_rollout``, each from the
+    last rung's best; prints each rung's wall, mean step and peak memory.
+    Returns [(horizon, steps, history, wall s, peak GiB), ...]."""
+    import torch
+
+    from nbody_gnn_hpc_torch.finetune_rollout import parse_curriculum
+    from nbody_gnn_hpc_torch.train import finetune_rollout
+
+    out = []
+    for horizon, steps in parse_curriculum(spec):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, history = finetune_rollout(
+            model, train_states, norm_stats, masses, k_neighbors=K,
+            horizon=horizon, n_steps=steps, log_every=log_every)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out.append((horizon, steps, history, wall, peak))
+        print(f"  {label} rung K={horizon} x {steps} steps: {wall:.2f} s "
+              f"with {1 + -(-steps // log_every)} validations = "
+              f"{wall * 1e3 / steps:.1f} ms a step; peak device memory "
+              f"{peak:.2f} GiB (the data on the device included); "
+              f"validation {['%.6f' % v for v in history['val_loss']]}",
+              flush=True)
+    return out
+
+
+def phase_finetune(states, masses, dev):
+    """The rollout fine-tune and checkpoint selection, the sixth main path,
+    on phase 7's datagen states.  Returns its launch counts."""
+    import torch
+
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_edge_layer, fused_full_layer)
+    from nbody_gnn_hpc_torch.predict import (score_checkpoints,
+                                             select_checkpoint)
+
+    data = torch.as_tensor(states[:TRAIN_SIMS], device=dev)
+    # (a) kernel-path unroll gradients against the plain path
+    for impl in ("fused", "fused_full"):
+        unroll_gradients_agree(data, masses, dev, impl)
+    del data
+
+    # (b) the cut curriculum through finetune_rollout, the config's
+    # edge_impl ("fused"), then one short rung through "fused_full".
+    counted = (fused_edge_layer, fused_edge_backward, fused_full_layer)
+    fused, norm_stats = _finetune_model("fused", dev)
+    full, _ = _finetune_model("fused_full", dev)
+    train_states = states[:TRAIN_SIMS]
+    # main-path run starts here
+    for fn in counted:
+        fn.launches = 0
+    rungs = run_curriculum(fused, norm_stats, train_states, masses,
+                           CUT_CURRICULUM, CUT_LOG_EVERY, "fused")
+    full_rungs = run_curriculum(full, norm_stats, train_states, masses,
+                                FULL_LAYER_RUNG, FULL_LAYER_LOG_EVERY,
+                                "fused_full")
+    launches = [fn.launches for fn in counted]
+    # main-path run ends here
+    want_fwd, want_bwd = curriculum_launches(CUT_CURRICULUM, CUT_LOG_EVERY)
+    want_full, want_full_bwd = curriculum_launches(FULL_LAYER_RUNG,
+                                                   FULL_LAYER_LOG_EVERY)
+    want = [want_fwd, want_bwd + want_full_bwd, want_full]
+    print(f"  launches on the fine-tune path: fused_edge_fwd {launches[0]}, "
+          f"fused_edge_bwd {launches[1]}, fused_full_fwd {launches[2]} "
+          f"(expected {want}: 6 layers x K for each update and validation, "
+          f"kernel 2 under kernel 7 too)", flush=True)
+    check(launches == want, "fine-tune launch counts")
+    first = rungs[0][2]["val_loss"]
+    print(f"  rung 1 validation loss {first[0]:.6f} -> {first[-1]:.6f} (the "
+          f"JAX run behind best_rollout_model.pt: 0.00121 -> 0.00104 over "
+          f"its first 100 steps)", flush=True)
+    check(bool(np.isfinite([v for r in rungs + full_rungs
+                            for v in r[2]["val_loss"]]).all()),
+          "a fine-tune validation loss is not finite")
+    check(first[-1] < first[0], "rung 1 did not lower the validation loss")
+
+    # Step times (synchronised, B=8) and one step's peak memory.
+    data = torch.as_tensor(train_states, device=dev)
+    for label, model in (("fused", fused), ("fused_full", full)):
+        for horizon in (8, 16):
+            med, low, peak = _timed_steps(model, norm_stats, masses, data,
+                                          horizon)
+            print(f"  fine-tune step, edge_impl {label}, K={horizon}, B=8: "
+                  f"median {med:.2f} ms, min {low:.2f} ms; one step's peak "
+                  f"device memory above its inputs {peak:.3f} GiB",
+                  flush=True)
+
+    # (c) three K=8 steps under torch.profiler, and kernel 2's split.
+    from nbody_gnn_hpc_torch.train import (make_optimizer, make_unroll_loss,
+                                           make_unroll_step)
+
+    step = make_unroll_step(fused, make_unroll_loss(
+        fused, norm_stats, (masses / masses.mean())[:, None], K, N, 8),
+        make_optimizer(fused, 5e-5, 1e-4))
+    seq = data[:8, :9]
+    rows = profile_window("3 fine-tune steps, K=8, B=8, edge_impl fused",
+                          lambda: [step(seq) for _ in range(3)], steps=3)
+    del data
+    if rows:
+        busy = sum(t for _, t, _ in rows)
+        parts = {name: sum(t for key, t, _ in rows if name in key)
+                 for name in ("fused_edge_bwd_source_kernel",
+                              "fused_edge_bwd_target_kernel",
+                              "reduce_rows_kernel", "fused_edge_fwd_kernel")}
+        print("  kernel shares of the device time: " + ", ".join(
+            f"{name} {t / 1e3:.3f} ms ({100 * t / busy:.1f} %)"
+            for name, t in parts.items()), flush=True)
+
+    # (d) checkpoint selection on the first validation sims
+    val = states[TRAIN_SIMS:TRAIN_SIMS + SELECT_SIMS]
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    from nbody_gnn_hpc_torch.models import model_from_config
+
+    t0 = time.perf_counter()
+    scores = score_checkpoints(model_from_config(cfg["model_config"]),
+                               [BASE_MODEL, MODEL], val, masses, K,
+                               horizon=SELECT_HORIZON,
+                               start_step=SELECT_START, device=dev)
+    best = select_checkpoint(scores)
+    print(f"  selection, {SELECT_HORIZON} steps from step {SELECT_START} on "
+          f"sims {TRAIN_SIMS}-{TRAIN_SIMS + SELECT_SIMS - 1} in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{s['path']} position RMSE {s['position_rmse']:.4f}, velocity "
+              f"RMSE {s['velocity_rmse']:.4f}" for s in scores)
+          + f" (the JAX package's record for {BASE_MODEL}: "
+            f"{JAX_BASE_SCORE}); selected {best['path']}", flush=True)
+    check(best["path"] == MODEL, f"selection did not rank {MODEL} first")
+    return dict(zip(("fused_edge_fwd", "fused_edge_bwd", "fused_full_fwd"),
+                    launches))
+
+
+def full_finetune(dev) -> dict:
+    """``--full-finetune``: the production curriculum on the datagen
+    states' train split, saved through the command's own code
+    (``finetune_curriculum``), evaluated against the float64 oracle and
+    scored against its base and the committed fine-tune."""
+    import torch
+
+    from nbody_gnn_hpc_torch import evaluate
+    from nbody_gnn_hpc_torch.finetune_rollout import (finetune_curriculum,
+                                                      parse_curriculum)
+    from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_edge_layer, fused_full_layer)
+    from nbody_gnn_hpc_torch.parallel import (fetch_host_trajectory,
+                                              simulate_ensemble)
+    from nbody_gnn_hpc_torch.predict import (score_checkpoints,
+                                             select_checkpoint)
+    from nbody_gnn_hpc_torch.sim import shared_masses
+    from nbody_gnn_hpc_torch.train import rollout_tune
+
+    d = DATAGEN
+    masses = shared_masses(d["n"], seed=d["seed"])
+    t0 = time.perf_counter()
+    host = fetch_host_trajectory(simulate_ensemble(
+        [d["seed"] + i for i in range(d["n_sims"])], d["n"], d["n_steps"],
+        box_size=d["box"], dt=d["dt"], shared_masses=masses, device=dev))
+    states = np.concatenate([host.positions, host.velocities], -1)
+    del host
+    print(f"  datagen {d['n_sims']} x {d['n_steps']} x N={d['n']} on the "
+          f"card with the readback: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(bool(np.isfinite(states).all()), "datagen states are not finite")
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    model, norm_stats = _finetune_model(None, dev)
+    rungs = parse_curriculum(FULL_CURRICULUM)
+    out = FINETUNE_DIR / "best_rollout_model.pt"
+    shutil.rmtree(FINETUNE_DIR, ignore_errors=True)
+
+    # Each rung's wall and peak memory, around the function the command
+    # calls (measurement only).
+    measured, real = [], rollout_tune.finetune_rollout
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        result = real(*args, **kw)
+        torch.cuda.synchronize()
+        measured.append((time.perf_counter() - t,
+                         torch.cuda.max_memory_allocated() / 2 ** 30))
+        return result
+
+    counted = (fused_edge_layer, fused_edge_backward, fused_full_layer)
+    rollout_tune.finetune_rollout = timed
+    try:
+        t0 = time.perf_counter()
+        # main-path run starts here
+        for fn in counted:
+            fn.launches = 0
+        histories = finetune_curriculum(
+            model, states[:TRAIN_SIMS], norm_stats, masses, rungs,
+            output=out, base=BASE_MODEL, model_config=cfg["model_config"],
+            k_neighbors=K, watchdog_s=600)
+        launches = [fn.launches for fn in counted]
+        # main-path run ends here
+        wall = time.perf_counter() - t0
+    finally:
+        rollout_tune.finetune_rollout = real
+    want_fwd, want_bwd = curriculum_launches(FULL_CURRICULUM, 100)
+    summary = {"curriculum": FULL_CURRICULUM, "wall_s": wall, "rungs": []}
+    for (h, s), r, (rung_wall, peak) in zip(rungs, histories, measured):
+        val = r["history"]["val_loss"]
+        summary["rungs"].append({"horizon": h, "steps": s, "wall_s": rung_wall,
+                                 "ms_a_step": rung_wall * 1e3 / s,
+                                 "peak_gib": peak, "val_loss": val})
+        print(f"  rung K={h} x {s}: {rung_wall:.1f} s = "
+              f"{rung_wall * 1e3 / s:.1f} ms a step (validations included); "
+              f"peak device memory {peak:.2f} GiB; validation {val[0]:.6f} "
+              f"-> best {min(val):.6f}, last {val[-1]:.6f}", flush=True)
+    print(f"  curriculum {FULL_CURRICULUM} in {wall:.1f} s (save included); "
+          f"launches fused_edge_fwd {launches[0]} (expected {want_fwd}), "
+          f"fused_edge_bwd {launches[1]} (expected {want_bwd}), "
+          f"fused_full_fwd {launches[2]}", flush=True)
+    check(launches == [want_fwd, want_bwd, 0], "fine-tune launch counts")
+    check(bool(np.isfinite([v for r in histories
+                            for v in r["history"]["val_loss"]]).all()),
+          "a fine-tune validation loss is not finite")
+    first = histories[0]["history"]["val_loss"]
+    check(first[-1] < first[0], "rung 1 did not lower the validation loss")
+
+    t0 = time.perf_counter()
+    rc = evaluate.main(["-m", str(out), "-c", CONFIG, "-o",
+                        str(FINETUNE_DIR / "eval"), "--f64-ground-truth"])
+    check(rc == 0, f"evaluate exited {rc}")
+    with open(FINETUNE_DIR / "eval" / "evaluation_results.json") as f:
+        avg = json.load(f)["average_metrics"]
+    summary["evaluation"] = {k: avg[k] for k in (
+        "position_rmse", "position_rmse_std", "velocity_rmse",
+        "velocity_rmse_std")}
+    print(f"  evaluate {out}, f64 oracle, in {time.perf_counter() - t0:.1f} "
+          f"s: position RMSE {avg['position_rmse']:.4f} ± "
+          f"{avg['position_rmse_std']:.4f}, velocity RMSE "
+          f"{avg['velocity_rmse']:.4f} ± {avg['velocity_rmse_std']:.4f} "
+          f"(band < {EVAL_POS_RMSE_MAX:g} / < {EVAL_VEL_RMSE_MAX:g}; the JAX "
+          f"fine-tune lands at 33-36, RESULTS.md)", flush=True)
+    check(avg["position_rmse"] < EVAL_POS_RMSE_MAX
+          and avg["velocity_rmse"] < EVAL_VEL_RMSE_MAX,
+          "the fine-tuned checkpoint's evaluation RMSE is outside the band")
+
+    scores = score_checkpoints(
+        model_from_config(cfg["model_config"]), [BASE_MODEL, MODEL, str(out)],
+        states[TRAIN_SIMS:TRAIN_SIMS + SELECT_SIMS], masses, K,
+        horizon=SELECT_HORIZON, start_step=SELECT_START, device=dev)
+    summary["selection"] = {s["path"]: s["position_rmse"] for s in scores}
+    print(f"  selection, {SELECT_HORIZON} steps on sims {TRAIN_SIMS}-"
+          f"{TRAIN_SIMS + SELECT_SIMS - 1}: " + "; ".join(
+              f"{s['path']} {s['position_rmse']:.4f} / "
+              f"{s['velocity_rmse']:.4f}" for s in scores)
+          + f"; selected {select_checkpoint(scores)['path']} (the JAX "
+            f"package's record for {BASE_MODEL}: {JAX_BASE_SCORE})",
+          flush=True)
+    check(scores[2]["position_rmse"] < scores[0]["position_rmse"],
+          "the fine-tuned checkpoint does not beat its base")
+    return summary
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--full-finetune", action="store_true",
+                        help=f"build, simulate the datagen states, then run "
+                             f"the production curriculum {FULL_CURRICULUM} "
+                             f"from {BASE_MODEL}, evaluate and score the "
+                             f"result (instead of phases 3-10)")
+    args = parser.parse_args(argv)
     # 1. Environment
     import torch
 
@@ -2008,10 +2450,23 @@ def main() -> int:
     for name in sources:
         for entry, report in ptxas_report(build_log(name)):
             print(f"    {name}: {entry}: {report}", flush=True)
+    dev = torch.device("cuda")
+    if args.full_finetune:
+        print(f"[10] the production fine-tune {FULL_CURRICULUM}, its "
+              f"evaluation and selection", flush=True)
+        summary = full_finetune(dev)
+        print(f"  chip_smoke --full-finetune took "
+              f"{time.perf_counter() - t_start:.1f} s after the imports",
+              flush=True)
+        print(json.dumps({"full_finetune": summary}), flush=True)
+        print(smi[0], flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. Kernels against their plain versions
     print("[3] kernels vs plain versions on the card", flush=True)
-    dev = torch.device("cuda")
     with open(CONFIG) as f:
         cfg = json.load(f)["model_config"]
     model = model_from_config(cfg).to(dev).eval()
@@ -2047,7 +2502,8 @@ def main() -> int:
     # 7. The simulator side, the third main path
     print("[7] the simulator side: datagen, large-N /simulate, evaluation",
           flush=True)
-    sim, oracle = path("simulator", phase_simulator, service, dev)
+    sim, oracle, states, sim_masses = path("simulator", phase_simulator,
+                                           service, dev)
 
     # 8. Serving as it is deployed, the fourth main path
     print("[8] serving as deployed: fused_full behind the pool, the "
@@ -2058,6 +2514,11 @@ def main() -> int:
     print("[9] the card's ceilings: kernels 10 and 11, python -m "
           "nbody_gnn_hpc_torch.roofline in process", flush=True)
     probe_rows, probe_errs, ceilings = path("ceilings", phase_ceilings, dev)
+
+    # 10. The rollout fine-tune and checkpoint selection, the sixth path
+    print("[10] rollout fine-tune and checkpoint selection", flush=True)
+    finetune = path("finetune", phase_finetune, states, sim_masses, dev)
+    del states
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -2111,6 +2572,7 @@ def main() -> int:
                  "simulator": sim.get(name, 0),
                  "deployed": deployed.get(name, 0),
                  "ceilings": ceilings.get(name, 0),
+                 "finetune": finetune.get(name, 0),
                  "oracle": oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
@@ -2136,6 +2598,8 @@ def main() -> int:
         else:
             ran = k["launches"] - by["oracle"]
         check(ran > 0, f"{k['name']} was never launched on a path")
+    check(min(finetune.values()) > 0, "the fine-tune path launched no "
+                                      "kernel 1, 2 or 7")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

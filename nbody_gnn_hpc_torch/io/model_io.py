@@ -11,11 +11,13 @@ Only ``model_state_dict``, ``norm_stats`` and the ``quantization`` marker
 are read by ``load_into``; a weight-only quantized serving checkpoint
 (:mod:`nbody_gnn_hpc_torch.predict.quantize`) is dequantized to float32.
 The production ``models/best_rollout_model.pt`` unpickles with numpy
-alone; checkpoints whose optimizer state holds optax classes cannot be read
-without optax.  :func:`save_checkpoint` writes the same keys with
-:func:`params_to_jax` parameters, and the port's optimizer state as numpy
-arrays, so its files load in the JAX package and unpickle with numpy
-alone.
+alone.  A training checkpoint of the JAX package (``models/best_model.pt``)
+holds optax's optimizer-state classes: where optax is not importable,
+:func:`load_checkpoint` reads them as plain tuples of their fields (the
+port never reads a JAX optimizer state).  :func:`save_checkpoint` writes
+the same keys with :func:`params_to_jax` parameters, and the port's
+optimizer state as numpy arrays, so its files load in the JAX package and
+unpickle with numpy alone.
 """
 
 import os
@@ -29,6 +31,30 @@ import torch
 from torch import nn
 
 
+class _OptaxState(tuple):
+    """An optax optimizer-state record (a NamedTuple) read where optax is
+    not importable: its fields, in order, as a tuple."""
+
+    __slots__ = ()
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+
+class _Unpickler(pickle.Unpickler):
+    """Reads optax's state classes as :class:`_OptaxState` subclasses of
+    the same name when optax itself cannot be imported."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except ImportError:
+            if module.split(".")[0] != "optax":
+                raise
+            return type(name, (_OptaxState,), {"__slots__": (),
+                                               "__module__": module})
+
+
 def load_checkpoint(filepath) -> Dict:
     """Unpickle a checkpoint file.
 
@@ -36,7 +62,7 @@ def load_checkpoint(filepath) -> Dict:
     project wrote.
     """
     with open(filepath, "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()
 
 
 def _flatten(tree, prefix=""):

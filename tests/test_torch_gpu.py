@@ -625,6 +625,86 @@ def test_whole_layer_model_equals_fused_model(cuda):
     assert err <= 1e-4 * want.abs().max().item()
 
 
+# The rollout fine-tune's unrolled loss (train/rollout_tune.py): its
+# gradient crosses K chained steps and enters each step's edge features
+# (kernel 2's d_edge_attr; with fused_full, kernel 7's backward).  Against
+# the plain versions on the same weights and windows: float32 sum order,
+# amplified through the chain and the LayerNorms, as the model's one-step
+# gradients (chip_smoke.py MODEL_GRAD_RTOL).
+UNROLL_GRAD_RTOL = 1e-3
+
+
+def _unroll_problem(cuda, edge_impl, b=4, n=64, k=8, horizon=4, h=64):
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.train import make_unroll_loss
+
+    model = NBodyGNN(hidden_dim=h, n_layers=3, dropout=0.0,
+                     edge_impl=edge_impl,
+                     generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.decoder_out.weight.normal_(
+            0, 0.05, generator=torch.Generator().manual_seed(1))
+    model = model.to(cuda)
+    rng = np.random.RandomState(2)
+    seq = np.concatenate([3 * rng.randn(b, horizon + 1, n, 3),
+                          rng.randn(b, horizon + 1, n, 3)], -1)
+    norm = {"state_mean": np.zeros(6, np.float32),
+            "state_std": np.full(6, 1.5, np.float32)}
+    masses = rng.uniform(1, 2, n).astype(np.float32)
+    loss_fn = make_unroll_loss(model, norm, (masses / masses.mean())[:, None],
+                               k, n, horizon)
+    return model, loss_fn, torch.from_numpy(seq.astype(np.float32)).to(cuda)
+
+
+def _unroll_grads(model, loss_fn, seq, plain):
+    from nbody_gnn_hpc_torch.ops import (fused_edge_layer_plain,
+                                         fused_full_layer,
+                                         fused_full_layer_plain)
+
+    for layer in model.layers:
+        layer.edge_stream, layer.full_layer = (
+            (fused_edge_layer_plain, fused_full_layer_plain) if plain
+            else (fused_edge_layer, fused_full_layer))
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(seq)
+    loss.backward()
+    return loss.item(), [p.grad.clone() for p in model.parameters()]
+
+
+@pytest.mark.parametrize("edge_impl", ["fused", "fused_full"])
+def test_unroll_gradients_match_plain_path(cuda, edge_impl):
+    from nbody_gnn_hpc_torch.ops import fused_full_layer
+
+    model, loss_fn, seq = _unroll_problem(cuda, edge_impl)
+    fwd = fused_full_layer if edge_impl == "fused_full" else fused_edge_layer
+    before = fwd.launches, fused_edge_backward.launches
+    loss, got = _unroll_grads(model, loss_fn, seq, plain=False)
+    # 3 layers x 4 steps, forward and kernel 2 in the backward
+    assert (fwd.launches - before[0],
+            fused_edge_backward.launches - before[1]) == (12, 12)
+    want_loss, want = _unroll_grads(model, loss_fn, seq, plain=True)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert scale > 0  # every parameter gets a gradient
+        assert (g - w).abs().max().item() <= UNROLL_GRAD_RTOL * scale
+
+
+@pytest.mark.parametrize("edge_impl", ["fused", "fused_full"])
+def test_unroll_kernel_path_reruns_are_bit_identical(cuda, edge_impl):
+    """The kernels are deterministic; PyTorch's own scatter (the gather
+    backward of the edge features) is made so for the comparison."""
+    model, loss_fn, seq = _unroll_problem(cuda, edge_impl)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first = _unroll_grads(model, loss_fn, seq, plain=False)
+        second = _unroll_grads(model, loss_fn, seq, plain=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert first[0] == second[0]
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
 def test_whole_layer_wrapper_rejects_bad_operands(cuda):
     from nbody_gnn_hpc_torch.ops import fused_full_layer
 

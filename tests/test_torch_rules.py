@@ -48,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
             "nbody_gnn_hpc_torch.predict.quantize, "
             "nbody_gnn_hpc_torch.quantize_model, "
             "nbody_gnn_hpc_torch.ops.probes, nbody_gnn_hpc_torch.roofline, "
-            "nbody_gnn_hpc_torch.utils.profiling\n"
+            "nbody_gnn_hpc_torch.utils.profiling, "
+            "nbody_gnn_hpc_torch.finetune_rollout, "
+            "nbody_gnn_hpc_torch.select_checkpoint, "
+            "nbody_gnn_hpc_torch.predict.selection\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
@@ -163,6 +166,26 @@ def test_deployed_serving_refuses_cpu_unasked(no_cuda, tmp_path):
         NBodyGNN(hidden_dim=32, n_layers=1).state_dict()))
     assert quantize_main(["-m", str(src), "--mode", "int8"]) == 0
     assert (tmp_path / "m.int8.pt").exists()
+
+
+def test_finetune_and_selection_refuse_cpu_unasked(no_cuda, tmp_path):
+    """Both commands, and scoring, want a GPU before they read a file."""
+    import numpy as np
+
+    from nbody_gnn_hpc_torch.finetune_rollout import main as finetune_main
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.predict import score_checkpoints
+    from nbody_gnn_hpc_torch.select_checkpoint import main as select_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune_main(["-d", str(tmp_path), "-o", str(tmp_path / "o.pt")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        select_main(["-m", str(tmp_path), "-d", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        score_checkpoints(NBodyGNN(hidden_dim=32, n_layers=1),
+                          ["models/best_model.pt"],
+                          np.zeros((1, 8, 5, 6), np.float32),
+                          np.ones(5, np.float32), 3)
 
 
 def test_ceilings_command_refuses_cpu_unasked(no_cuda):
