@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, simulator, deployed-serving,
-ceilings and rollout fine-tune paths on one NVIDIA GPU and check them.
+ceilings, rollout fine-tune and one-command pipeline paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full-finetune   # the production curriculum
@@ -88,9 +89,11 @@ Phases (any failure exits non-zero and prints no result line):
    10 sims x 400 steps: position RMSE < 60 and velocity RMSE < 400.  After
    the counts are read: the large-N dispatch against kernel 3 as the
    oracle on the N=10,000 state (kernel 3 is dispatched by no entry point;
-   these launches are reported apart, as "oracle"), and, where h5py is
-   importable, the ``generate_data`` command at the datagen shape with
-   HDF5 files, a rerun that must resume, and ``datasets_from_manifest``.
+   these launches are reported apart, as "oracle"), and the
+   ``generate_data`` command at the datagen shape on the npz store (and
+   with HDF5 files where h5py is importable): files equal to
+   ``simulate_ensemble``'s, a rerun that must resume, the manifest's form,
+   and ``datasets_from_manifest``.
 8. Serving as it is deployed, the fourth main path: the production
    checkpoint under a config that names ``edge_impl: "fused_full"`` (written
    to a temporary directory), ``build_replica_pool(n_replicas=1)`` +
@@ -135,6 +138,25 @@ Phases (any failure exits non-zero and prints no result line):
    torch.profiler with kernel 2's split, (d) ``score_checkpoints`` of
    ``best_model.pt`` and ``best_rollout_model.pt`` at horizon 395 from
    step 5: the second must win.
+11. The one-command pipeline, the seventh main path:
+   ``run_demo.run_pipeline`` with ``--production --trajectory-format npz
+   --device cuda --epochs 1 --max-samples 2400`` over ``TrainingConfig()``
+   whole, in a fresh temporary directory (removed after), each stage a
+   process: datagen 300 x 400 at N=200 on the npz store, one epoch of 100
+   steps, selection at the full horizon, the fine-tune curriculum cut to
+   8:100,16:40 (the only change to the stage table), evaluation of 10 sims
+   against the f64 oracle, the CSV export.  Every stage must exit 0 and
+   the five that drive the device name cuda; the manifest must record
+   npz beside 300 npz trajectories; every model, selection, evaluation and
+   CSV file must exist; the metrics must be finite (no band: one epoch
+   cannot reach it); ``best_rollout_model.pt`` must record the cut
+   curriculum from ``selected_model.pt``.  Each stage's process starts
+   its counts at 0 and prints them last (``ops.launch_line``): kernel 4
+   once per step and batch in datagen, kernels 1 and 2 6 times per step
+   and validation batch in training and per update and validation in the
+   fine-tune, kernel 1 6 x 395 per checkpoint in selection and 6 x 394 in
+   evaluation, exactly.  A JSON line ``{"pipeline": ...}`` gives each
+   stage's wall, the total, the two RMSEs and the cuts.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -253,6 +275,14 @@ CUT_CURRICULUM, CUT_LOG_EVERY = "8:100,16:40", 20
 FULL_LAYER_RUNG, FULL_LAYER_LOG_EVERY = "8:20", 10  # through kernel 7
 FULL_CURRICULUM = "8:1500,16:900"  # the production recipe (RESULTS.md)
 GRAD_HORIZONS = (1, 2, 4, 8)
+# Phase 11, the one-command pipeline: --production over TrainingConfig()
+# whole (datagen 300 x 400 at N=200 on the npz store, selection at the full
+# horizon, evaluation of 10 sims against the f64 oracle), its depth cut to
+# one epoch of 2,400 samples and the fine-tune to phase 10's curriculum.
+PIPELINE_FLAGS = ("--production", "--trajectory-format", "npz", "--device",
+                  "cuda", "--epochs", "1", "--max-samples", "2400")
+PIPELINE_CUTS = {"finetune_rollout": {"--curriculum": CUT_CURRICULUM}}
+PIPELINE_LOG = Path("build/chip_smoke_pipeline.log")  # git-ignored
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1385,11 +1415,16 @@ def phase_force_kernels(dev):
     return rows, errs
 
 
-def datagen_cli(host, d: dict, device: str, out_dir: Path) -> None:
+def datagen_cli(host, d: dict, device: str, out_dir: Path,
+                fmt: str = "npz") -> None:
     """``python -m nbody_gnn_hpc_torch.generate_data`` at the shape ``d``
-    with HDF5 files (needs h5py): its trajectory files must hold what
-    ``simulate_ensemble`` gave for the same seeds (``host``), a rerun must
-    resume every file, and the manifest must load as datasets."""
+    with trajectory files of form ``fmt`` (``"h5"`` needs h5py): its files
+    must hold what ``simulate_ensemble`` gave for the same seeds
+    (``host``), a rerun must resume every file, and the manifest must
+    record the form and load as datasets.  The files are removed after.
+    One batch of all the sims, as ``host`` was made: kernel 4's schedule
+    depends on the batch, so batches of another size sum in another
+    order."""
     from nbody_gnn_hpc_torch import generate_data, ops
     from nbody_gnn_hpc_torch.io import CheckpointManager
     from nbody_gnn_hpc_torch.train import datasets_from_manifest
@@ -1398,16 +1433,15 @@ def datagen_cli(host, d: dict, device: str, out_dir: Path) -> None:
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = ["--particles", str(d["n"]), "--simulations", str(d["n_sims"]),
             "--steps", str(d["n_steps"]), "--box-size", str(d["box"]),
-            "--seed", str(d["seed"]), "--batch-size", "100",
+            "--seed", str(d["seed"]), "--batch-size", str(d["n_sims"]),
             "--compression", "lzf", "--no-windows", "--device", device,
-            "--output-dir", str(out_dir)]
+            "--trajectory-format", fmt, "--output-dir", str(out_dir)]
     before = ops.accelerations_small.launches
     t0 = time.perf_counter()
     check(generate_data.main(argv) == 0, "generate_data failed")
     wall = time.perf_counter() - t0
     ran = ops.accelerations_small.launches - before
-    n_batches = -(-d["n_sims"] // 100)
-    check(device == "cpu" or ran == n_batches * (d["n_steps"] + 1),
+    check(device == "cpu" or ran == d["n_steps"] + 1,
           f"generate_data launched kernel 4 {ran} times")
     manager = CheckpointManager(str(out_dir / "checkpoints"))
     for i in (0, d["n_sims"] - 1):
@@ -1419,6 +1453,14 @@ def datagen_cli(host, d: dict, device: str, out_dir: Path) -> None:
     check(generate_data.main(argv) == 0, "generate_data failed on a rerun")
     check(ops.accelerations_small.launches == before,
           "a rerun of generate_data simulated again instead of resuming")
+    check(sorted(manager.trajectory_names())
+          == [f"sim_{i:04d}" for i in range(d["n_sims"])]
+          and len(list((out_dir / "checkpoints").glob(
+              f"*_trajectory.{fmt}"))) == d["n_sims"],
+          f"generate_data did not write {d['n_sims']} .{fmt} trajectories")
+    with open(out_dir / MANIFEST_NAME) as f:
+        check(json.load(f).get("trajectory_format") == fmt,
+              f"the manifest does not record the {fmt} store")
     train, val = datasets_from_manifest(out_dir / MANIFEST_NAME,
                                         k_neighbors=K, cache=False)
     n_train = int(0.8 * d["n_sims"])
@@ -1427,9 +1469,12 @@ def datagen_cli(host, d: dict, device: str, out_dir: Path) -> None:
           and val.n_samples == (d["n_sims"] - n_train) * per_sim
           and np.isfinite(train.targets).all(),
           "the manifest's datasets have the wrong size")
-    print(f"  generate_data --no-windows --compression lzf on {device}: "
-          f"{d['n_sims']} sims x {d['n_steps']} steps in {wall:.2f} s "
-          f"(simulate, read back, write HDF5) = "
+    size = sum(p.stat().st_size
+               for p in (out_dir / "checkpoints").iterdir()) / 2 ** 30
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"  generate_data --no-windows --trajectory-format {fmt} on "
+          f"{device}: {d['n_sims']} sims x {d['n_steps']} steps in "
+          f"{wall:.2f} s (simulate, read back, write {size:.2f} GiB) = "
           f"{d['n_sims'] * d['n_steps'] / wall:,.0f} sim-steps/s; kernel 4 "
           f"launches {ran}; files equal simulate_ensemble's arrays; a rerun "
           f"resumed all files; datasets_from_manifest {train.n_samples} + "
@@ -1610,19 +1655,16 @@ def phase_simulator(service, dev):
           and val.n_samples == 2 * (n_saves - 5)
           and train.edge_index.shape == (2, d["n"] * K),
           "datagen -> dataset gave wrong sizes")
+    print(f"  datagen -> GNNDataset.from_trajectories in memory "
+          f"({train.n_samples} + {val.n_samples} samples)", flush=True)
+    datagen_cli(host, d, str(dev), SIM_DIR / "data", "npz")
     try:
         import h5py  # noqa: F401
     except ImportError:
-        print(f"  datagen -> GNNDataset.from_trajectories in memory "
-              f"({train.n_samples} + {val.n_samples} samples); h5py is not "
-              f"importable here, so no trajectory or dataset file was "
-              f"written", flush=True)
+        print("  h5py is not importable here: the generate_data command "
+              "wrote the npz store only, no HDF5 file", flush=True)
     else:
-        print(f"  datagen -> GNNDataset.from_trajectories in memory "
-              f"({train.n_samples} + {val.n_samples} samples); h5py is "
-              f"importable, so the generate_data command runs too",
-              flush=True)
-        datagen_cli(host, d, str(dev), SIM_DIR / "data")
+        datagen_cli(host, d, str(dev), SIM_DIR / "data", "h5")
 
     # (b) checked
     cpu = build_service(MODEL, CONFIG, device="cpu")
@@ -2413,6 +2455,147 @@ def full_finetune(dev) -> dict:
     return summary
 
 
+def stage_launches(output: str) -> dict:
+    """The kernel launches a stage's process printed last
+    (``ops.launch_line``): its counts started at 0 with the process."""
+    from nbody_gnn_hpc_torch.ops import LAUNCH_LINE
+
+    lines = [line for line in output.splitlines()
+             if line.startswith(LAUNCH_LINE)]
+    check(len(lines) == 1, "a stage printed no kernel launch line")
+    return json.loads(lines[0][len(LAUNCH_LINE):])
+
+
+def phase_pipeline() -> dict:
+    """The one-command pipeline, the seventh main path: ``run_pipeline``
+    with ``PIPELINE_FLAGS`` in a fresh temporary directory, each stage a
+    process; returns the kernel launches of all stages."""
+    import contextlib
+    import tempfile
+
+    from nbody_gnn_hpc_torch import run_demo
+    from nbody_gnn_hpc_torch.config import TrainingConfig
+    from nbody_gnn_hpc_torch.finetune_rollout import parse_curriculum
+    from nbody_gnn_hpc_torch.io import CheckpointManager, load_checkpoint
+
+    cfg = TrainingConfig()
+    args = run_demo.resolve_mode(run_demo.build_parser().parse_args(
+        list(PIPELINE_FLAGS)))
+    stages = run_demo.with_values(run_demo.PIPELINE, PIPELINE_CUTS)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    PIPELINE_LOG.parent.mkdir(parents=True, exist_ok=True)
+    print(f"  run_demo {' '.join(PIPELINE_FLAGS)} in {root}, the fine-tune "
+          f"curriculum cut to {CUT_CURRICULUM}; the stages' output in "
+          f"{PIPELINE_LOG}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        with open(PIPELINE_LOG, "w") as log, contextlib.redirect_stdout(log):
+            try:
+                records = run_demo.run_pipeline(args, cfg, root, stages)
+            except SystemExit:
+                records = None
+        total = time.perf_counter() - t0
+        if records is None:
+            print("".join(PIPELINE_LOG.read_text().splitlines(True)[-80:]),
+                  flush=True)
+            fail("a pipeline stage failed (the end of its log is above)")
+        ran = [r for r in records if "skipped" not in r]
+        check([r["title"] for r in ran] == [s.title for s in stages],
+              f"the pipeline ran {[r['title'] for r in ran]}")
+        device_stages = ran[:5]  # all but the CSV export, which reads files
+        for r in device_stages:
+            check(re.search(r"Device:\s+cuda\b", r["output"]) is not None,
+                  f"{r['title']} did not run on cuda")
+        by_stage = {r["argv"][0]: stage_launches(r["output"])
+                    for r in device_stages}
+
+        # The artifacts.
+        data, models, results = (root / d for d in ("data", "models",
+                                                    "results"))
+        with open(data / "dataset_manifest.json") as f:
+            check(json.load(f).get("trajectory_format") == "npz",
+                  "the manifest does not record the npz store")
+        check(len(list((data / "checkpoints").glob("sim_*_trajectory.npz")))
+              == cfg.simulations
+              and CheckpointManager(str(data / "checkpoints"))
+              .trajectory_names()[-1] == f"sim_{cfg.simulations - 1:04d}",
+              f"datagen did not write {cfg.simulations} npz trajectories")
+        for name in ("best_model.pt", "final_model.pt", "selected_model.pt",
+                     "checkpoint_selection.json", "best_rollout_model.pt",
+                     "config.json", "training_history.json"):
+            check((models / name).exists(), f"models/{name} is missing")
+        tables = sorted(p.name for p in (results / "csv").glob("*.csv"))
+        check(tables == ["metrics_per_simulation.csv", "metrics_summary.csv",
+                         "sample_trajectory.csv", "simulation_info.csv",
+                         "training_history.csv"],
+              f"results/csv holds {tables}")
+        with open(results / "evaluation_results.json") as f:
+            evaluation = json.load(f)
+        rmse = [evaluation["average_metrics"][k]
+                for k in ("position_rmse", "velocity_rmse")]
+        check(evaluation["ground_truth"] == "float64_host"
+              and evaluation["n_test_simulations"] == cfg.n_test_sims
+              and bool(np.isfinite(rmse).all()),
+              f"the evaluation is not finite or not the protocol: {rmse}")
+        ft = load_checkpoint(models / "best_rollout_model.pt")["finetune"]
+        check([tuple(r) for r in ft["curriculum"]]
+              == parse_curriculum(CUT_CURRICULUM)
+              and ft["base"] == "./models/selected_model.pt",
+              f"best_rollout_model.pt records {ft['curriculum']} from "
+              f"{ft['base']}")
+        with open(models / "checkpoint_selection.json") as f:
+            selection = json.load(f)
+
+        # Each stage's kernel launches, counted in its own process.
+        n_saves, per_sim = cfg.steps + 1, cfg.steps + 1 - cfg.sequence_length
+        n_train = int(0.8 * cfg.simulations)
+        val = (cfg.simulations - n_train) * per_sim
+        steps = min(2400, n_train * per_sim) // cfg.batch_size
+        ft_fwd, ft_bwd = curriculum_launches(CUT_CURRICULUM, 100)
+        want = {
+            "generate_data": {"pairwise_small":
+                              -(-cfg.simulations // 100) * n_saves},
+            "train_model": {"fused_edge_fwd":
+                            6 * (steps + -(-val // cfg.batch_size)),
+                            "fused_edge_bwd": 6 * steps},
+            "select_checkpoint": {"fused_edge_fwd": 6 * selection["horizon"]
+                                  * len(selection["scores"])},
+            "finetune_rollout": {"fused_edge_fwd": ft_fwd,
+                                 "fused_edge_bwd": ft_bwd},
+            "evaluate": {"fused_edge_fwd": 6 * (cfg.steps - 6)}}
+        for command, counts in by_stage.items():
+            got = {k: v for k, v in counts.items() if v}
+            check(got == want[command],
+                  f"{command} launched {got}, expected {want[command]}")
+        launches = {k: sum(c[k] for c in by_stage.values())
+                    for k in next(iter(by_stage.values()))}
+        summary = {
+            "stages": [{"title": r["title"], "returncode": r["returncode"],
+                        "seconds": r["seconds"]} for r in ran],
+            "total_s": total, "position_rmse": rmse[0],
+            "velocity_rmse": rmse[1],
+            "selection": {Path(x["path"]).name: x["position_rmse"]
+                          for x in selection["scores"]},
+            "cuts": {"epochs": 1, "max_samples": 2400,
+                     "curriculum": CUT_CURRICULUM,
+                     "production_curriculum": FULL_CURRICULUM},
+            "launches": {k: v for k, v in launches.items() if v}}
+        for r in ran:
+            counts = by_stage.get(r["argv"][0], {})
+            print(f"  {r['title']}: exit {r['returncode']} in "
+                  f"{r['seconds']:.1f} s, kernel launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        print(f"  the pipeline took {total:.1f} s; evaluation of "
+              f"best_rollout_model.pt (one epoch, cut fine-tune) against "
+              f"the f64 oracle: position RMSE {rmse[0]:.4f}, velocity RMSE "
+              f"{rmse[1]:.4f} (no band: the cut run cannot reach it)",
+              flush=True)
+        print(json.dumps({"pipeline": summary}), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2519,6 +2702,13 @@ def main(argv=None) -> int:
     print("[10] rollout fine-tune and checkpoint selection", flush=True)
     finetune = path("finetune", phase_finetune, states, sim_masses, dev)
     del states
+
+    # 11. The one-command pipeline, the seventh main path: each stage is a
+    # process whose counts start at 0 and which prints them last.
+    print("[11] the one-command pipeline: run_demo --production on the npz "
+          "store", flush=True)
+    pipeline = phase_pipeline()
+    mxu_by_path["pipeline"] = pipeline["pairwise_symmetric_mxu"]
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -2573,6 +2763,7 @@ def main(argv=None) -> int:
                  "deployed": deployed.get(name, 0),
                  "ceilings": ceilings.get(name, 0),
                  "finetune": finetune.get(name, 0),
+                 "pipeline": pipeline.get(name, 0),
                  "oracle": oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
@@ -2600,6 +2791,9 @@ def main(argv=None) -> int:
         check(ran > 0, f"{k['name']} was never launched on a path")
     check(min(finetune.values()) > 0, "the fine-tune path launched no "
                                       "kernel 1, 2 or 7")
+    check(min(pipeline[k] for k in ("fused_edge_fwd", "fused_edge_bwd",
+                                    "pairwise_small")) > 0,
+          "the pipeline launched no kernel 1, 2 or 4")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

@@ -28,9 +28,8 @@ SEQ_LEN = 5  # rollout start (published protocol, evaluate.py:79)
 def build_parser():
     parser = argparse.ArgumentParser(
         description="Evaluate GNN Model",
-        epilog="The JAX CLI's --watchdog is not ported. "
-               "Plots need the visualizer, which is not ported either: "
-               "they are skipped.")
+        epilog="Plots need the visualizer, which is not ported: they are "
+               "skipped.")
     parser.add_argument("--model-path", "-m", type=str,
                         default="./models/best_model.pt")
     parser.add_argument("--config-path", "-c", type=str,
@@ -50,6 +49,13 @@ def build_parser():
     parser.add_argument("--quantize", choices=("bf16", "int8"), default=None,
                         help="Evaluate with weight-only quantized weights "
                              "(what `serve --quantize` would serve)")
+    parser.add_argument("--watchdog", type=float, default=None,
+                        metavar="SECONDS",
+                        help="Exit with a distinctive code if the device "
+                             "makes no progress for this many seconds "
+                             "(stall detection). Must cover the ground "
+                             "truth's slowest sim and the rollout, kernel "
+                             "builds included. 0 disables.")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' only when "
                              "asked for)")
@@ -70,15 +76,42 @@ def average_metrics(test_results) -> dict:
     return avg
 
 
+def _ground_truth(args, device, shared_masses, beat):
+    """(name, positions, velocities) of the protocol's ground truth: the
+    float64 host oracle (``beat`` after each sim: host work, so a slow but
+    healthy oracle is not taken for a stalled device) or the float32
+    ensemble on the device."""
+    if args.f64_ground_truth:
+        from nbody_gnn_hpc_torch.sim import protocol_ground_truth
+
+        print("  (ground truth: float64 host oracle)")
+        gt_pos, gt_vel, _ = protocol_ground_truth(
+            n_test_sims=args.n_test_sims, n_particles=args.particles,
+            n_steps=args.steps, dt=0.001, box_size=10.0, seed=args.seed,
+            verbose=True, progress_cb=beat)
+        return "float64_host", gt_pos, gt_vel
+    from nbody_gnn_hpc_torch.parallel import simulate_ensemble
+
+    # All ground truths as one float32 ensemble on the device.
+    ensemble = simulate_ensemble(
+        seeds=[args.seed + i for i in range(args.n_test_sims)],
+        n_particles=args.particles, n_steps=args.steps, box_size=10.0,
+        dt=0.001, shared_masses=shared_masses, device=device)
+    return (f"float32_{device.type}",
+            ensemble.positions.cpu().numpy().astype(np.float64),
+            ensemble.velocities.cpu().numpy().astype(np.float64))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.predict import Predictor
     from nbody_gnn_hpc_torch.serve import DEFAULT_MODEL_CONFIG
     from nbody_gnn_hpc_torch.sim import shared_masses as make_shared_masses
-    from nbody_gnn_hpc_torch.utils import compute_all_metrics
+    from nbody_gnn_hpc_torch.utils import compute_all_metrics, maybe_watchdog
 
     model_path = Path(args.model_path)
     config_path = Path(args.config_path)
@@ -92,6 +125,7 @@ def main(argv=None) -> int:
     print("=" * 60)
     print("GNN MODEL EVALUATION (PyTorch)")
     print("=" * 60)
+    print(f"  Device: {device}")
 
     if config_path.exists():
         with open(config_path) as f:
@@ -114,34 +148,24 @@ def main(argv=None) -> int:
     shared_masses = make_shared_masses(args.particles, seed=42)
     prediction_steps = args.steps - SEQ_LEN - 1
 
-    if args.f64_ground_truth:
-        from nbody_gnn_hpc_torch.sim import protocol_ground_truth
-
-        print("  (ground truth: float64 host oracle)")
-        ground_truth = "float64_host"
-        gt_pos, gt_vel, _ = protocol_ground_truth(
-            n_test_sims=args.n_test_sims, n_particles=args.particles,
-            n_steps=args.steps, dt=0.001, box_size=10.0, seed=args.seed,
-            verbose=True)
-    else:
-        from nbody_gnn_hpc_torch.parallel import simulate_ensemble
-
-        # All ground truths as one float32 ensemble on the device.
-        ground_truth = f"float32_{device.type}"
-        ensemble = simulate_ensemble(
-            seeds=[args.seed + i for i in range(args.n_test_sims)],
-            n_particles=args.particles, n_steps=args.steps, box_size=10.0,
-            dt=0.001, shared_masses=shared_masses, device=device)
-        gt_pos = ensemble.positions.cpu().numpy().astype(np.float64)
-        gt_vel = ensemble.velocities.cpu().numpy().astype(np.float64)
-
-    print("  (plots skipped: the visualizer is not ported)")
-
-    # All rollouts as one batch on the device.
-    ai_all = predictor.predict_rollout_batch(
-        gt_pos[:, SEQ_LEN].astype(np.float32),
-        gt_vel[:, SEQ_LEN].astype(np.float32),
-        shared_masses, n_steps=prediction_steps)
+    # Stall watchdog over the ground truth and the batched rollout: a
+    # stalled device becomes a distinctive exit, not a hung readback.
+    watchdog = maybe_watchdog(args.watchdog, what="evaluation progress")
+    try:
+        ground_truth, gt_pos, gt_vel = _ground_truth(
+            args, device, shared_masses,
+            watchdog.beat if watchdog is not None else None)
+        print("  (plots skipped: the visualizer is not ported)")
+        if watchdog is not None:
+            watchdog.beat()  # the ground truths are on the host
+        # All rollouts as one batch on the device.
+        ai_all = predictor.predict_rollout_batch(
+            gt_pos[:, SEQ_LEN].astype(np.float32),
+            gt_vel[:, SEQ_LEN].astype(np.float32),
+            shared_masses, n_steps=prediction_steps)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()  # host arrays: the device work is done
 
     test_results = []
     for i in range(args.n_test_sims):
@@ -184,6 +208,7 @@ def main(argv=None) -> int:
         json.dump(results, f, indent=2, default=str)
     print(f"\n  Results: {results_path}")
     print("=" * 60)
+    print(launch_line())
     return 0
 
 

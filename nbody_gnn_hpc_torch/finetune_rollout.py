@@ -7,10 +7,11 @@
 Starts from a checkpoint (default ``models/best_model.pt``), fine-tunes it
 with the K-step unrolled objective (:mod:`nbody_gnn_hpc_torch.train.
 rollout_tune`) on the train split of the trajectory files (the first 80 %
-of the sorted ``*_trajectory.h5`` names), and saves ``best_rollout_model.pt``
-in the checkpoint format of the JAX package, with the ``finetune`` record
-of the curriculum.  Reading the files needs h5py;
-:func:`finetune_curriculum` takes trajectories already in memory.
+of the sorted ``*_trajectory.{h5,npz}`` names), and saves
+``best_rollout_model.pt`` in the checkpoint format of the JAX package, with
+the ``finetune`` record of the curriculum.  Reading HDF5 files needs h5py,
+npz files do not; :func:`finetune_curriculum` takes trajectories already in
+memory.
 """
 
 import argparse
@@ -109,11 +110,14 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from nbody_gnn_hpc_torch.device import resolve_device
-    from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
+    from nbody_gnn_hpc_torch.io import (CheckpointManager, load_checkpoint,
+                                        load_into)
     from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.train.rollout_tune import load_trajectory_tensor
 
     device = resolve_device(args.device)  # raises without a card unasked
+    print(f"Device: {device}")
     rungs = parse_curriculum(args.curriculum) if args.curriculum \
         else [(args.horizon, args.steps)]
     with open(args.config_path) as f:
@@ -129,8 +133,8 @@ def main(argv=None) -> int:
         return 1
 
     ckpt_dir = Path(args.data_dir) / "checkpoints"
-    names = sorted(p.name.replace("_trajectory.h5", "")
-                   for p in ckpt_dir.glob("*_trajectory.h5"))
+    manager = CheckpointManager(str(ckpt_dir))
+    names = manager.trajectory_names()
     # The train split only: the first 80 % (generate_data.py:184).
     names = names[:int(0.8 * len(names))]
     if args.max_sims:
@@ -142,16 +146,14 @@ def main(argv=None) -> int:
         return 1
     print(f"Loading {len(names)} trajectories...")
     trajectories = load_trajectory_tensor(ckpt_dir, names)
-    import h5py
-
-    with h5py.File(ckpt_dir / f"{names[0]}_trajectory.h5", "r") as f:
-        masses = f["masses"][:].astype(np.float32)
+    masses = manager.load_trajectory(names[0])["masses"].astype(np.float32)
 
     finetune_curriculum(
         model, trajectories, norm_stats, masses, rungs, output=args.output,
         base=args.model_path, model_config=model_config,
         k_neighbors=k_neighbors, batch_size=args.batch_size,
         learning_rate=args.learning_rate, watchdog_s=args.watchdog)
+    print(launch_line())
     return 0
 
 

@@ -10,8 +10,10 @@ per-sim seeds ``seed + i``, dt fixed at 0.001, resumable through the
 trajectory files already written, 80/20 train/val split.  Each batch of
 simulations integrates as one ensemble on the device
 (:func:`nbody_gnn_hpc_torch.parallel.simulate_ensemble`); a single writer
-thread writes batch k's HDF5 files while the main thread reads batch k+1
-back.  Writing needs ``h5py``.
+thread writes batch k's files while the main thread reads batch k+1 back.
+The trajectory files are HDF5 (needs ``h5py``), or with
+``--trajectory-format npz --no-windows`` npz files that need no h5py (the
+card's machine has none; the JAX CLI has no such form).
 """
 
 import argparse
@@ -20,14 +22,14 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from nbody_gnn_hpc_torch.io.checkpoint import TRAJECTORY_FORMATS
+
 
 def build_parser():
     parser = argparse.ArgumentParser(
         description="Generate N-body training data",
-        epilog="The JAX CLI's --watchdog (stall detection for a remote "
-               "backend) is not ported; rerunning the command resumes at "
-               "the file level.  Its --workers has no counterpart: the "
-               "simulations run on the device, not in worker processes.")
+        epilog="The JAX CLI's --workers has no counterpart: the simulations "
+               "run on the device, not in worker processes.")
     parser.add_argument("--particles", "-n", type=int, default=500,
                         help="Number of particles per simulation")
     parser.add_argument("--simulations", "-s", type=int, default=50,
@@ -63,6 +65,19 @@ def build_parser():
                              "dataset_manifest.json instead; train_model "
                              "builds the (state, target) pairs directly "
                              "from the trajectory files at load time.")
+    parser.add_argument("--trajectory-format", choices=TRAJECTORY_FORMATS,
+                        default="h5",
+                        help="Form of the trajectory files: h5 (the "
+                             "reference schema) or npz (the same arrays, "
+                             "uncompressed, written without h5py; needs "
+                             "--no-windows)")
+    parser.add_argument("--watchdog", type=float, default=None,
+                        metavar="SECONDS",
+                        help="Exit with a distinctive code if no batch "
+                             "readback completes for this many seconds "
+                             "(stall detection; rerunning resumes at the "
+                             "file level). Must cover the first batch's "
+                             "kernel builds. 0 disables.")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' only when "
                              "asked for)")
@@ -70,17 +85,23 @@ def build_parser():
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.trajectory_format == "npz" and not args.no_windows:
+        # Windowed datasets are HDF5 (create_training_dataset): refused
+        # before any simulation runs.
+        parser.error("--trajectory-format npz needs --no-windows")
 
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.io import (CheckpointManager,
                                         create_training_dataset)
+    from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.parallel import (fetch_host_trajectory,
                                               simulate_ensemble,
                                               trajectory_slice)
     from nbody_gnn_hpc_torch.sim import shared_masses as make_shared_masses
     from nbody_gnn_hpc_torch.train import write_manifest
-    from nbody_gnn_hpc_torch.utils import StageTimer
+    from nbody_gnn_hpc_torch.utils import StageTimer, maybe_watchdog
 
     device = resolve_device(args.device)  # raises without a card unasked
     output_dir = Path(args.output_dir)
@@ -95,7 +116,11 @@ def main(argv=None) -> int:
     print(f"  Steps:         {args.steps}")
     print(f"  Device:        {device}")
     print(f"  Output Dir:    {output_dir}")
+    print(f"  Trajectories:  {args.trajectory_format}")
     print("=" * 60)
+    if args.trajectory_format == "npz":
+        print("  (--compression applies to HDF5 files only: the npz "
+              "trajectories are written uncompressed)")
 
     manager = CheckpointManager(str(checkpoint_dir))
     timer = StageTimer()
@@ -147,12 +172,13 @@ def main(argv=None) -> int:
                     sl, f"sim_{sim_idx:04d}",
                     metadata={"n_particles": args.particles,
                               "seed": args.seed + sim_idx},
-                    compression=args.compression)
+                    compression=args.compression,
+                    trajectory_format=args.trajectory_format)
                 in_memory[sim_idx] = {
                     "positions": sl.positions, "velocities": sl.velocities,
                     "masses": sl.masses, "n_steps": sl.positions.shape[0]}
 
-    # One writer thread only: each trajectory is its own HDF5 file, and a
+    # One writer thread only: each trajectory is its own file, and a
     # single writer keeps h5py single-threaded.  Reading the result of
     # every write re-raises a writer failure here: a failed or partial
     # trajectory write must not pass silently, since resume trusts what
@@ -162,26 +188,35 @@ def main(argv=None) -> int:
     next_dispatch = 0
     done_sims = 0
     t_wall = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as writer:
-        while inflight or next_dispatch < len(work):
-            while (next_dispatch < len(work)
-                   and len(inflight) < max(1, args.prefetch)):
-                with timer.stage("dispatch"):
-                    inflight.append((work[next_dispatch],
-                                     dispatch(work[next_dispatch])))
-                next_dispatch += 1
-            todo, device_traj = inflight.pop(0)
-            with timer.stage("fetch"):
-                traj = fetch_host_trajectory(device_traj)
-            del device_traj
-            done_sims += len(todo)
-            print(f"  Simulated {done_sims} new sims "
-                  f"(+{total_skipped} resumed); writing...")
+    # Armed only while there is work; each completed readback is a beat.
+    watchdog = maybe_watchdog(args.watchdog if work else None,
+                              what="batch-readback progress")
+    try:
+        with ThreadPoolExecutor(max_workers=1) as writer:
+            while inflight or next_dispatch < len(work):
+                while (next_dispatch < len(work)
+                       and len(inflight) < max(1, args.prefetch)):
+                    with timer.stage("dispatch"):
+                        inflight.append((work[next_dispatch],
+                                         dispatch(work[next_dispatch])))
+                    next_dispatch += 1
+                todo, device_traj = inflight.pop(0)
+                with timer.stage("fetch"):
+                    traj = fetch_host_trajectory(device_traj)
+                del device_traj
+                if watchdog is not None:
+                    watchdog.beat()
+                done_sims += len(todo)
+                print(f"  Simulated {done_sims} new sims "
+                      f"(+{total_skipped} resumed); writing...")
+                if pending is not None:
+                    pending.result()
+                pending = writer.submit(save_batch, todo, traj)
             if pending is not None:
                 pending.result()
-            pending = writer.submit(save_batch, todo, traj)
-        if pending is not None:
-            pending.result()
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
     wall = time.perf_counter() - t_wall
     if total_skipped:
         print(f"  Already complete: skipped {total_skipped} sims")
@@ -196,7 +231,8 @@ def main(argv=None) -> int:
         sim_names = [f"sim_{i:04d}" for i in range(args.simulations)]
         manifest = write_manifest(output_dir, sim_names[:n_train],
                                   sim_names[n_train:],
-                                  sequence_length=args.sequence_length)
+                                  sequence_length=args.sequence_length,
+                                  trajectory_format=args.trajectory_format)
         print("\n" + "=" * 60)
         print("DATA GENERATION COMPLETE (trajectory manifest mode)")
         print("=" * 60)
@@ -204,6 +240,7 @@ def main(argv=None) -> int:
         print(f"  Trajectories:  {checkpoint_dir}")
         print(timer.report())
         print("=" * 60)
+        print(launch_line())
         return 0
 
     # Fresh sims straight from memory, resumed sims from their files.
@@ -237,6 +274,7 @@ def main(argv=None) -> int:
     print(f"  Val dataset:   {output_dir / 'val_dataset.h5'}")
     print(timer.report())
     print("=" * 60)
+    print(launch_line())
     return 0
 
 

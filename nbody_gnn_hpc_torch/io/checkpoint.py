@@ -10,7 +10,10 @@ interchangeable:
   ``metadata`` group (``checkpoint.py:64-106``);
 - trajectory ``<name>_trajectory.h5``: float64 positions/velocities/
   accelerations ``(n_steps, N, 3)``, times/steps/masses datasets, ``n_steps``
-  attr (``checkpoint.py:187-236``);
+  attr (``checkpoint.py:187-236``); or, asked for with
+  ``trajectory_format="npz"``, ``<name>_trajectory.npz`` with the same
+  arrays and metadata, uncompressed, for a machine without h5py (the JAX
+  package has no such file);
 - training dataset: float32 ``inputs (S, L, N, 6)`` / ``targets (S, N, 6)``
   chunked and compressed, ``masses (N,)``, attrs ``sequence_length`` /
   ``n_samples`` (``checkpoint.py:302-398``).
@@ -27,6 +30,10 @@ from pathlib import Path
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+
+# The two forms of a trajectory file, by suffix: HDF5 (the reference schema,
+# the default) and npz (the same arrays, for a machine without h5py).
+TRAJECTORY_FORMATS = ("h5", "npz")
 
 
 def _host(a) -> np.ndarray:
@@ -126,7 +133,8 @@ class CheckpointManager:
 
     def save_trajectory(self, states: Union[List[Dict], "object"], name: str,
                         metadata: Optional[Dict] = None,
-                        compression: str = "gzip") -> str:
+                        compression: str = "gzip",
+                        trajectory_format: str = "h5") -> str:
         """Save a full trajectory.
 
         Accepts either the reference's list-of-state-dicts
@@ -137,9 +145,12 @@ class CheckpointManager:
         ``compression``: 'gzip' (reference schema default), 'lzf' (~5-10x
         faster writes, larger files), or 'none'. Readers are agnostic —
         h5py decompresses transparently whichever codec wrote the file.
+        It applies to HDF5 only: ``trajectory_format="npz"`` writes
+        ``<name>_trajectory.npz`` uncompressed, with no h5py.
         """
-        import h5py
-
+        if trajectory_format not in TRAJECTORY_FORMATS:
+            raise ValueError(f"unknown trajectory format {trajectory_format!r}"
+                             f" (expected one of {TRAJECTORY_FORMATS})")
         if isinstance(states, list):
             positions = np.stack([s["positions"] for s in states])
             velocities = np.stack([s["velocities"] for s in states])
@@ -153,15 +164,32 @@ class CheckpointManager:
                     "positions", "velocities", "accelerations", "times",
                     "steps", "masses"))
 
-        filepath = self.checkpoint_dir / f"{name}_trajectory.h5"
+        filepath = (self.checkpoint_dir
+                    / f"{name}_trajectory.{trajectory_format}")
         n_steps = positions.shape[0]
-        comp_kwargs = h5_compression_kwargs(compression)
         # Write-to-temp + atomic rename: a crash mid-write (host OOM,
         # SIGKILL while the datagen writer thread is flushing) must never
         # leave a truncated file at the final path: resume
         # (`trajectory_exists`) is existence-based, so a torn file there
         # would be skipped as "done" and crash the later load.
         tmppath = filepath.with_name(filepath.name + ".tmp")
+        if trajectory_format == "npz":
+            arrays = {key: arr.astype(np.float64) for key, arr in (
+                ("positions", positions), ("velocities", velocities),
+                ("accelerations", accelerations))}
+            arrays.update(times=np.asarray(times), steps=np.asarray(steps),
+                          masses=np.asarray(masses), n_steps=np.array(n_steps),
+                          created_at=np.array(datetime.now().isoformat()))
+            if metadata:
+                arrays["metadata_json"] = np.array(json.dumps(metadata))
+            with open(tmppath, "wb") as f:  # a file: savez adds no suffix
+                np.savez(f, **arrays)
+            os.replace(tmppath, filepath)
+            return str(filepath)
+
+        import h5py
+
+        comp_kwargs = h5_compression_kwargs(compression)
         with h5py.File(tmppath, "w") as f:
             f.attrs["n_steps"] = n_steps
             # float64 on disk — schema parity with checkpoint.py:197-208.
@@ -182,12 +210,50 @@ class CheckpointManager:
         os.replace(tmppath, filepath)
         return str(filepath)
 
+    def trajectory_path(self, name: str) -> Path:
+        """The file that holds trajectory ``name``, whichever form it has.
+        Raises ``FileNotFoundError`` if there is none and ``ValueError`` if
+        both forms exist (which of the two is the run's is not knowable)."""
+        found = [p for p in (self.checkpoint_dir / f"{name}_trajectory.{fmt}"
+                             for fmt in TRAJECTORY_FORMATS) if p.exists()]
+        if not found:
+            raise FileNotFoundError(f"Trajectory '{name}' not found")
+        if len(found) > 1:
+            raise ValueError(f"Trajectory '{name}' is stored both as HDF5 "
+                             f"and as npz in {self.checkpoint_dir}; remove "
+                             f"one of them")
+        return found[0]
+
+    def trajectory_names(self) -> List[str]:
+        """Sorted names of the trajectories in the directory.  Raises
+        ``ValueError`` if it holds both forms: a split by sorted names
+        would then mix two runs."""
+        kinds = {fmt: sorted(p.name[:-len(f"_trajectory.{fmt}")]
+                             for p in self.checkpoint_dir.glob(
+                                 f"*_trajectory.{fmt}"))
+                 for fmt in TRAJECTORY_FORMATS}
+        if all(kinds.values()):
+            raise ValueError(f"{self.checkpoint_dir} holds both HDF5 and npz "
+                             f"trajectories; keep one form")
+        return kinds["h5"] or kinds["npz"]
+
     def load_trajectory(self, name: str) -> Dict:
+        """The arrays and metadata of trajectory ``name`` from its HDF5 or
+        npz file (the same dict either way; h5py only for HDF5)."""
+        filepath = self.trajectory_path(name)
+        if filepath.suffix == ".npz":
+            with np.load(filepath, allow_pickle=False) as f:
+                trajectory = {key: f[key] for key in (
+                    "positions", "velocities", "accelerations", "times",
+                    "steps", "masses")}
+                trajectory["n_steps"] = f["n_steps"][()]
+                if "metadata_json" in f.files:
+                    trajectory["metadata"] = json.loads(
+                        str(f["metadata_json"]))
+            return trajectory
+
         import h5py
 
-        filepath = self.checkpoint_dir / f"{name}_trajectory.h5"
-        if not filepath.exists():
-            raise FileNotFoundError(f"Trajectory '{name}' not found")
         with h5py.File(filepath, "r") as f:
             trajectory = {
                 "positions": f["positions"][:],
@@ -218,11 +284,13 @@ class CheckpointManager:
         return sorted(checkpoints)
 
     def trajectory_exists(self, name: str) -> bool:
-        """Idempotent-resume hook used by datagen (``generate_data.py:129``)."""
-        return (self.checkpoint_dir / f"{name}_trajectory.h5").exists()
+        """Idempotent-resume hook used by datagen (``generate_data.py:129``);
+        either form counts."""
+        return any((self.checkpoint_dir / f"{name}_trajectory.{fmt}").exists()
+                   for fmt in TRAJECTORY_FORMATS)
 
     def delete_checkpoint(self, name: str) -> bool:
-        for ext in (".h5", ".npz", "_trajectory.h5"):
+        for ext in (".h5", ".npz", "_trajectory.h5", "_trajectory.npz"):
             filepath = self.checkpoint_dir / f"{name}{ext}"
             if filepath.exists():
                 filepath.unlink()

@@ -7,12 +7,13 @@
 
 Scores every checkpoint a training run saved (periodic, best, final) by
 full-horizon rollout RMSE on held-out validation trajectories (the first
-``--n-sims`` of the last 20 % of the sorted ``*_trajectory.h5`` names),
+``--n-sims`` of the last 20 % of the sorted ``*_trajectory.{h5,npz}`` names),
 prints the ranking, writes ``checkpoint_selection.json`` and optionally
 copies the winner to ``<models-dir>/selected_model.pt``.  One-step
 validation loss anticorrelates with rollout quality (RESULTS.md), and short
 horizons mispredict the full-horizon ranking (predict/selection.py), hence
-the full horizon by default.  Reading the files needs h5py.
+the full horizon by default.  Reading HDF5 files needs h5py, npz files do
+not.
 """
 
 import argparse
@@ -65,7 +66,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from nbody_gnn_hpc_torch.device import resolve_device
+    from nbody_gnn_hpc_torch.io import CheckpointManager
     from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.predict.selection import (discover_checkpoints,
                                                        score_checkpoints,
                                                        select_checkpoint)
@@ -73,6 +76,7 @@ def main(argv=None) -> int:
     from nbody_gnn_hpc_torch.utils.watchdog import maybe_watchdog
 
     device = resolve_device(args.device)  # raises without a card unasked
+    print(f"Device: {device}")
     with open(args.config_path) as f:
         config = json.load(f)
     k_neighbors = config.get("training_config", {}).get("k_neighbors", 40)
@@ -86,18 +90,16 @@ def main(argv=None) -> int:
     # The validation split: the last 20 % of the sims by name
     # (generate_data.py:184 puts the first 80 % in the train split).
     ckpt_dir = Path(args.data_dir) / "checkpoints"
-    names = sorted(p.name.replace("_trajectory.h5", "")
-                   for p in ckpt_dir.glob("*_trajectory.h5"))
+    manager = CheckpointManager(str(ckpt_dir))
+    names = manager.trajectory_names()
     val_names = names[int(0.8 * len(names)):][:args.n_sims]
     if not val_names:
         print(f"No trajectories found in {ckpt_dir}")
         return 1
 
     val_states = load_trajectory_tensor(ckpt_dir, val_names)
-    import h5py
-
-    with h5py.File(ckpt_dir / f"{val_names[0]}_trajectory.h5", "r") as f:
-        masses = f["masses"][:].astype(np.float32)
+    masses = manager.load_trajectory(val_names[0])["masses"].astype(
+        np.float32)
 
     horizon = args.horizon
     if horizon is None:  # the full horizon (see predict/selection.py)
@@ -143,6 +145,7 @@ def main(argv=None) -> int:
         dst = Path(args.models_dir) / "selected_model.pt"
         shutil.copyfile(best["path"], dst)
         print(f"Promoted {Path(best['path']).name} -> {dst}")
+    print(launch_line())
     return 0
 
 

@@ -109,9 +109,9 @@ def protocol_ground_truth(n_test_sims: int = 10, n_particles: int = 200,
                           n_steps: int = 400, dt: float = 0.001,
                           box_size: float = 10.0, seed: int = 9999,
                           mass_seed: int = 42,
-                          verbose: bool = False) -> Tuple[np.ndarray,
-                                                          np.ndarray,
-                                                          np.ndarray]:
+                          verbose: bool = False,
+                          progress_cb=None) -> Tuple[np.ndarray, np.ndarray,
+                                                     np.ndarray]:
     """The published evaluation protocol's ground truth, in float64.
 
     Reproduces ``evaluate.py:76-99``: shared f32 masses from seed
@@ -121,6 +121,11 @@ def protocol_ground_truth(n_test_sims: int = 10, n_particles: int = 200,
 
     Returns (positions (S, n_steps+1, N, 3) f64, velocities likewise,
     masses (N,) f32).
+
+    ``progress_cb`` (no-argument callable) runs after each finished sim: a
+    stall-watchdog beat, since this host-only oracle can run for minutes
+    and a caller's device watchdog would otherwise end a healthy
+    evaluation during it.
     """
     masses = shared_masses(n_particles, seed=mass_seed)
     all_pos, all_vel = [], []
@@ -135,4 +140,6 @@ def protocol_ground_truth(n_test_sims: int = 10, n_particles: int = 200,
                                         traj.velocities[-1], masses)
             print(f"  f64 ground truth {i + 1}/{n_test_sims}: "
                   f"final energy {te:.6e}")
+        if progress_cb is not None:
+            progress_cb()
     return np.stack(all_pos), np.stack(all_vel), masses

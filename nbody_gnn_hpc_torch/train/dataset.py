@@ -234,17 +234,21 @@ MANIFEST_NAME = "dataset_manifest.json"
 
 
 def write_manifest(output_dir, train_sims, val_sims, sequence_length,
-                   stride: int = 1, checkpoint_dir: str = "checkpoints"):
+                   stride: int = 1, checkpoint_dir: str = "checkpoints",
+                   trajectory_format: str = "h5"):
     """Record a ``--no-windows`` datagen run: which trajectory files form
-    the train/val split and the window protocol to apply at load time, in
-    place of the windowed HDF5 files that store each state about
-    ``sequence_length`` times over."""
+    the train/val split, in which form (``"h5"`` or ``"npz"``), and the
+    window protocol to apply at load time, in place of the windowed HDF5
+    files that store each state about ``sequence_length`` times over.  A
+    manifest without ``trajectory_format`` (the JAX package writes none)
+    means HDF5."""
     path = Path(output_dir) / MANIFEST_NAME
     with open(path, "w") as f:
         json.dump({
             "format": "nbody-gnn-trajectory-manifest",
             "version": 1,
             "checkpoint_dir": checkpoint_dir,
+            "trajectory_format": trajectory_format,
             "sequence_length": int(sequence_length),
             "stride": int(stride),
             "train_sims": list(train_sims),
@@ -259,7 +263,9 @@ def datasets_from_manifest(manifest_path, k_neighbors: Optional[int] = None,
 
     Equivalent to loading ``train_dataset.h5``/``val_dataset.h5`` built
     from the same trajectories: the val set uses the train set's
-    normalisation stats (reference ``train_model.py:94-100``).
+    normalisation stats (reference ``train_model.py:94-100``).  The
+    trajectory files have the form the manifest records
+    (``trajectory_format``; HDF5 where it names none).
 
     ``cache``: keep an uncompressed ``.tensors.npz`` sidecar next to the
     manifest, so that a later launch does not decompress every trajectory
@@ -280,12 +286,13 @@ def datasets_from_manifest(manifest_path, k_neighbors: Optional[int] = None,
     manager = CheckpointManager(str(ckpt_dir))
     seq_len, stride = spec["sequence_length"], spec.get("stride", 1)
     val_names = spec.get("val_sims") or []
+    suffix = spec.get("trajectory_format", "h5")
 
     cache_path = Path(str(manifest_path) + ".tensors.npz")
     file_stats = []
     for name in list(spec["train_sims"]) + list(val_names):
         try:
-            st = (ckpt_dir / f"{name}_trajectory.h5").stat()
+            st = (ckpt_dir / f"{name}_trajectory.{suffix}").stat()
             file_stats.append((name, st.st_size, st.st_mtime_ns))
         except OSError:
             file_stats.append((name, -1, -1))

@@ -35,7 +35,7 @@ N_VAL_WINDOWS = 16
 
 def load_trajectory_tensor(checkpoint_dir, sim_names) -> np.ndarray:
     """(n_sims, n_saves, N, 6) float32 [pos(3), vel(3)] from the saved
-    trajectory files (needs h5py)."""
+    trajectory files, HDF5 (needs h5py) or npz."""
     from nbody_gnn_hpc_torch.io import CheckpointManager
 
     mgr = CheckpointManager(str(checkpoint_dir))

@@ -17,7 +17,7 @@ reproducible.
 import json
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from nbody_gnn_hpc_torch.train.loss import PhysicsInformedLoss
 from nbody_gnn_hpc_torch.train.schedule import (cosine_warm_restarts,
                                                 make_step_schedule)
 from nbody_gnn_hpc_torch.train.steps import make_optimizer, make_train_step
+from nbody_gnn_hpc_torch.utils.watchdog import maybe_watchdog
 
 
 def _to_torch(tree):
@@ -119,6 +120,7 @@ class Trainer:
         self.best_val_loss = float("inf")
         self.current_epoch = 0
         self.step_losses = []  # every train step's loss, in order
+        self._watchdog = None  # armed by train(watchdog_s=...)
 
     # -- reference surface --------------------------------------------------
 
@@ -163,8 +165,18 @@ class Trainer:
                                     self.learning_rate)
 
     def train(self, n_epochs: int = 50, early_stopping_patience: int = 30,
-              save_every: int = 10, verbose: bool = True) -> Dict:
-        """Full training loop with early stopping (``train.py:469-535``)."""
+              save_every: int = 10, verbose: bool = True,
+              watchdog_s: Optional[float] = None) -> Dict:
+        """Full training loop with early stopping (``train.py:469-535``).
+
+        ``watchdog_s``: arm a stall watchdog
+        (:mod:`nbody_gnn_hpc_torch.utils.watchdog`) that exits the process
+        with ``STALL_EXIT_CODE`` when no host readback of the losses
+        completes for that many seconds, so a stalled device becomes a
+        resumable failure (``train_model --resume auto``).  It must cover
+        the slowest epoch and the first one's kernel builds; ``None`` or 0
+        disables it.
+        """
         print(f"Training on {self.device}")
         print(f"Model parameters: {count_parameters(self.model):,}")
         if self.use_physics_loss:
@@ -174,55 +186,76 @@ class Trainer:
             print("Physics loss: DISABLED (no masses)")
         print(f"Input noise std: {self.noise_std}")
 
+        # None/0 -> disabled; negative -> ValueError (as every command).
+        self._watchdog = maybe_watchdog(watchdog_s,
+                                        what="training-epoch progress")
         patience_counter = 0
         stopped_early = False
         # A resumed run continues the global epoch numbering.
         start_epoch = self.current_epoch
-        for epoch in range(n_epochs):
-            self.current_epoch = start_epoch + epoch + 1
-            # The LR in effect this epoch (the reference steps its scheduler
-            # at epoch end, so epoch e runs at lr(e), 0-indexed).
-            current_lr = cosine_warm_restarts(start_epoch + epoch,
-                                              self.learning_rate)
-            epoch_t0 = time.time()
-            train_loss = self.train_epoch()
-            self.history["train_loss"].append(train_loss)
-            val_loss, val_details = self.validate()
-            self.history["val_loss"].append(val_loss)
-            self.history["learning_rate"].append(current_lr)
-            self.history["energy_loss"].append(val_details.get("energy", 0))
-            self.history["momentum_loss"].append(
-                val_details.get("momentum", 0))
-            # The losses above are host floats: the device work is done.
-            self.history["epoch_time_s"].append(
-                round(time.time() - epoch_t0, 3))
+        try:
+            for epoch in range(n_epochs):
+                self.current_epoch = start_epoch + epoch + 1
+                # The LR in effect this epoch (the reference steps its
+                # scheduler at epoch end, so epoch e runs at lr(e),
+                # 0-indexed).
+                current_lr = cosine_warm_restarts(start_epoch + epoch,
+                                                  self.learning_rate)
+                epoch_t0 = time.time()
+                train_loss = self.train_epoch()
+                self._beat()  # the step losses were read back
+                self.history["train_loss"].append(train_loss)
+                val_loss, val_details = self.validate()
+                self._beat()
+                self.history["val_loss"].append(val_loss)
+                self.history["learning_rate"].append(current_lr)
+                self.history["energy_loss"].append(
+                    val_details.get("energy", 0))
+                self.history["momentum_loss"].append(
+                    val_details.get("momentum", 0))
+                # The losses above are host floats: the device work is done.
+                self.history["epoch_time_s"].append(
+                    round(time.time() - epoch_t0, 3))
 
-            if verbose:
-                best_marker = (" ★ BEST" if val_loss < self.best_val_loss
-                               else "")
-                print(f"  Epoch {self.current_epoch:3d} | "
-                      f"train: {train_loss:.4f} | val: {val_loss:.4f} | "
-                      f"E: {val_details.get('energy', 0):.4f} | "
-                      f"M: {val_details.get('momentum', 0):.4f} | "
-                      f"lr: {current_lr:.2e}{best_marker}")
+                if verbose:
+                    best_marker = (" ★ BEST" if val_loss < self.best_val_loss
+                                   else "")
+                    print(f"  Epoch {self.current_epoch:3d} | "
+                          f"train: {train_loss:.4f} | val: {val_loss:.4f} | "
+                          f"E: {val_details.get('energy', 0):.4f} | "
+                          f"M: {val_details.get('momentum', 0):.4f} | "
+                          f"lr: {current_lr:.2e}{best_marker}")
 
-            if val_loss < self.best_val_loss:
-                self.best_val_loss = val_loss
-                self.save_model("best_model.pt")
-                patience_counter = 0
-            else:
-                patience_counter += 1
+                if val_loss < self.best_val_loss:
+                    self.best_val_loss = val_loss
+                    self.save_model("best_model.pt")
+                    patience_counter = 0
+                else:
+                    patience_counter += 1
 
-            if patience_counter >= early_stopping_patience:
-                print(f"\nEarly stopping at epoch {self.current_epoch}")
-                stopped_early = True
-                break
+                if patience_counter >= early_stopping_patience:
+                    print(f"\nEarly stopping at epoch {self.current_epoch}")
+                    stopped_early = True
+                    break
 
-            if (epoch + 1) % save_every == 0:
-                self.save_model(f"checkpoint_epoch_{self.current_epoch}.pt")
-        self.save_model("final_model.pt")
-        self._save_history(completed=True, early_stopped=stopped_early)
+                if (epoch + 1) % save_every == 0:
+                    self.save_model(
+                        f"checkpoint_epoch_{self.current_epoch}.pt")
+            # Saving reads the parameters back from the device: the
+            # watchdog stays armed until the last file is written.
+            self.save_model("final_model.pt")
+            self._save_history(completed=True, early_stopped=stopped_early)
+        finally:
+            # Disarm even on an exception: an armed watchdog left behind
+            # would end a healthy process later.
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
         return self.history
+
+    def _beat(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.beat()
 
     # -- checkpoints (train.py:537-567) -------------------------------------
 

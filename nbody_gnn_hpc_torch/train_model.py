@@ -75,6 +75,14 @@ def build_parser():
                              "projections and node MLP, or the whole layer "
                              "as one kernel (same parameters; written to "
                              "config.json)")
+    parser.add_argument("--watchdog", type=float, default=None,
+                        metavar="SECONDS",
+                        help="Exit with a distinctive code if no epoch's "
+                             "losses reach the host for this many seconds "
+                             "(stall detection; rerun with --resume auto "
+                             "to continue). Must cover the slowest epoch "
+                             "and the first one's kernel builds. "
+                             "0 disables.")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' only when "
                              "asked for)")
@@ -88,6 +96,7 @@ def main(argv=None) -> int:
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.io.model_io import latest_checkpoint
     from nbody_gnn_hpc_torch.models import count_parameters, model_from_config
+    from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.train import (MANIFEST_NAME, GNNDataset, Trainer,
                                            datasets_from_manifest)
 
@@ -207,7 +216,7 @@ def main(argv=None) -> int:
     print("\nStarting training...")
     history = trainer.train(n_epochs=n_epochs,
                             early_stopping_patience=config.early_stopping,
-                            save_every=10)
+                            save_every=10, watchdog_s=args.watchdog)
 
     print("\n" + "=" * 60)
     print("TRAINING COMPLETE")
@@ -217,6 +226,7 @@ def main(argv=None) -> int:
         print(f"  Final Train Loss: {history['train_loss'][-1]:.6f}")
     print(f"  Model saved to:   {model_dir}")
     print("=" * 60)
+    print(launch_line())
     return 0
 
 

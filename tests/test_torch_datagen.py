@@ -8,6 +8,7 @@ order only; the system is chaotic, so long horizons would not agree.
 """
 
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -401,3 +402,134 @@ def test_train_model_reads_the_manifest(tmp_path):
     assert train_model.main(["--device", "cpu", "--data-dir",
                              str(tmp_path / "none"), "--model-dir",
                              str(models)]) == 1
+
+
+# -- the npz trajectory store -------------------------------------------------
+
+def test_npz_trajectory_equals_the_hdf5_one(tmp_path, ensemble):
+    """The same arrays, dtypes and metadata from either form; the HDF5 one
+    is still what the JAX package's manager reads."""
+    metadata = {"n_particles": N, "seed": 43, "tags": [1, 2]}
+    backs = {}
+    for fmt in ("h5", "npz"):
+        manager = CheckpointManager(str(tmp_path / fmt))
+        path = manager.save_trajectory(trajectory_slice(ensemble, 1),
+                                       "sim_0001", metadata=metadata,
+                                       compression="lzf",
+                                       trajectory_format=fmt)
+        assert path.endswith(f"sim_0001_trajectory.{fmt}")
+        assert manager.trajectory_exists("sim_0001")
+        assert manager.trajectory_names() == ["sim_0001"]
+        assert [p.name for p in (tmp_path / fmt).iterdir()] == [
+            f"sim_0001_trajectory.{fmt}"]  # no temporary file left
+        backs[fmt] = manager.load_trajectory("sim_0001")
+    want = JaxCheckpointManager(str(tmp_path / "h5")).load_trajectory(
+        "sim_0001")
+    assert set(backs["npz"]) == set(backs["h5"]) == set(want)
+    for key in FIELDS + ("times", "steps", "masses"):
+        assert backs["npz"][key].dtype == want[key].dtype
+        np.testing.assert_array_equal(backs["npz"][key], want[key])
+        np.testing.assert_array_equal(backs["h5"][key], want[key])
+    assert backs["npz"]["n_steps"] == backs["h5"]["n_steps"] == STEPS + 1
+    assert backs["npz"]["metadata"] == backs["h5"]["metadata"] == metadata
+    with pytest.raises(ValueError, match="trajectory format"):
+        CheckpointManager(str(tmp_path)).save_trajectory(
+            trajectory_slice(ensemble, 1), "x", trajectory_format="hdf5")
+    npz = CheckpointManager(str(tmp_path / "npz"))
+    assert npz.delete_checkpoint("sim_0001")
+    assert not npz.trajectory_exists("sim_0001")
+
+
+def test_both_trajectory_forms_for_one_store_raise(tmp_path, ensemble):
+    manager = CheckpointManager(str(tmp_path))
+    for fmt in ("h5", "npz"):
+        manager.save_trajectory(trajectory_slice(ensemble, 0), "sim_0000",
+                                compression="none", trajectory_format=fmt)
+    with pytest.raises(ValueError, match="both as HDF5 and as npz"):
+        manager.load_trajectory("sim_0000")
+    with pytest.raises(ValueError, match="both HDF5 and npz"):
+        manager.trajectory_names()
+    (tmp_path / "sim_0000_trajectory.h5").unlink()
+    manager.save_trajectory(trajectory_slice(ensemble, 1), "sim_0001",
+                            compression="none")
+    with pytest.raises(ValueError, match="both HDF5 and npz"):
+        manager.trajectory_names()  # one run's files in two forms
+
+
+def test_generate_data_npz_store_resumes_and_loads(tmp_path, capsys):
+    """``--trajectory-format npz --no-windows``: npz files equal to the
+    HDF5 run's, the manifest records the form, a rerun resumes the npz
+    files, and the manifest's datasets equal those of the HDF5 run."""
+    npz_out, h5_out = tmp_path / "npz", tmp_path / "h5"
+    argv = CLI + ["--no-windows"]
+    assert generate_data.main(argv + ["-o", str(npz_out),
+                                      "--trajectory-format", "npz"]) == 0
+    assert "applies to HDF5 files only" in capsys.readouterr().out
+    assert generate_data.main(argv + ["-o", str(h5_out)]) == 0
+    names = [f"sim_{i:04d}" for i in range(5)]
+    assert sorted(p.name for p in (npz_out / "checkpoints").iterdir()) == [
+        f"{n}_trajectory.npz" for n in names]
+    npz = CheckpointManager(str(npz_out / "checkpoints"))
+    jax_h5 = JaxCheckpointManager(str(h5_out / "checkpoints"))
+    for name in names:
+        got, want = npz.load_trajectory(name), jax_h5.load_trajectory(name)
+        for key in FIELDS + ("times", "steps", "masses"):
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["metadata"] == want["metadata"]
+
+    spec = json.loads((npz_out / "dataset_manifest.json").read_text())
+    assert spec["trajectory_format"] == "npz"
+    h5_spec = json.loads((h5_out / "dataset_manifest.json").read_text())
+    assert h5_spec["trajectory_format"] == "h5"
+    got_train, got_val = datasets_from_manifest(
+        npz_out / "dataset_manifest.json", k_neighbors=4)
+    want_train, want_val = jax_datasets_from_manifest(
+        h5_out / "dataset_manifest.json", k_neighbors=4, cache=False)
+    for got, want in ((got_train, want_train), (got_val, want_val)):
+        np.testing.assert_array_equal(got.last_states, want.last_states)
+        np.testing.assert_array_equal(got.targets, want.targets)
+    capsys.readouterr()
+    datasets_from_manifest(npz_out / "dataset_manifest.json", k_neighbors=4)
+    assert "Loaded tensors from sidecar cache" in capsys.readouterr().out
+
+    # Resume skips the npz files that exist; the rewritten one changes the
+    # cache tag (it stats the npz files).
+    stamp = (npz_out / "checkpoints" / "sim_0000_trajectory.npz"
+             ).stat().st_mtime_ns
+    (npz_out / "checkpoints" / "sim_0003_trajectory.npz").unlink()
+    assert generate_data.main(argv + ["-o", str(npz_out),
+                                      "--trajectory-format", "npz"]) == 0
+    assert "Simulated 1 new sims (+4 resumed)" in capsys.readouterr().out
+    assert (npz_out / "checkpoints" / "sim_0000_trajectory.npz"
+            ).stat().st_mtime_ns == stamp
+    again, _ = datasets_from_manifest(npz_out / "dataset_manifest.json",
+                                      k_neighbors=4)
+    assert "Loaded tensors from sidecar cache" not in capsys.readouterr().out
+    np.testing.assert_array_equal(again.last_states, want_train.last_states)
+
+
+def test_manifest_without_a_format_reads_hdf5(tmp_path, ensemble):
+    """The JAX package writes no ``trajectory_format``: its manifests mean
+    HDF5, and their cache tag stats the HDF5 files."""
+    from nbody_gnn_hpc_tpu.train import write_manifest as jax_write_manifest
+
+    ckpt = CheckpointManager(str(tmp_path / "checkpoints"))
+    for i in range(3):
+        ckpt.save_trajectory(trajectory_slice(ensemble, i), f"sim_{i:04d}",
+                             compression="none")
+    manifest = jax_write_manifest(tmp_path, ["sim_0000", "sim_0001"],
+                                  ["sim_0002"], sequence_length=3)
+    assert "trajectory_format" not in json.loads(Path(manifest).read_text())
+    train, _ = datasets_from_manifest(manifest, k_neighbors=4)
+    ckpt.save_trajectory(trajectory_slice(ensemble, 3), "sim_0001",
+                         compression="none")
+    fresh, _ = datasets_from_manifest(manifest, k_neighbors=4)
+    assert not np.array_equal(fresh.last_states, train.last_states)
+
+
+def test_generate_data_npz_needs_no_windows(tmp_path):
+    out = tmp_path / "data"
+    with pytest.raises(SystemExit):
+        generate_data.main(CLI + ["-o", str(out), "--trajectory-format",
+                                  "npz"])
+    assert not out.exists()  # refused before any simulation

@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
             "nbody_gnn_hpc_torch.utils.profiling, "
             "nbody_gnn_hpc_torch.finetune_rollout, "
             "nbody_gnn_hpc_torch.select_checkpoint, "
-            "nbody_gnn_hpc_torch.predict.selection\n"
+            "nbody_gnn_hpc_torch.predict.selection, "
+            "nbody_gnn_hpc_torch.run_demo, nbody_gnn_hpc_torch.export_csv\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
@@ -186,6 +187,19 @@ def test_finetune_and_selection_refuse_cpu_unasked(no_cuda, tmp_path):
                           ["models/best_model.pt"],
                           np.zeros((1, 8, 5, 6), np.float32),
                           np.ones(5, np.float32), 3)
+
+
+def test_pipeline_refuses_cpu_unasked(no_cuda, tmp_path, monkeypatch):
+    """Before any stage runs and before the workspace is cleaned."""
+    from nbody_gnn_hpc_torch.run_demo import main
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "models").mkdir()
+    (tmp_path / "models" / "best_model.pt").write_text("kept")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--production", "--trajectory-format", "npz"])
+    assert sorted(p.name for p in tmp_path.rglob("*")) == [
+        "best_model.pt", "models"]
 
 
 def test_ceilings_command_refuses_cpu_unasked(no_cuda):
