@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, simulator, deployed-serving,
-ceilings, rollout fine-tune and one-command pipeline paths on one NVIDIA
-GPU and check them.
+ceilings, rollout fine-tune, one-command pipeline, data-parallel and
+simulator-surface paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full-finetune   # the production curriculum
@@ -157,6 +157,46 @@ Phases (any failure exits non-zero and prints no result line):
    fine-tune, kernel 1 6 x 395 per checkpoint in selection and 6 x 394 in
    evaluation, exactly.  A JSON line ``{"pipeline": ...}`` gives each
    stage's wall, the total, the two RMSEs and the cuts.
+12. Data parallel and the simulator surface, the eighth main path, each
+   drive's counts zeroed just before and read just after.  (a) World one
+   on NCCL (``parallel.init_data_parallel``, ``make_mesh``) at the
+   production width (N=200, k=40, hidden 256, 6 layers, B=24, dropout and
+   noise on), on 18 trajectories made on the card: the ``gspmd`` DP step
+   against ``make_train_step`` (two steps; loss and every parameter within
+   1e-6 of scale, bit-equality reported), ``Trainer(mesh=make_mesh())``
+   for an epoch of 20 steps and a validation against ``Trainer(mesh=None)``
+   (the same tolerance), kernels 1 and 2 exactly 6 a step and validation
+   batch; ``simulate_ensemble(mesh=)`` over (300, 200) x 50 bit-equal to the
+   unsharded run, kernel 4 51 times.  (b) Two gloo ranks sharing
+   ``cuda:0``, spawned processes (NCCL refuses two ranks on one GPU): the
+   ``gspmd`` step with noise and dropout on through ``fused`` and
+   ``fused_full`` (kernel 7's cooperative launch in two processes) against
+   one device taking the same two halves (1e-6 of each tensor's scale) and
+   against one device's whole batch: loss rtol 1e-5, the first step's
+   clipped gradients 1e-4 of each tensor's scale and the parameters after
+   it element by element at rtol 1e-4 / atol 1e-6 (certify_multichip's
+   one-step hold; after the second step the same measure is printed);
+   each rank's kernels 1 (or 7) and 2 exactly 12.  The sharded ensembles of 301 sims x 4
+   steps: the JAX certification's systems (N=8, box 5) against the
+   unsharded run at rtol 2e-5 / atol 1e-5, the datagen protocol's (N=200,
+   box 10) per particle (as [7] compares large-N runs); both bit for bit
+   against one device simulating the same two blocks; kernel 4 five times
+   a rank.  (c) ``NBodySimulator.create_galaxy_collision
+   (n_per_galaxy=1100)`` (N=2,200) for 50 steps: kernel 6 once a force
+   evaluation (52), frames 1-5 per particle against ``device="cpu"`` (as
+   [7] compares large-N runs), the energy after 50 steps within a factor 4
+   of the float64 oracle's from the same scene (both printed);
+   ``run_parallel_simulations`` over 8 same-parameter configs at N=200 x
+   50 steps plus one other config: one ensemble (kernel 4 51 times) and
+   one run alone, in input order, frames 0-5 against ``device="cpu"``
+   (1e-3 of scale).  (d) The GNN above N = 2,048: a 5-step rollout at
+   N=2,085 (the row-blocked k-NN) through ``fused`` and ``fused_full``
+   against ``device="cpu"`` per particle, kernel 1 (or 7) 6 x 5 times, and
+   one training step there (B=2) through kernels 1 and 2 against the plain
+   versions on the card (1e-3 of each gradient's scale).  The kernels
+   line's ``launches_by_path`` has ``parallel`` (the spawned ranks'
+   counts, read in their processes, included), ``simulator_surface`` and
+   ``surrogate_large_n``.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -2596,6 +2636,678 @@ def phase_pipeline() -> dict:
     return launches
 
 
+# Phase 12: data parallel and the simulator surface.  Two gloo ranks share
+# the one card (NCCL refuses two ranks on one GPU); world one runs NCCL.
+DP_VAL_SIMS, DP_STEPS, DP_SIM_STEPS = 2, 20, 40  # 20 steps of B=24
+DP_REL = 1e-6      # world one against one device, of each tensor's scale
+# Two ranks: each launch sums over its own 12 graphs, in another order than
+# one device's 24.  Held to one device taking the same two halves (within
+# DP_REL: the same arithmetic), and to one device's whole batch at float32
+# sum order: the loss, the first step's clipped gradients to 1e-4 of each
+# tensor's scale, and the parameters after the first step element by
+# element at rtol 1e-4 / atol 1e-6, as certify_multichip (and the JAX
+# certification) hold one step.  After the second step the same measure
+# is printed, not held: AdamW's m / sqrt(v) turns a small gradient's
+# relative sum-order difference into a difference of its update (1.25 of
+# that limit on a weight, measured on an H100).
+DP2_LOSS_RTOL, DP2_GRAD_REL = 1e-5, 1e-4
+DP2_PARAM_RTOL, DP2_PARAM_ATOL = 1e-4, 1e-6
+DP_ENSEMBLE = dict(n_sims=300, n=200, n_steps=50)  # world one, sharded
+# Two ranks, 301 sims (one padded): the JAX certification's systems (N=8,
+# box 5) held to its tolerance, and the datagen protocol's (N=200, box 10)
+# held bit for bit to one device taking the same two blocks and per
+# particle to one device's whole batch: kernel 4 sums in an order set by
+# its batch, and at N=200 close pairs amplify that order over 4 steps
+# (max abs 2.98e-5 measured on an H100, past the certification's atol).
+DP2_ENSEMBLES = {"certification": dict(n_sims=301, n=8, n_steps=4, box=5.0),
+                 "datagen": dict(n_sims=301, n=200, n_steps=4, box=10.0)}
+DP2_RTOL, DP2_ATOL = 2e-5, 1e-5
+GALAXY_PER, GALAXY_STEPS, GALAXY_FRAMES = 1_100, 50, 5  # N=2,200 > 2,048
+# Softening 1e-9 at dt 0.01 leaves the scene's close encounters unresolved:
+# its energy grows several times over in 50 steps in every run (float32 and
+# float64 alike).  The card's end energy is held to the float64 oracle's
+# order, the trajectories being chaotic past the first frames.
+GALAXY_ENERGY_BAND = (0.25, 4.0)
+SURFACE_SIMS, SURFACE_STEPS = 8, 50  # run_parallel_simulations' group
+SURROGATE_STEPS = 5  # the GNN at N=2,085 (ODD_N), fused and fused_full
+DP2_TIMEOUT_S = 300
+DP_WIDTH = dict(hidden_dim=256, n_layers=6)  # TrainingConfig()'s
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _counts() -> dict:
+    from nbody_gnn_hpc_torch.ops import launch_counts
+
+    return launch_counts()
+
+
+def _zero_counts() -> None:
+    from nbody_gnn_hpc_torch import ops
+
+    for fn in (ops.fused_edge_layer, ops.fused_edge_backward,
+               ops.accelerations_tiled, ops.accelerations_small,
+               ops.accelerations_symmetric, ops.fused_full_layer,
+               ops.accelerations_symmetric_mxu, ops.fma_probe,
+               ops.rsqrt_probe):
+        fn.launches = 0
+
+
+def _add(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0)
+            for k in set(total) | set(more)}
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over tensors, relative to each tensor's scale."""
+    return max(_rel_errs(got, want).values())
+
+
+def _rel_errs(got, want) -> dict:
+    """|got - want| / scale of each tensor of two ``{name: tensor}``
+    dicts (or two lists)."""
+    if not isinstance(want, dict):
+        got, want = dict(enumerate(got)), dict(enumerate(want))
+    return {k: float((got[k].float() - w.float()).abs().max())
+            / (float(w.float().abs().max()) + 1e-12)
+            for k, w in want.items()}
+
+
+def _allclose_ratio(got: dict, want: dict, rtol: float, atol: float):
+    """The largest |got - want| / (atol + rtol |want|) over the elements of
+    two ``{name: tensor}`` dicts, and its tensor's name: at most 1 where
+    ``np.allclose(got, want, rtol, atol)`` holds for every tensor."""
+    ratios = {k: float(((got[k].double() - w.double()).abs()
+                        / (atol + rtol * w.double().abs())).max())
+              for k, w in want.items()}
+    worst = max(ratios, key=ratios.get)
+    return ratios[worst], worst
+
+
+def dp_data(dev):
+    """Train (cut to DP_STEPS batches of 24) and validation (DP_VAL_SIMS)
+    datasets from trajectories made on the card (the datagen protocol,
+    DP_SIM_STEPS steps), and the problem the DP steps take, as numpy."""
+    from nbody_gnn_hpc_torch.config import TrainingConfig
+    from nbody_gnn_hpc_torch.parallel import (fetch_host_trajectory,
+                                              simulate_ensemble)
+    from nbody_gnn_hpc_torch.sim import shared_masses
+    from nbody_gnn_hpc_torch.train import GNNDataset
+
+    cfg = TrainingConfig()
+    n = DP_STEPS * cfg.batch_size  # samples; cut as train_model --max-samples
+    n_train = -(-n // (DP_SIM_STEPS + 1 - cfg.sequence_length))
+    n_sims = n_train + DP_VAL_SIMS
+    host = fetch_host_trajectory(simulate_ensemble(
+        list(range(42, 42 + n_sims)), N, DP_SIM_STEPS, box_size=10.0,
+        dt=0.001,
+        shared_masses=shared_masses(N), device=dev))
+    trajs = [dict(positions=host.positions[i], velocities=host.velocities[i],
+                  masses=host.masses[i]) for i in range(n_sims)]
+    kw = dict(sequence_length=cfg.sequence_length, k_neighbors=K)
+    train = GNNDataset.from_trajectories(trajs[:n_train], **kw)
+    train.last_states, train.targets = (train.last_states[:n],
+                                        train.targets[:n])
+    train.n_samples = n
+    val = GNNDataset.from_trajectories(
+        trajs[n_train:],
+        external_norm_stats=train.get_normalization_stats(), **kw)
+    b = cfg.batch_size
+    problem = dict(edge_index=train.edge_index,
+                   masses=train.get_masses_tensor(), mean=train.state_mean,
+                   std=train.state_std, width=DP_WIDTH,
+                   states=train.last_states[:2 * b].reshape(2, b, N, 6),
+                   targets=train.targets[:2 * b].reshape(2, b, N, 6))
+    return cfg, train, val, problem
+
+
+def _split_step(base, parts: int):
+    """A train step as ``parts`` ``gspmd`` ranks take it, in one process:
+    each part's loss and gradient drawn from the generator state the step
+    starts with, divided by ``parts`` and added in rank order (what the
+    ranks' all-reduce adds), then the update."""
+    import torch
+
+    from nbody_gnn_hpc_torch.models.gnn import BatchRows
+
+    def step(states, targets, gen):
+        b = states.shape[0]
+        per = b // parts
+        start = gen.get_state()
+        flat = None
+        for r in range(parts):
+            gen.set_state(start)
+            for p in base.params:
+                p.grad = None
+            lo = r * per
+            loss, _ = base.compute_loss(states[lo:lo + per],
+                                        targets[lo:lo + per], gen,
+                                        rows=BatchRows(lo, b))
+            loss.backward()
+            part = torch.cat([p.grad.reshape(-1) for p in base.params]
+                             + [loss.detach().reshape(1)]) / parts
+            flat = part if flat is None else flat + part
+        offset = 0
+        for p in base.params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        base.update()
+        return flat[-1].clone()
+
+    return step
+
+
+def dp_steps(dev, problem, edge_impl, mesh, split: int = 0):
+    """Two train steps at the production width (hidden 256, 6 layers,
+    dropout 0.1, noise 0.003) on ``problem``'s batches from a seeded model,
+    through ``make_train_step`` (``mesh`` None), the ``gspmd`` DP step, or
+    (``split`` > 0) ``split`` ranks' arithmetic in this one process:
+    (losses, parameters on the host, synchronised step walls, the first
+    step's clipped gradients and the parameters after it on the host)."""
+    import torch
+
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.parallel import make_dp_train_step
+    from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
+
+    model = NBodyGNN(**problem["width"], dropout=DROPOUT_P,
+                     edge_impl=edge_impl,
+                     generator=torch.Generator().manual_seed(11)).to(dev)
+    m = torch.as_tensor(problem["masses"], device=dev)
+    args = (model, make_optimizer(model, 5e-4, 1e-4), problem["edge_index"],
+            problem["mean"], problem["std"], (m / m.mean())[:, None])
+    kw = dict(noise_std=0.003, masses=m)
+    if mesh is not None:
+        step = make_dp_train_step(*args, mesh=mesh, **kw)
+    else:
+        step = make_train_step(*args, **kw)
+        if split:
+            step = _split_step(step, split)
+    gen = torch.Generator(dev).manual_seed(12)
+    losses, walls, grads, first = [], [], None, None
+    for s, t in zip(problem["states"], problem["targets"]):
+        s = torch.as_tensor(s, device=dev)
+        t = torch.as_tensor(t, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(step(s, t, gen).item())
+        walls.append(time.perf_counter() - t0)
+        if grads is None:
+            grads = {k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()}
+            first = {k: p.detach().cpu() for k, p in
+                     model.named_parameters()}
+    return losses, {k: p.detach().cpu() for k, p in
+                    model.named_parameters()}, walls, grads, first
+
+
+def _ensemble_positions(dev, ens, seeds, mesh=None):
+    from nbody_gnn_hpc_torch.parallel import simulate_ensemble
+    from nbody_gnn_hpc_torch.sim import shared_masses
+
+    return simulate_ensemble(seeds, ens["n"], ens["n_steps"],
+                             box_size=ens["box"], dt=0.001,
+                             shared_masses=shared_masses(ens["n"]),
+                             mesh=mesh, device=dev).positions.cpu()
+
+
+def _dp_rank(rank, dev, problem, edge_impls, ensembles):
+    """One of two gloo ranks on the shared card: the DP steps of each edge
+    impl and the sharded ensembles, each with its own launch counts."""
+    from nbody_gnn_hpc_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    out = {}
+    for edge_impl in edge_impls:
+        _zero_counts()
+        out[edge_impl] = dp_steps(dev, problem, edge_impl, mesh) + (
+            _counts(),)
+    for name, ens in ensembles.items():
+        _zero_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        seeds = list(range(42, 42 + ens["n_sims"]))
+        pos = _ensemble_positions(dev, ens, seeds, mesh)
+        out[name] = (pos if rank == 0 else None, time.perf_counter() - t0,
+                     _counts())
+    return out
+
+
+def phase_parallel(dev):
+    """Data parallel: NCCL at world one, two gloo ranks sharing the card,
+    and the sharded ensemble.  Returns the launches of this path (both
+    ranks' processes included)."""
+    import torch
+    import torch.distributed as dist
+
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.parallel import (init_data_parallel, make_mesh,
+                                              run_local_world,
+                                              simulate_ensemble)
+    from nbody_gnn_hpc_torch.sim import shared_masses
+    from nbody_gnn_hpc_torch.train import Trainer
+
+    cfg, train, val, problem = dp_data(dev)
+    launches = {}
+    created = not dist.is_initialized()
+    rank_dev = init_data_parallel(dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "world one is not one NCCL rank")
+    try:
+        mesh = make_mesh()
+        # (a) the gspmd step at world one against make_train_step
+        want = dp_steps(rank_dev, problem, "fused", None)
+        _zero_counts()
+        got = dp_steps(rank_dev, problem, "fused", mesh)
+        c = _counts()
+        launches = _add(launches, c)
+        rel = _rel_err(got[1], want[1])
+        bit = got[0] == want[0] and all(torch.equal(got[1][k], v)
+                                        for k, v in want[1].items())
+        print(f"  world one (NCCL): gspmd DP step vs make_train_step, 2 "
+              f"steps at B={len(problem['states'][0])}, {DP_WIDTH}, "
+              f"dropout + noise: "
+              f"losses {got[0]} vs {want[0]}; parameters max error / scale "
+              f"{rel:.3e} (tolerance {DP_REL:g}); bit-equal: {bit}; step "
+              f"walls {['%.2f ms' % (w * 1e3) for w in got[2]]} vs "
+              f"{['%.2f ms' % (w * 1e3) for w in want[2]]}; launches "
+              f"fused_edge_fwd {c['fused_edge_fwd']}, fused_edge_bwd "
+              f"{c['fused_edge_bwd']} (expected 12 each)", flush=True)
+        check(all(abs(a - b) <= DP_REL * abs(b) for a, b in
+                  zip(got[0], want[0])) and rel <= DP_REL,
+              "the DP step at world one disagrees with make_train_step")
+        check((c["fused_edge_fwd"], c["fused_edge_bwd"]) == (12, 12),
+              "DP step launch counts at world one")
+
+        # (b) Trainer(mesh=) for an epoch of 20 steps and a validation
+        def trainer(m):
+            return Trainer(
+                NBodyGNN(**DP_WIDTH, dropout=cfg.dropout), train, val,
+                model_dir=str(TRAIN_DIR / f"dp_{m is not None}"),
+                device=rank_dev, learning_rate=cfg.learning_rate,
+                batch_size=cfg.batch_size, weight_decay=cfg.weight_decay,
+                noise_std=cfg.noise_std, seed=7, mesh=m)
+
+        results = []
+        for m in (None, mesh):
+            t = trainer(m)
+            val_batches = -(-val.n_samples // cfg.batch_size)
+            _zero_counts()
+            _sync(rank_dev)
+            t0 = time.perf_counter()
+            t.train_epoch()
+            loss_val = t.validate()[0]
+            wall = time.perf_counter() - t0
+            c = _counts()
+            if m is not None:
+                launches = _add(launches, c)
+                want_fwd = 6 * (t.steps_per_epoch + val_batches)
+                check((t.steps_per_epoch, c["fused_edge_fwd"],
+                       c["fused_edge_bwd"]) == (DP_STEPS, want_fwd,
+                                                6 * DP_STEPS),
+                      "Trainer(mesh=) launch counts")
+            results.append((t.step_losses, loss_val,
+                            [p.detach().cpu() for p in t.model.parameters()],
+                            wall, c))
+        (l1, v1, p1, w1, _), (lm, vm, pm, wm, cm) = results
+        rel = _rel_err(pm, p1)
+        bit = lm == l1 and vm == v1 and all(torch.equal(a, b)
+                                            for a, b in zip(pm, p1))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lm + [vm],
+                                                            l1 + [v1]))
+        print(f"  world one: Trainer(mesh=make_mesh()) vs Trainer(mesh=None), "
+              f"{DP_STEPS} steps + validation: step losses max relative "
+              f"difference {loss_rel:.3e}, validation {vm:.6f} vs {v1:.6f}, "
+              f"parameters max error / scale {rel:.3e} (tolerance "
+              f"{DP_REL:g}); bit-equal: {bit}; "
+              f"epoch + validation wall {wm:.3f} s vs {w1:.3f} s; launches "
+              f"fused_edge_fwd {cm['fused_edge_fwd']}, fused_edge_bwd "
+              f"{cm['fused_edge_bwd']}", flush=True)
+        check(loss_rel <= DP_REL and rel <= DP_REL,
+              "Trainer(mesh=) disagrees with Trainer(mesh=None)")
+
+        # (c) the sharded ensemble at world one
+        e = DP_ENSEMBLE
+        kw = dict(box_size=10.0, dt=0.001, shared_masses=shared_masses(e["n"]),
+                  device=rank_dev)
+        seeds = list(range(42, 42 + e["n_sims"]))
+        walls = {}
+        for label, m in (("unsharded", None), ("mesh", mesh)):
+            _zero_counts()
+            _sync(rank_dev)
+            t0 = time.perf_counter()
+            traj = simulate_ensemble(seeds, e["n"], e["n_steps"], mesh=m, **kw)
+            _sync(rank_dev)
+            walls[label] = time.perf_counter() - t0
+            if m is not None:
+                c = _counts()
+                launches = _add(launches, c)
+                check(c["pairwise_small"] == e["n_steps"] + 1,
+                      "sharded ensemble launch count at world one")
+                sharded = traj.positions
+            else:
+                alone = traj.positions
+        equal = torch.equal(sharded, alone)
+        print(f"  world one: simulate_ensemble(mesh=) {e['n_sims']} x "
+              f"{e['n_steps']} x N={e['n']}: bit-equal to the unsharded run: "
+              f"{equal}; {walls['mesh']:.3f} s vs {walls['unsharded']:.3f} s "
+              f"unsharded; pairwise_small {e['n_steps'] + 1}", flush=True)
+        check(equal, "simulate_ensemble(mesh=) at world one differs from "
+                     "the unsharded run")
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+    # (d) two gloo ranks sharing cuda:0 (spawned processes)
+    t0 = time.perf_counter()
+    ranks = run_local_world(_dp_rank, 2, (problem, ("fused", "fused_full"),
+                                          DP2_ENSEMBLES),
+                            device="cuda", backend="gloo",
+                            timeout=DP2_TIMEOUT_S)
+    spawn_wall = time.perf_counter() - t0
+    for edge_impl in ("fused", "fused_full"):
+        want = dp_steps(dev, problem, edge_impl, None)
+        split = dp_steps(dev, problem, edge_impl, None, split=2)
+        counted = "fused_full_fwd" if edge_impl == "fused_full" else \
+            "fused_edge_fwd"
+        for r, out in enumerate(ranks):
+            losses, params, walls, grads, first, c = out[edge_impl]
+            launches = _add(launches, c)
+            # The two ranks against one device doing the same two halves.
+            same = _rel_errs({**params, **{f"d {k}": g for k, g in
+                                           grads.items()}},
+                             {**split[1], **{f"d {k}": g for k, g in
+                                             split[3].items()}})
+            bit = losses == split[0] and max(same.values()) == 0.0
+            # ... and against one device's whole batch: float32 order.
+            g_errs = _rel_errs(grads, want[3])
+            p_errs = _rel_errs(params, want[1])
+            g_worst = max(g_errs, key=g_errs.get)
+            p_worst = max(p_errs, key=p_errs.get)
+            first_ratio, first_at = _allclose_ratio(
+                first, want[4], DP2_PARAM_RTOL, DP2_PARAM_ATOL)
+            p_ratio, p_ratio_at = _allclose_ratio(
+                params, want[1], DP2_PARAM_RTOL, DP2_PARAM_ATOL)
+            loss_ok = all(abs(a - b) <= DP2_LOSS_RTOL * abs(b)
+                          for a, b in zip(losses, want[0]))
+            print(f"  two gloo ranks on cuda:0, rank {r}, {edge_impl}: "
+                  f"losses {losses}; vs one device taking the same two "
+                  f"halves: losses {split[0]}, parameters and first "
+                  f"gradients max error / scale {max(same.values()):.3e} "
+                  f"(tolerance {DP_REL:g}), bit-equal: {bit}; vs one "
+                  f"device's whole batch: losses {want[0]}, first clipped "
+                  f"gradients max error / scale {g_errs[g_worst]:.3e} "
+                  f"({g_worst}; tolerance {DP2_GRAD_REL:g}), parameters "
+                  f"after the first step: largest |difference| / (atol + "
+                  f"rtol |want|) {first_ratio:.3e} ({first_at}; rtol "
+                  f"{DP2_PARAM_RTOL:g} / atol {DP2_PARAM_ATOL:g}: at most "
+                  f"1), after two steps (printed): {p_ratio:.3e} "
+                  f"({p_ratio_at}), max error / scale "
+                  f"{p_errs[p_worst]:.3e} ({p_worst}, scale "
+                  f"{float(want[1][p_worst].abs().max()):.3e}); step walls "
+                  f"{['%.2f ms' % (w * 1e3) for w in walls]} (one device "
+                  f"{['%.2f ms' % (w * 1e3) for w in want[2]]}); launches "
+                  f"{counted} {c[counted]}, fused_edge_bwd "
+                  f"{c['fused_edge_bwd']} (expected 12 each)", flush=True)
+            check(max(same.values()) <= DP_REL,
+                  f"two-rank {edge_impl} DP step disagrees with one device "
+                  f"taking the same two halves")
+            check(loss_ok and g_errs[g_worst] <= DP2_GRAD_REL
+                  and first_ratio <= 1.0,
+                  f"two-rank {edge_impl} DP step disagrees with one device")
+            check((c[counted], c["fused_edge_bwd"]) == (12, 12),
+                  f"two-rank {edge_impl} DP launch counts")
+    for name, ens in DP2_ENSEMBLES.items():
+        seeds = list(range(42, 42 + ens["n_sims"]))
+        per = -(-ens["n_sims"] // 2)
+        padded = seeds + seeds[-1:] * (2 * per - ens["n_sims"])
+        alone = _ensemble_positions(dev, ens, seeds)
+        blocks = torch.cat([_ensemble_positions(dev, ens, padded[:per]),
+                            _ensemble_positions(dev, ens, padded[per:])]
+                           )[:ens["n_sims"]]
+        sharded, wall, _ = ranks[0][name]
+        for r, out in enumerate(ranks):
+            c = out[name][2]
+            launches = _add(launches, c)
+            check(c["pairwise_small"] == ens["n_steps"] + 1,
+                  f"rank {r}'s sharded {name} ensemble launch count")
+        bit = torch.equal(sharded, blocks)
+        close = torch.allclose(sharded, alone, rtol=DP2_RTOL, atol=DP2_ATOL)
+        med, far, diff = particle_errors(sharded.numpy(), alone.numpy())
+        print(f"  two gloo ranks: simulate_ensemble(mesh=) of the {name} "
+              f"systems, {ens['n_sims']} x {ens['n_steps']} steps at "
+              f"N={ens['n']} ({per} a rank, {2 * per - ens['n_sims']} "
+              f"padded), {wall:.3f} s on rank 0: bit-equal to one device "
+              f"taking the same two blocks: {bit}; against one device's "
+              f"whole batch max abs difference {diff:.3e}, within rtol "
+              f"{DP2_RTOL:g} / atol {DP2_ATOL:g}: {close}; per particle "
+              f"median {med:.2e}, beyond {SIM_FAR_REL:g} {far:.2%}; "
+              f"pairwise_small {ens['n_steps'] + 1} a rank", flush=True)
+        check(bit, f"the two-rank {name} ensemble differs from one device "
+                   f"taking the same blocks")
+        check(close if name == "certification" else
+              med <= SIM_MEDIAN_REL and far <= SIM_FAR_SHARE,
+              f"the two-rank {name} ensemble disagrees with the unsharded")
+    print(f"  the two ranks took {spawn_wall:.1f} s from spawn to join",
+          flush=True)
+    return launches
+
+
+def phase_simulator_surface(dev):
+    """NBodySimulator across the large-N threshold and
+    run_parallel_simulations' grouping.  Returns this path's launches."""
+    from nbody_gnn_hpc_torch.sim import (NBodySimulator,
+                                         run_parallel_simulations)
+    from nbody_gnn_hpc_torch.sim.reference_f64 import (simulate_f64,
+                                                       total_energy_f64)
+
+    # The galaxy collision: N=2,200 >= 2,048, so every force evaluation is
+    # kernel 6 (the constructor's, the factory's recompute, one a step).
+    np.random.seed(2026)
+    _zero_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    sim = NBodySimulator.create_galaxy_collision(n_per_galaxy=GALAXY_PER,
+                                                 device=dev)
+    e0 = sim.get_energy()
+    _sync(dev)
+    t1 = time.perf_counter()
+    traj = sim.run_trajectory(GALAXY_STEPS)
+    _sync(dev)
+    t_run = time.perf_counter() - t1
+    e1 = sim.get_energy()
+    launches = _counts()
+    t_all = time.perf_counter() - t0
+    n = 2 * GALAXY_PER
+    check(launches["pairwise_symmetric"] == GALAXY_STEPS + 2
+          and launches["pairwise_small"] == 0,
+          f"the galaxy run launched kernel 6 "
+          f"{launches['pairwise_symmetric']} times, expected "
+          f"{GALAXY_STEPS} steps + 2")
+    np.random.seed(2026)
+    ref = NBodySimulator.create_galaxy_collision(n_per_galaxy=GALAXY_PER,
+                                                 device="cpu")
+    check(np.array_equal(ref.positions, traj.positions[0].cpu().numpy()),
+          "the galaxy's initial conditions differ between devices")
+    # The float64 oracle from the same scene, on the host: its energy
+    # change over the same steps is the reference's for this scene.
+    oracle = simulate_f64(ref.positions, ref.velocities, ref.masses, ref.dt,
+                          GALAXY_STEPS, ref.softening)
+    e_ref = total_energy_f64(oracle.positions[-1], oracle.velocities[-1],
+                             ref.masses, ref.softening)[2]
+    want = ref.run_trajectory(GALAXY_FRAMES).positions.numpy()
+    got = traj.positions[:GALAXY_FRAMES + 1].cpu().numpy()
+    med, far, diff = particle_errors(got[1:], want[1:])
+    drift = abs(e1[2] - e0[2]) / abs(e0[2])
+    ref_drift = abs(e_ref - e0[2]) / abs(e0[2])
+    print(f"  NBodySimulator.create_galaxy_collision(n_per_galaxy="
+          f"{GALAXY_PER}) (N={n}), {GALAXY_STEPS} steps: run_trajectory "
+          f"{t_run * 1e3:.2f} ms, with the scene and two energies "
+          f"{t_all * 1e3:.2f} ms; pairwise_symmetric "
+          f"{launches['pairwise_symmetric']} (expected {GALAXY_STEPS} + 2); "
+          f"total energy {e0[2]:.6e} -> {e1[2]:.6e}, relative change "
+          f"{drift:.3e} (the float64 oracle from the same scene: -> "
+          f"{e_ref:.6e}, relative change {ref_drift:.3e}; ratio "
+          f"{e1[2] / e_ref:.3f}, band {GALAXY_ENERGY_BAND}); frames "
+          f"1-{GALAXY_FRAMES} vs device='cpu' per "
+          f"particle: median {med:.2e} (limit {SIM_MEDIAN_REL:g}), share "
+          f"beyond {SIM_FAR_REL:g} {far:.2%} (limit {SIM_FAR_SHARE:.0%}), "
+          f"max abs {diff:.3e}", flush=True)
+    check(med <= SIM_MEDIAN_REL and far <= SIM_FAR_SHARE
+          and bool(np.isfinite(traj.positions.cpu().numpy()).all()),
+          "the galaxy run disagrees with the CPU run")
+    lo, hi = GALAXY_ENERGY_BAND
+    check(lo <= e1[2] / e_ref <= hi, "the galaxy run's energy after "
+          f"{GALAXY_STEPS} steps is not of the float64 oracle's order")
+
+    # run_parallel_simulations: one group of SURFACE_SIMS same-parameter
+    # configs (one ensemble through kernel 4) and one other config alone.
+    def configs(device):
+        dev_kw = {"device": device}
+        group = [{"init": {"n_particles": N, "box_size": 10.0, "seed": s,
+                           **dev_kw}, "run": {"n_steps": SURFACE_STEPS}}
+                 for s in range(42, 42 + SURFACE_SIMS)]
+        lone = {"init": {"n_particles": 150, "box_size": 10.0, "seed": 7,
+                         **dev_kw}, "run": {"n_steps": 20,
+                                            "save_interval": 4}}
+        return group[:4] + [lone] + group[4:]
+
+    _zero_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = run_parallel_simulations(configs(dev))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    launches = _add(launches, c)
+    check(c["pairwise_small"] == SURFACE_STEPS + 1
+          and c["pairwise_symmetric"] == 0,
+          f"run_parallel_simulations launched kernel 4 "
+          f"{c['pairwise_small']} times, expected {SURFACE_STEPS} + 1")
+    ref = run_parallel_simulations(configs("cpu"))
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(out, ref)):
+        check([s["step"] for s in g] == [s["step"] for s in w],
+              f"run_parallel_simulations config {i}: saved steps differ")
+        got = np.stack([s["positions"] for s in g[:6]])
+        want = np.stack([s["positions"] for s in w[:6]])
+        worst = max(worst, close_to(got, want, 1e-3)[0]
+                    / float(np.abs(want).max()))
+    print(f"  run_parallel_simulations: {SURFACE_SIMS} same-parameter "
+          f"configs at N={N} x {SURFACE_STEPS} steps as one ensemble + one "
+          f"config alone, in input order, {wall * 1e3:.1f} ms; "
+          f"pairwise_small {c['pairwise_small']} (expected "
+          f"{SURFACE_STEPS} + 1); frames 0-5 vs device='cpu' max abs "
+          f"difference / scale {worst:.3e} (tolerance 1e-3)", flush=True)
+    check(len(out) == SURFACE_SIMS + 1 and worst <= 1e-3,
+          "run_parallel_simulations disagrees with the CPU run")
+    return launches
+
+
+def phase_surrogate_large_n(dev):
+    """The GNN above N = 2,048: a short rollout at N=2,085 through ``fused``
+    and ``fused_full`` (the row-blocked k-NN, kernels 1 and 7) against
+    ``device="cpu"``, and one training step there (kernels 1 and 2)
+    against the plain versions on the card.  Returns its launches."""
+    import tempfile
+
+    import torch
+
+    from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
+    from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops import (fused_edge_layer,
+                                         fused_edge_layer_plain,
+                                         fused_full_layer,
+                                         fused_full_layer_plain,
+                                         knn_edge_index)
+    from nbody_gnn_hpc_torch.serve import build_service
+    from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
+
+    (pos,), (vel,), masses = eval_states(1, ODD_N)
+    want = build_service(MODEL, CONFIG, device="cpu").rollout(
+        pos, vel, masses, SURROGATE_STEPS)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(CONFIG) as f:
+            cfg = json.load(f)
+        cfg["model_config"]["edge_impl"] = "fused_full"
+        config_full = str(Path(tmp) / "config.json")
+        with open(config_full, "w") as f:
+            json.dump(cfg, f)
+        for label, config, counted in (("fused", CONFIG, "fused_edge_fwd"),
+                                       ("fused_full", config_full,
+                                        "fused_full_fwd")):
+            service = build_service(MODEL, config, device=dev)
+            _zero_counts()
+            got = service.rollout(pos, vel, masses, SURROGATE_STEPS)
+            c = _counts()
+            launches = _add(launches, c)
+            worst = []
+            for key in ("positions", "velocities"):
+                med, far, diff = particle_errors(got[key][1:], want[key][1:])
+                worst.append((key, med, far, diff))
+                check(np.array_equal(got[key][0], want[key][0])
+                      and med <= SIM_MEDIAN_REL and far <= SIM_FAR_SHARE,
+                      f"the {label} rollout at N={ODD_N} disagrees with the "
+                      f"CPU run ({key})")
+            print(f"  surrogate at N={ODD_N}, {SURROGATE_STEPS}-step rollout "
+                  f"through {label}: per particle vs device='cpu' "
+                  + "; ".join(f"{k} median {m:.2e}, beyond {SIM_FAR_REL:g} "
+                              f"{f:.2%}, max abs {d:.3e}"
+                              for k, m, f, d in worst)
+                  + f"; {counted} {c[counted]} (expected 6 x "
+                    f"{SURROGATE_STEPS})", flush=True)
+            check(c[counted] == 6 * SURROGATE_STEPS and
+                  c["fused_edge_bwd"] == 0,
+                  f"the {label} rollout's launch counts at N={ODD_N}")
+
+    # One training step at N=2,085, B=2: kernels against plain versions.
+    with open(CONFIG) as f:
+        model = model_from_config(json.load(f)["model_config"]).to(dev)
+    norm = load_into(model, load_checkpoint(MODEL))
+    (p2,), (v2,), _ = eval_states(1, ODD_N)
+    states = np.stack([np.concatenate([pos, vel], -1),
+                       np.concatenate([p2 + 0.01, v2], -1)]).astype(np.float32)
+    ei = knn_edge_index(torch.as_tensor(pos, device=dev), K)
+    m = torch.as_tensor(masses, device=dev)
+    step = make_train_step(model, make_optimizer(model, 5e-4, 1e-4), ei,
+                           norm["state_mean"], norm["state_std"],
+                           (m / m.mean())[:, None], noise_std=0.003, masses=m)
+    s = torch.as_tensor(states, device=dev)
+    t = s + 0.01
+
+    def grads(edge_stream, full_layer):
+        for layer in model.layers:
+            layer.edge_stream, layer.full_layer = edge_stream, full_layer
+        model.zero_grad(set_to_none=True)
+        loss, _ = step.compute_loss(s, t, torch.Generator(dev).manual_seed(5))
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in model.parameters()]
+
+    _zero_counts()
+    loss_k, g_k = grads(fused_edge_layer, fused_full_layer)
+    c = _counts()
+    launches = _add(launches, c)
+    loss_p, g_p = grads(fused_edge_layer_plain, fused_full_layer_plain)
+    rel = _rel_err(g_k, g_p)
+    print(f"  surrogate at N={ODD_N}: one training step (B=2, dropout + "
+          f"noise, the production checkpoint) through kernels 1 and 2 vs the "
+          f"plain versions: loss {loss_k:.7f} vs {loss_p:.7f}; gradients max "
+          f"error / scale {rel:.3e} (tolerance {MODEL_GRAD_RTOL:g}); "
+          f"fused_edge_fwd {c['fused_edge_fwd']}, fused_edge_bwd "
+          f"{c['fused_edge_bwd']} (expected 6 each)", flush=True)
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+          and rel <= MODEL_GRAD_RTOL, f"training at N={ODD_N}: kernel path "
+                                      f"disagrees with the plain versions")
+    check((c["fused_edge_fwd"], c["fused_edge_bwd"]) == (6, 6),
+          f"training step launch counts at N={ODD_N}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2709,6 +3421,22 @@ def main(argv=None) -> int:
           "store", flush=True)
     pipeline = phase_pipeline()
     mxu_by_path["pipeline"] = pipeline["pairwise_symmetric_mxu"]
+
+    # 12. Data parallel and the simulator surface (and the GNN above
+    # N = 2,048): each drive's counts zeroed just before and read after,
+    # the two spawned ranks' read in their processes.
+    print("[12] data parallel and the simulator surface", flush=True)
+    t12 = time.perf_counter()
+    parallel = phase_parallel(dev)
+    surface = phase_simulator_surface(dev)
+    surrogate = phase_surrogate_large_n(dev)
+    # Their drives zero every count (kernel 5's too): its count on each
+    # path is the sum of the drives' windows, as for the pipeline.
+    for name, launched in (("parallel", parallel),
+                           ("simulator_surface", surface),
+                           ("surrogate_large_n", surrogate)):
+        mxu_by_path[name] = launched.get("pairwise_symmetric_mxu", 0)
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -2764,6 +3492,9 @@ def main(argv=None) -> int:
                  "ceilings": ceilings.get(name, 0),
                  "finetune": finetune.get(name, 0),
                  "pipeline": pipeline.get(name, 0),
+                 "parallel": parallel.get(name, 0),
+                 "simulator_surface": surface.get(name, 0),
+                 "surrogate_large_n": surrogate.get(name, 0),
                  "oracle": oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
@@ -2794,6 +3525,13 @@ def main(argv=None) -> int:
     check(min(pipeline[k] for k in ("fused_edge_fwd", "fused_edge_bwd",
                                     "pairwise_small")) > 0,
           "the pipeline launched no kernel 1, 2 or 4")
+    check(min(parallel.get(k, 0) for k in (
+        "fused_edge_fwd", "fused_edge_bwd", "fused_full_fwd",
+        "pairwise_small")) > 0, "data parallel launched no kernel 1, 2, 4 "
+                                "or 7")
+    check(min(surface.get(k, 0) for k in ("pairwise_small",
+                                          "pairwise_symmetric")) > 0,
+          "the simulator surface launched no kernel 4 or 6")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

@@ -20,8 +20,9 @@ constexpr float kEps = 1e-6f;  // flax.linen.LayerNorm default
 struct Dropout {
   bool on;
   uint32_t key;
-  uint32_t thr;  // keep iff bits >= thr
-  float scale;   // 1 / (1 - p)
+  uint32_t thr;     // keep iff bits >= thr
+  float scale;      // 1 / (1 - p)
+  uint32_t graph0;  // index of the launch's graph 0 in the whole batch
 };
 
 // Philox4x32-10 (Salmon et al., SC'11): four 32-bit words per counter.
@@ -45,7 +46,11 @@ __device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
 }
 
 // Dropout factor of each of the lane's channels lane + 32*j of edge `eid` in
-// graph `b`: scale where kept, 0 where dropped, 1 without dropout.
+// the launch's graph `b`: scale where kept, 0 where dropped, 1 without
+// dropout. The counter takes the graph's index in the whole batch, b +
+// graph0, so a data-parallel rank that holds rows [graph0, graph0 + B) of a
+// batch draws the bits a single device draws for those rows (graph0 = 0
+// without sharding).
 template <int CPL>
 __device__ __forceinline__ void mask_factors(const Dropout& dr, uint32_t eid,
                                              uint32_t b, int lane,
@@ -55,7 +60,8 @@ __device__ __forceinline__ void mask_factors(const Dropout& dr, uint32_t eid,
   if (!dr.on) return;
 #pragma unroll
   for (int j0 = 0; j0 < CPL; j0 += 4) {
-    const uint4 r = philox(lane + 32 * (j0 / 4), eid, b, 0u, dr.key, 0u);
+    const uint4 r =
+        philox(lane + 32 * (j0 / 4), eid, b + dr.graph0, 0u, dr.key, 0u);
     const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {

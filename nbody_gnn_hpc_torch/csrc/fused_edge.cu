@@ -15,7 +15,9 @@
 // Dropout. The TPU kernel draws from the core PRNG, whose bits cannot be
 // reproduced; here every (graph b, original edge id e, channel c) draws one
 // 32-bit word of Philox4x32-10 keyed on the layer's seed, with counter
-// (group(c), e, b, 0) and word c/32 % 4, group(c) = c%32 + 32*(c/128). A lane
+// (group(c), e, graph0 + b, 0) and word c/32 % 4, group(c) = c%32 +
+// 32*(c/128); graph0 is the launch's first graph in the whole batch (a
+// data-parallel rank's first row, else 0). A lane
 // holding channels lane + 32*j gets four of its channels from one Philox call.
 // The channel is kept iff word >= round(p * 2^32). The backward draws the
 // forward's mask again (once, in its source pass), and the plain PyTorch
@@ -457,6 +459,7 @@ struct StreamArgs {
   const int* seed;      // (1,) or null: no dropout
   uint32_t thr;
   float scale;
+  uint32_t graph0;      // the batch index of graph 0 (Dropout::graph0)
   uint32_t* rec;        // (b, e, 4 + H/32) records of pass S for pass T
   float* d_ea;          // (b, e, d) or null
   float* part_par;      // (b * nblk, d + 2, H) partial parameter rows
@@ -478,7 +481,7 @@ struct PassBase {
   int lane;
   __device__ __forceinline__ PassBase(const StreamArgs& o)
       : dr{o.seed != nullptr, o.seed ? static_cast<uint32_t>(o.seed[0]) : 0u,
-           o.thr, o.scale},
+           o.thr, o.scale, o.graph0},
         b(blockIdx.y), lane(threadIdx.x & 31) {
     load_row<CPL>(o.gamma, lane, g);
     load_row<CPL>(o.beta, lane, bt);
@@ -807,7 +810,9 @@ bool bad_walk(int e, int chunk, int warps, long long stride) {
 // int32, the target-major CSR; sperm, sdst (b, e) int32, the source-major
 // CSR; offsets, soffsets (b, n + 1) int32; col, row (b, e) int64 with row
 // stride col_stride, row_stride, 0 where the graphs share their edges (the
-// target and source of each edge id); seed (1,) int32 or null (no dropout).
+// target and source of each edge id); seed (1,) int32 or null (no dropout);
+// graph0 the index of graph 0 in the whole batch, for the dropout counter (0
+// unless the batch is a data-parallel rank's rows of a larger one).
 // Both walks: chunk <= 128 CSR positions a block of `warps` warps; part (b,
 // blocks, 2, h) scratch with blocks = ceil(e / chunk), or 1 without edges;
 // arrivals (b * blocks,) int32, all zero, and zero again when the launch
@@ -820,7 +825,8 @@ extern "C" int nbody_fused_edge_fwd(
     const float* tp, const float* sp, const float* ea, const float* we,
     const float* gamma, const float* beta, const int* perm, const int* src,
     const int* offsets, const long long* col, long long col_stride,
-    const int* seed, unsigned int thr, float scale, float* out, float* part,
+    const int* seed, unsigned int thr, float scale, unsigned int graph0,
+    float* out, float* part,
     int* arrivals, int b, int n, int e, int d, int h, int chunk, int warps,
     void* stream) {
   if (bad_shape(b, n, e, d, h) || bad_walk(e, chunk, warps, col_stride)) {
@@ -831,7 +837,7 @@ extern "C" int nbody_fused_edge_fwd(
                arrivals, n, e, d, chunk, (chunk + warps - 1) / warps,
                walk_blocks(e, chunk)};
   const StreamArgs o{tp, sp, nullptr, gamma, beta, seed, thr, scale,
-                     nullptr, nullptr, nullptr};
+                     graph0, nullptr, nullptr, nullptr};
   const dim3 grid(w.nblk, b);
   const dim3 block(warps * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -847,7 +853,8 @@ extern "C" int nbody_fused_edge_bwd(
     const int* offsets, const long long* col, long long col_stride,
     const int* sperm, const int* sdst, const int* soffsets,
     const long long* row, long long row_stride, const float* gout,
-    const int* seed, unsigned int thr, float scale, float* d_tp, float* d_sp,
+    const int* seed, unsigned int thr, float scale, unsigned int graph0,
+    float* d_tp, float* d_sp,
     float* d_ea, float* part, int* arrivals, unsigned int* rec,
     float* part_par, float* d_params, int b, int n, int e, int d, int h,
     int chunk, int warps, void* stream) {
@@ -869,8 +876,8 @@ extern "C" int nbody_fused_edge_bwd(
                 arrivals, n, e, d, chunk, per_warp, nblk};
   const Walk wt{perm, src, offsets, col, col_stride, ea, we, d_tp, part,
                 arrivals, n, e, d, chunk, per_warp, nblk};
-  const StreamArgs o{tp, sp, gout, gamma, beta, seed, thr, scale, rec, d_ea,
-                     part_par};
+  const StreamArgs o{tp, sp, gout, gamma, beta, seed, thr, scale, graph0, rec,
+                     d_ea, part_par};
   const dim3 grid(nblk, b);
   const dim3 block(warps * 32);
   const int par_bytes = static_cast<int>(sizeof(float)) * warps * cols;

@@ -158,6 +158,7 @@ struct LayerArgs {
   const int* seed;         // (1,) or null (no edge dropout)
   uint32_t thr;
   float scale;
+  uint32_t graph0;         // batch index of graph 0 (Dropout::graph0)
   // scratch, each written in one phase and read in a later one (plain or
   // L2-only loads, never through the read-only cache)
   float* tp;               // (b, n, H)   P1 -> P2
@@ -511,7 +512,7 @@ fused_full_fwd_kernel(const LayerArgs p, const int phase) {
   if (all || phase == 2) {  // P2: the stream
     const Dropout dr{p.seed != nullptr,
                      p.seed ? static_cast<uint32_t>(p.seed[0]) : 0u, p.thr,
-                     p.scale};
+                     p.scale, p.graph0};
     using W = LaneWe<CPL>;
     float* part = ring;                 // (kWarps, H) shares
     float* s_wl = ring + kWarps * H;    // We^T per lane
@@ -679,8 +680,9 @@ bool aligned16(const void* ptr) {
 // tensors contiguous float32 (indices int32) on the current device; `w1` is
 // the whole (h, 2h) matrix. `h` and the five weight matrices must be 16-byte
 // aligned (they are read with 16-byte asynchronous copies). `node_mask` and
-// `seed` may be null. `tp`, `sp`, `agg` and `z1` are (b, n, h) scratch,
-// 16-byte aligned. With `cooperative` > 0 and a device that supports it
+// `seed` may be null; `graph0` is the batch index of graph 0 for the edge
+// dropout's counter (0 unless the batch is a data-parallel rank's rows).
+// `tp`, `sp`, `agg` and `z1` are (b, n, h) scratch, 16-byte aligned. With `cooperative` > 0 and a device that supports it
 // the layer is one cooperative launch, else six ordinary launches (one a
 // phase); `cooperative` = -k launches phase k alone (to time the phases:
 // the outputs are then incomplete). `*launches` receives how many. Launches on `stream` and returns
@@ -692,7 +694,8 @@ extern "C" int nbody_fused_full_fwd(
     const float* bout, const float* w1, const float* b1, const float* g1,
     const float* be1, const float* w2, const float* b2,
     const float* node_mask, const int* seed, unsigned int thr, float scale,
-    float* tp, float* sp, float* agg, float* z1, float* h_new, float* summed,
+    unsigned int graph0, float* tp, float* sp, float* agg, float* z1,
+    float* h_new, float* summed,
     int b, int n, int e, int d, int hdim, int ho, int cooperative,
     int* launches, void* stream) {
   *launches = 0;
@@ -708,8 +711,8 @@ extern "C" int nbody_fused_full_fwd(
   }
   const LayerArgs p{h, ea, perm, src, offsets, wt, bt, ws, we, ge, be, wout,
                     bout, w1, b1, g1, be1, w2, b2, node_mask, seed, thr,
-                    scale, tp, sp, agg, z1, h_new, summed, b, n, e, d, ho,
-                    1, {0, 0, 0, 0}};
+                    scale, graph0, tp, sp, agg, z1, h_new, summed, b, n, e,
+                    d, ho, 1, {0, 0, 0, 0}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (hdim / 32) {

@@ -28,10 +28,16 @@ then per layer the edge stream's int seed and the node MLP's mask (the same
 draws for either ``edge_impl``), then the decoder's mask.  Node-side
 dropout is Flax's (keep with probability 1-p, kept values divided by 1-p); the edge stream draws its own mask from
 its seed (Philox, :mod:`~nbody_gnn_hpc_torch.ops.fused_edge`).
+
+A data-parallel rank that holds rows [start, start + B) of a batch of
+``total`` graphs passes :class:`BatchRows` to :meth:`NBodyGNN.forward`: each
+node-side mask is then drawn at the whole batch's shape and this rank's
+rows kept, and the edge stream counts graphs from ``start``, so the rank
+draws for its rows exactly what one device draws for the whole batch.
 """
 
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,20 +55,43 @@ SEED_BOUND = 2_147_483_647  # edge-stream seeds lie in [0, 2^31 - 1)
 EDGE_IMPLS = ("fused", "fused_full")
 
 
+class BatchRows(NamedTuple):
+    """Rows [start, start + B) of a batch of ``total`` graphs: the share of
+    a data-parallel rank (:mod:`nbody_gnn_hpc_torch.parallel.train_dp`)."""
+
+    start: int
+    total: int
+
+
+def draw_rows(sampler: Callable, shape, generator: Optional[torch.Generator],
+              device, rows: Optional[BatchRows] = None) -> torch.Tensor:
+    """``sampler(shape)`` (``torch.rand`` or ``torch.randn``) from
+    ``generator``; with ``rows``, the draw is made at the whole batch's
+    shape and ``rows`` of it are kept, so the generator advances and the
+    values come out as they do for the whole batch."""
+    if rows is None:
+        return sampler(tuple(shape), generator=generator, device=device)
+    whole = sampler((rows.total,) + tuple(shape[1:]), generator=generator,
+                    device=device)
+    return whole[rows.start:rows.start + shape[0]]
+
+
 def _dropout_mask(x: torch.Tensor, p: float,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  generator: Optional[torch.Generator],
+                  rows: Optional[BatchRows] = None) -> torch.Tensor:
     """Pre-scaled mask shaped as ``x`` from the draw :func:`_dropout` makes:
     1/(1-p) with probability 1-p, else 0."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = draw_rows(torch.rand, x.shape, generator, x.device, rows) >= p
     return keep.to(x.dtype) / (1.0 - p)
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[torch.Generator],
+             rows: Optional[BatchRows] = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability 1-p, kept / (1-p)."""
     if not training or p <= 0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = draw_rows(torch.rand, x.shape, generator, x.device, rows) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -99,9 +128,9 @@ class _MLPBlock(nn.Module):
         self.Dense_1 = nn.Linear(hidden, out)
         self.dropout = dropout
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, rows=None):
         x = F.silu(self.LayerNorm_0(self.Dense_0(x)))
-        x = _dropout(x, self.dropout, self.training, generator)
+        x = _dropout(x, self.dropout, self.training, generator, rows)
         return self.Dense_1(x)
 
 
@@ -136,13 +165,14 @@ class ParticleInteractionLayer(nn.Module):
                                   node_features, dropout)
         self.dropout = dropout
 
-    def forward(self, h, edge_attr, edges, deg, generator=None):
+    def forward(self, h, edge_attr, edges, deg, generator=None, rows=None):
         seed = None
         if self.training and self.dropout > 0:
             seed = torch.randint(0, SEED_BOUND, (1,), generator=generator,
                                  device=h.device, dtype=torch.int32)
         if self.edge_impl == "fused_full":
-            return self._whole_layer(h, edge_attr, edges, seed, generator)
+            return self._whole_layer(h, edge_attr, edges, seed, generator,
+                                     rows)
         summed = self.edge_stream(
             self.edge_proj_target(h), self.edge_proj_source(h), edge_attr,
             self.edge_proj_attr.weight.t().contiguous(),
@@ -152,7 +182,7 @@ class ParticleInteractionLayer(nn.Module):
         # never exist, sum_e (z_e W + b) = (sum_e z_e) W + deg * b.
         agg = summed @ self.edge_out.weight.t() + deg.unsqueeze(-1) * \
             self.edge_out.bias
-        return self.node_mlp(torch.cat([h, agg], dim=-1), generator)
+        return self.node_mlp(torch.cat([h, agg], dim=-1), generator, rows)
 
     def full_layer_params(self) -> dict:
         """The layer's tensors under the names ``full_layer`` takes."""
@@ -166,11 +196,11 @@ class ParticleInteractionLayer(nn.Module):
             g1=mlp.LayerNorm_0.weight, be1=mlp.LayerNorm_0.bias,
             w2=mlp.Dense_1.weight, b2=mlp.Dense_1.bias)
 
-    def _whole_layer(self, h, edge_attr, edges, seed, generator):
+    def _whole_layer(self, h, edge_attr, edges, seed, generator, rows):
         """The layer through ``full_layer``: the node MLP's dropout mask is
         drawn here, after the edge seed, as ``node_mlp`` would draw it."""
-        node_mask = None if seed is None else _dropout_mask(h, self.dropout,
-                                                            generator)
+        node_mask = None if seed is None else _dropout_mask(
+            h, self.dropout, generator, rows)
         return self.full_layer(h, edge_attr, self.full_layer_params(), edges,
                                seed, node_mask, dropout_p=self.dropout,
                                deterministic=not self.training)
@@ -221,7 +251,8 @@ class NBodyGNN(nn.Module):
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
                 pos: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[BatchRows] = None) -> torch.Tensor:
         """Args:
             x: (N, node_input_dim) [norm_pos, norm_vel, norm_mass], or
                (B, N, node_input_dim) for a batch of graphs.
@@ -230,6 +261,9 @@ class NBodyGNN(nn.Module):
             pos: positions for the edge features; defaults to x[..., :3].
             generator: source of the dropout draws in training mode (on
                x's device); None draws from PyTorch's default generator.
+            rows: where the (B, N, ...) batch lies in a larger one (a
+               data-parallel rank's share); the draws are then the larger
+               batch's, for these rows.
 
         Returns: (..., N, output_dim) predicted next state.
         """
@@ -241,13 +275,14 @@ class NBodyGNN(nn.Module):
         edge_attr = edge_features(pos, edge_index)  # shared by the layers
         # Shared by the layers; the source-major order only when a
         # backward may need it.
-        edges = target_csr(edge_index, n, sources=torch.is_grad_enabled())
+        edges = target_csr(edge_index, n, sources=torch.is_grad_enabled(),
+                           graph0=0 if rows is None else rows.start)
         deg = edges.degree if x.dim() == 3 else edges.degree[0]
-        h = self.node_encoder(x, generator)
+        h = self.node_encoder(x, generator, rows)
         for layer, norm in zip(self.layers, self.norms):
-            h = norm(h + layer(h, edge_attr, edges, deg, generator))
+            h = norm(h + layer(h, edge_attr, edges, deg, generator, rows))
         d = F.silu(self.decoder_0(h))
-        d = _dropout(d, self.dropout, self.training, generator)
+        d = _dropout(d, self.dropout, self.training, generator, rows)
         d = F.silu(self.decoder_1(d))
         return x[..., :6] + self.decoder_out(d)
 

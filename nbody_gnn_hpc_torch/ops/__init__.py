@@ -4,7 +4,7 @@ direct-force kernels and the card's rate probes."""
 import json
 from typing import Dict
 
-from nbody_gnn_hpc_torch.ops.edges import edge_features
+from nbody_gnn_hpc_torch.ops.edges import aggregate_to_targets, edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import (
     SourceCSR, TargetCSR, dropout_keep, fused_edge_backward,
     fused_edge_backward_reference, fused_edge_layer, fused_edge_layer_plain,
@@ -51,7 +51,7 @@ def launch_line() -> str:
 
 __all__ = ["LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N",
            "SourceCSR",
-           "TargetCSR", "accelerations_small",
+           "TargetCSR", "accelerations_small", "aggregate_to_targets",
            "accelerations_small_reference", "accelerations_symmetric",
            "accelerations_symmetric_mxu",
            "accelerations_symmetric_mxu_reference",

@@ -1,4 +1,5 @@
-"""Physics-informed edge features (port of ``nbody_gnn_hpc_tpu/ops/edges.py``).
+"""Physics-informed edge features and the sum at targets (port of
+``nbody_gnn_hpc_tpu/ops/edges.py``).
 
 Numerics match the reference ``NBodyGNN.compute_edge_features``
 (``src/ai/model.py:124-132``): dist = |pos_col - pos_row| + 1e-8;
@@ -29,3 +30,12 @@ def edge_features(pos: torch.Tensor, edge_index: torch.Tensor) -> torch.Tensor:
     direction = diff / dist
     inv_dist_sq = 1.0 / (dist ** 2 + 1e-6)
     return torch.cat([dist, direction, inv_dist_sq], dim=-1)
+
+
+def aggregate_to_targets(messages: torch.Tensor, edge_index: torch.Tensor,
+                         n_nodes: int) -> torch.Tensor:
+    """Sum (E, F) edge messages into their targets ``edge_index[1]``:
+    (n_nodes, F), the JAX function's ``segment_sum`` as one ``index_add``
+    (plain PyTorch there and here: the JAX function is XLA, not a kernel)."""
+    out = messages.new_zeros((n_nodes,) + tuple(messages.shape[1:]))
+    return out.index_add_(0, edge_index[1].long(), messages)

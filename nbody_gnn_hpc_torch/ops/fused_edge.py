@@ -20,7 +20,9 @@ bit-identical; its source note states the design and the H100 bounds.
 Dropout bits come from Philox4x32-10 keyed on the layer's int seed, one
 32-bit word per (graph, original edge id, channel) (:func:`dropout_keep`);
 the kernels and the plain versions draw the same bits, and the backward
-regenerates the forward's mask from the seed.
+regenerates the forward's mask from the seed.  The graph is counted from
+``TargetCSR.graph0``: a data-parallel rank that holds rows [g0, g0 + B) of
+a batch passes g0 and draws the masks a single device draws for them.
 
 :func:`fused_edge_layer` is a ``torch.autograd.Function``: CUDA tensors go
 to the kernels (``fused_edge_layer.launches`` and
@@ -68,6 +70,9 @@ class TargetCSR(NamedTuple):
               offsets[t+1]].
     sources:  the source-major order the backward walks, or None (built
               on demand by the backward).
+    graph0:   index of graph 0 in the whole batch, where the edge dropout
+              counts graphs from: the first of a data-parallel rank's rows
+              (:mod:`nbody_gnn_hpc_torch.parallel.train_dp`), 0 otherwise.
     """
 
     row: torch.Tensor
@@ -76,6 +81,7 @@ class TargetCSR(NamedTuple):
     src: torch.Tensor
     offsets: torch.Tensor
     sources: Optional[SourceCSR] = None
+    graph0: int = 0
 
     @property
     def degree(self) -> torch.Tensor:
@@ -99,15 +105,18 @@ def source_csr(row: torch.Tensor, col: torch.Tensor,
 
 
 def target_csr(edge_index: torch.Tensor, n_nodes: int,
-               sources: bool = False) -> TargetCSR:
+               sources: bool = False, graph0: int = 0) -> TargetCSR:
     """Target-major CSR of ``edge_index`` (2, E) or (B, 2, E); with
-    ``sources`` also the source-major CSR the backward needs."""
+    ``sources`` also the source-major CSR the backward needs; ``graph0``
+    as :class:`TargetCSR` has it."""
+    if not 0 <= graph0 < 2 ** 31:
+        raise ValueError(f"graph0 must lie in [0, 2^31), got {graph0}")
     ei = edge_index if edge_index.dim() == 3 else edge_index.unsqueeze(0)
     row, col = ei[:, 0].long(), ei[:, 1].long()
     perm, src, offsets = _csr(col, row, n_nodes)
     return TargetCSR(row=row, col=col, perm=perm, src=src, offsets=offsets,
                      sources=source_csr(row, col, n_nodes) if sources
-                     else None)
+                     else None, graph0=int(graph0))
 
 
 def dropout_threshold(p: float) -> int:
@@ -140,16 +149,17 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def dropout_bits(seed: torch.Tensor, b: int, e: int, h: int) -> torch.Tensor:
+def dropout_bits(seed: torch.Tensor, b: int, e: int, h: int,
+                 graph0: int = 0) -> torch.Tensor:
     """(B, E, H) int64 uint32 words the kernels draw: for graph b, original
     edge id e and channel c, word (c/32) % 4 of Philox4x32-10 with counter
-    (c%32 + 32*(c/128), e, b, 0) and key (seed, 0)."""
+    (c%32 + 32*(c/128), e, graph0 + b, 0) and key (seed, 0)."""
     dev = seed.device
     c = torch.arange(h, device=dev)
     group = (c % 32 + 32 * (c // 128)).view(1, 1, h)
     word = ((c // 32) % 4).view(1, 1, h)
     eid = torch.arange(e, device=dev).view(1, e, 1)
-    bid = torch.arange(b, device=dev).view(b, 1, 1)
+    bid = (graph0 + torch.arange(b, device=dev)).view(b, 1, 1)
     key = seed.long().reshape(1, 1, 1)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     shape = (b, e, h)
@@ -161,9 +171,10 @@ def dropout_bits(seed: torch.Tensor, b: int, e: int, h: int) -> torch.Tensor:
 
 
 def dropout_keep(seed: torch.Tensor, p: float, b: int, e: int,
-                 h: int) -> torch.Tensor:
-    """(B, E, H) bool keep mask of the edge stream (the kernels' bits)."""
-    return dropout_bits(seed, b, e, h) >= dropout_threshold(p)
+                 h: int, graph0: int = 0) -> torch.Tensor:
+    """(B, E, H) bool keep mask of the edge stream (the kernels' bits) for
+    graphs graph0 .. graph0 + B - 1 of the batch."""
+    return dropout_bits(seed, b, e, h, graph0) >= dropout_threshold(p)
 
 
 def _lift(t: torch.Tensor, batched: bool) -> torch.Tensor:
@@ -181,11 +192,11 @@ def _stream(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR):
     return xhat, y, torch.sigmoid(y), rstd
 
 
-def _drop_factor(seed, p, shape):
+def _drop_factor(seed, p, shape, graph0):
     """Dropout factor (1/(1-p) or 0) over the (B, E, H) stream, or None."""
     if seed is None or p <= 0:
         return None
-    keep = dropout_keep(seed, p, *shape)
+    keep = dropout_keep(seed, p, *shape, graph0)
     return torch.where(keep, 1.0 / (1.0 - p), 0.0).float()
 
 
@@ -202,7 +213,7 @@ def fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e, gamma, beta,
     tp, sp, ea = (_lift(t, batched) for t in (t_proj, s_proj, edge_attr))
     _, y, sig, _ = _stream(tp, sp, ea, w_e, gamma, beta, edges)
     a = y * sig
-    factor = _drop_factor(seed, dropout_p, a.shape)
+    factor = _drop_factor(seed, dropout_p, a.shape, edges.graph0)
     if factor is not None:
         a = a * factor
     out = torch.zeros_like(tp).scatter_add_(
@@ -227,7 +238,7 @@ def fused_edge_backward_reference(t_proj, s_proj, edge_attr, w_e, gamma,
     h = tp.shape[-1]
     xhat, y, sig, rstd = _stream(tp, sp, ea, w_e, gamma, beta, edges)
     d_act = gather_nodes(go, edges.col)                        # (B, E, H)
-    factor = _drop_factor(seed, dropout_p, d_act.shape)
+    factor = _drop_factor(seed, dropout_p, d_act.shape, edges.graph0)
     if factor is not None:
         d_act = d_act * factor
     d_y = d_act * (sig * (1.0 + y * (1.0 - sig)))
@@ -341,7 +352,10 @@ def bwd_schedule(b: int, e: int, sm_count: int) -> tuple:
     return _walk_schedule(b, e, sm_count, BWD_WARPS_PER_SM, BWD_MIN_RUN)
 
 
-_ARRIVALS = {}  # (device index, stream) -> int32 counters, zero between launches
+# (device index, stream) -> int32 counters, zero between launches.  They
+# belong to this process: data-parallel ranks that share one card are
+# processes, each with counters of its own.
+_ARRIVALS = {}
 
 
 def _arrivals(device: torch.device, stream: int, size: int) -> torch.Tensor:
@@ -377,7 +391,7 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
     fn = load_library("fused_edge").nbody_fused_edge_fwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong,
                                              ctypes.c_void_p, ctypes.c_uint,
-                                             ctypes.c_float]
+                                             ctypes.c_float, ctypes.c_uint]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -394,7 +408,7 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
                 gamma.data_ptr(), beta.data_ptr(), edges.perm.data_ptr(),
                 edges.src.data_ptr(), edges.offsets.data_ptr(),
                 col.data_ptr(), col.stride(0) if b else e, seed_ptr, thr,
-                scale, out.data_ptr(), part.data_ptr(), arrivals.data_ptr(),
+                scale, edges.graph0, out.data_ptr(), part.data_ptr(), arrivals.data_ptr(),
                 b, n, e, d, h, chunk, warps, stream)
     if rc != 0:
         raise RuntimeError(f"fused edge forward kernel launch failed: CUDA "
@@ -426,7 +440,8 @@ def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
     fn = load_library("fused_edge").nbody_fused_edge_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_void_p] * 2
+                   + [ctypes.c_uint, ctypes.c_float, ctypes.c_uint]
                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -454,7 +469,7 @@ def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
                 col.data_ptr(), stride(col), sources.perm.data_ptr(),
                 sources.dst.data_ptr(), sources.offsets.data_ptr(),
                 row.data_ptr(), stride(row), g_out.data_ptr(), seed_ptr, thr,
-                scale, d_tp.data_ptr(), d_sp.data_ptr(),
+                scale, edges.graph0, d_tp.data_ptr(), d_sp.data_ptr(),
                 None if d_ea is None else d_ea.data_ptr(), part.data_ptr(),
                 arrivals.data_ptr(), rec.data_ptr(), part_par.data_ptr(),
                 d_params.data_ptr(), b, n, e, d, h, chunk, warps, stream)

@@ -150,7 +150,8 @@ def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
     for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
     fn = load_library("fused_edge_full").nbody_fused_full_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_uint, ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 21
+                   + [ctypes.c_uint, ctypes.c_float, ctypes.c_uint]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -167,8 +168,8 @@ def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
                 edges.src.data_ptr(), edges.offsets.data_ptr(),
                 *(p[k].data_ptr() for k in PARAM_KEYS),
                 None if node_mask is None else node_mask.data_ptr(),
-                seed_ptr, thr, scale, tp.data_ptr(), sp.data_ptr(),
-                agg.data_ptr(), z1.data_ptr(), h_new.data_ptr(),
+                seed_ptr, thr, scale, edges.graph0, tp.data_ptr(),
+                sp.data_ptr(), agg.data_ptr(), z1.data_ptr(), h_new.data_ptr(),
                 summed.data_ptr(), b, n, e, d, hdim, ho,
                 -PHASE_ALONE if PHASE_ALONE else int(COOPERATIVE),
                 ctypes.byref(launched), stream)

@@ -1,11 +1,14 @@
-"""Ensemble simulation on one device (the datagen hot path; port of
-``nbody_gnn_hpc_tpu/parallel/datagen.py``).
+"""Ensemble simulation on one device or split over a mesh (the datagen hot
+path; port of ``nbody_gnn_hpc_tpu/parallel/datagen.py``).
 
 Initial conditions are built on the host with the reference's exact RNG
 streams, stacked into a (B, N, ...) batch, and the whole ensemble is
 integrated on the device by :func:`run_trajectory_batch`: every step is one
 force evaluation of all B systems, the saved stacks stay on the device, and
-:func:`fetch_host_trajectory` reads them back once.
+:func:`fetch_host_trajectory` reads them back once.  With a mesh, each
+rank simulates its share of the seeds and the shares are gathered, in seed
+order, on every rank: the systems are independent, so nothing else crosses
+between ranks.
 
 The JAX package's sims-in-lanes layout (``sim/lanes.py``) is a TPU layout
 and is not carried over; its contract (arrays lead with the sim axis,
@@ -17,9 +20,12 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nbody_gnn_hpc_torch.device import SOFTENING, resolve_device
 from nbody_gnn_hpc_torch.ops.pairwise import SMALL_MAX_N, accelerations_small
+from nbody_gnn_hpc_torch.parallel.mesh import (batch_sharding, mesh_groups,
+                                               pad_to_multiple)
 from nbody_gnn_hpc_torch.sim.forces import accelerations
 from nbody_gnn_hpc_torch.sim.initial_conditions import \
     random_initial_conditions
@@ -78,21 +84,54 @@ def simulate_ensemble(seeds: Sequence[int],
 
     ``device``: cuda unless the CPU is asked for.  ``accel_fn``: the force
     of the whole batch, ``f(positions (B, N, 3), masses (B, N), softening)``;
-    by default :func:`ensemble_force`'s choice.  ``mesh`` (several devices)
-    is not ported yet and raises.  The JAX function's ``layout`` argument
-    chooses between TPU layouts and has no counterpart here.
+    by default :func:`ensemble_force`'s choice.  The JAX function's
+    ``layout`` argument chooses between TPU layouts and has no counterpart
+    here.
+
+    ``mesh``: a :mod:`~nbody_gnn_hpc_torch.parallel.mesh` mesh that every
+    rank calls this with (``device`` is then the rank's).  The seeds are
+    padded to a multiple of the mesh size by repeating the last one
+    (:func:`pad_to_multiple`), each rank simulates its block of them, and
+    the blocks are all-gathered: every rank returns the whole ensemble.
+    Kernel 4 schedules its sums by the batch it is given, so a rank's
+    systems agree with the unsplit run to float32 rounding, not bit for
+    bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "simulate_ensemble over a device mesh is not ported yet; it "
-            "runs on one device")
     dev = resolve_device(device)
+    if mesh is not None:
+        return _simulate_sharded(
+            seeds, mesh, n_particles=n_particles, n_steps=n_steps,
+            box_size=box_size, dt=dt, save_interval=save_interval,
+            shared_masses=shared_masses, softening=softening, device=dev,
+            accel_fn=accel_fn)
     if accel_fn is None:
         accel_fn = ensemble_force(dev, n_particles)
     state = build_ensemble_state(seeds, n_particles, box_size, shared_masses,
                                  device=dev, accel_fn=accel_fn)
     return run_trajectory_batch(state, dt, n_steps, save_interval, softening,
                                 accel_fn=accel_fn)
+
+
+def _simulate_sharded(seeds: Sequence[int], mesh, **kwargs) -> Trajectory:
+    """:func:`simulate_ensemble` of this rank's block of the padded seeds,
+    then every field all-gathered over the mesh (inner axis first, so the
+    blocks land in rank order) and the padding cut off."""
+    shard = batch_sharding(mesh)
+    seeds = list(seeds)
+    padded = seeds + seeds[-1:] * (pad_to_multiple(len(seeds), shard.count)
+                                   - len(seeds))
+    lo, hi = shard.bounds(len(padded))
+    traj = simulate_ensemble(padded[lo:hi], **kwargs)
+
+    def gather(t):
+        for group in mesh_groups(mesh):
+            parts = [torch.empty_like(t)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            t = torch.cat(parts)
+        return t[:len(seeds)]
+
+    return _map_tensors(gather, traj)
 
 
 def _map_tensors(fn: Callable, traj: Trajectory) -> Trajectory:

@@ -22,6 +22,7 @@ Vectorised NumPy on the host CPU: the validation oracle, not a production
 path.
 """
 
+import time
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -143,3 +144,21 @@ def protocol_ground_truth(n_test_sims: int = 10, n_particles: int = 200,
         if progress_cb is not None:
             progress_cb()
     return np.stack(all_pos), np.stack(all_vel), masses
+
+
+def measure_numpy_baseline(n_particles: int = 200, n_steps: int = 50,
+                           dt: float = 0.001, seed: int = 42,
+                           repeats: int = 3) -> float:
+    """Single-core vectorised-NumPy float64 simulation rate of this host, in
+    sim-steps per second (best of ``repeats`` runs of ``n_steps``): the
+    host-side yardstick beside the reference's Numba baseline estimate
+    (BASELINE.md).  Host only; no device is touched."""
+    pos0, vel0, masses = random_initial_conditions(n_particles, 10.0,
+                                                   seed=seed)
+    simulate_f64(pos0, vel0, masses, dt, 5)  # warm caches
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        simulate_f64(pos0, vel0, masses, dt, n_steps)
+        best = min(best, time.perf_counter() - t0)
+    return n_steps / best

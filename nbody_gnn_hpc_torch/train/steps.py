@@ -14,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
+from nbody_gnn_hpc_torch.models.gnn import draw_rows
 from nbody_gnn_hpc_torch.ops.knn import is_row_regular
 from nbody_gnn_hpc_torch.train.loss import PhysicsInformedLoss, mse_loss
 
@@ -53,8 +54,13 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
     batch loss as a device tensor.  ``step.count`` is the number of updates
     so far; the LR of update ``count`` is ``schedule(count)`` (the base LR
     first, as optax counts).  ``step.compute_loss(states, targets,
-    generator=None, deterministic=False)`` gives (total, details) for one
-    batch, for training and validation alike.
+    generator=None, deterministic=False, rows=None)`` gives (total, details)
+    for one batch, for training and validation alike; ``rows``
+    (:class:`~nbody_gnn_hpc_torch.models.gnn.BatchRows`) says that the batch
+    is a data-parallel rank's rows of a larger one, whose draws it then
+    makes.  ``step.update()`` applies the gradients held in the parameters'
+    ``.grad``: clip, the LR of this update, AdamW, ``count + 1``;
+    ``step.params`` lists those parameters in the optimizer's order.
     """
     if criterion is None and use_physics_loss:
         criterion = PhysicsInformedLoss()
@@ -72,18 +78,19 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         masses = as_dev(masses).float()
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def compute_loss(states, targets, generator=None, deterministic=False):
+    def compute_loss(states, targets, generator=None, deterministic=False,
+                     rows=None):
         model.train(not deterministic)
         s_norm = (states - mean) / std
         t_norm = (targets - mean) / std
         # Input-noise injection on the 6 state features, pos resynced to the
         # noised positions (train.py:409-415).
         if noise_std > 0 and not deterministic:
-            s_norm = s_norm + noise_std * torch.randn(
-                s_norm.shape, generator=generator, device=dev)
+            s_norm = s_norm + noise_std * draw_rows(
+                torch.randn, s_norm.shape, generator, dev, rows)
         pos = s_norm[..., :3]
         x = torch.cat([s_norm, mass_feat.expand(*s_norm.shape[:2], 1)], -1)
-        pred = model(x, edge_index, pos, generator=generator)
+        pred = model(x, edge_index, pos, generator=generator, rows=rows)
         if criterion is not None:
             return criterion(pred, t_norm, masses)
         total = mse_loss(pred, t_norm)
@@ -91,18 +98,23 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         return total, {"total": total, "position": zero, "velocity": zero,
                        "energy": zero, "momentum": zero}
 
-    def step(states, targets, generator=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = compute_loss(states, targets, generator)
-        loss.backward()
+    def update():
         clip_by_global_norm_([p.grad for p in params], GRAD_CLIP_NORM)
         if schedule is not None:
             for group in optimizer.param_groups:
                 group["lr"] = schedule(step.count)
         optimizer.step()
         step.count += 1
+
+    def step(states, targets, generator=None):
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = compute_loss(states, targets, generator)
+        loss.backward()
+        update()
         return loss.detach()
 
     step.count = 0
     step.compute_loss = compute_loss
+    step.update = update
+    step.params = params
     return step

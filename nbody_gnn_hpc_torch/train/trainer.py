@@ -12,6 +12,13 @@ of steps over a permutation drawn from the trainer's ``torch.Generator``
 once per epoch (``step_losses``).  Every random draw (permutation, noise,
 dropout) comes from that one generator, seeded by ``seed``, so a run is
 reproducible.
+
+With a ``mesh`` (:mod:`nbody_gnn_hpc_torch.parallel`) every rank holds the
+data and the model, walks the same permutation and takes its rows of each
+batch through the data-parallel step in ``gspmd`` numerics, so the run
+equals the single-device run to float32 rounding; the validation sums are
+reduced over the mesh, and only the mesh's first rank prints and writes
+files.
 """
 
 import json
@@ -32,6 +39,9 @@ from nbody_gnn_hpc_torch.train.schedule import (cosine_warm_restarts,
                                                 make_step_schedule)
 from nbody_gnn_hpc_torch.train.steps import make_optimizer, make_train_step
 from nbody_gnn_hpc_torch.utils.watchdog import maybe_watchdog
+
+# The loss details every step reports, in the order validation sums them.
+LOSS_KEYS = ("total", "position", "velocity", "energy", "momentum")
 
 
 def _to_torch(tree):
@@ -63,7 +73,12 @@ class Trainer:
                  weight_decay: float = 1e-4,
                  noise_std: float = 0.003,
                  n_epochs: int = 200,
-                 seed: int = 0):
+                 seed: int = 0,
+                 mesh=None):
+        """``mesh``: a data-parallel mesh (``parallel.make_mesh`` or
+        ``make_hybrid_mesh``) that every rank builds its Trainer with, the
+        batch size a multiple of its size; None trains on ``device``
+        alone."""
         del num_workers
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -106,12 +121,28 @@ class Trainer:
         self.steps_per_epoch = max(1, self.n_train // self._batch)
         self.optimizer = make_optimizer(self.model, learning_rate,
                                         weight_decay)
-        self._step = make_train_step(
-            self.model, self.optimizer, self.edge_index,
-            self.norm_stats["state_mean"], self.norm_stats["state_std"],
-            mass_feat, noise_std=noise_std, masses=self.masses,
+        step_args = (self.model, self.optimizer, self.edge_index,
+                     self.norm_stats["state_mean"],
+                     self.norm_stats["state_std"], mass_feat)
+        step_kwargs = dict(
+            noise_std=noise_std, masses=self.masses,
             criterion=self.criterion, use_physics_loss=use_physics_loss,
             schedule=make_step_schedule(learning_rate, self.steps_per_epoch))
+        self.mesh = mesh
+        if mesh is None:
+            self._step = make_train_step(*step_args, **step_kwargs)
+            self._lead = True
+        else:
+            from nbody_gnn_hpc_torch.parallel.train_dp import \
+                make_dp_train_step
+
+            self._step = make_dp_train_step(*step_args, mesh=mesh,
+                                            **step_kwargs)
+            ranks = self._step.shard.count
+            if self._batch % ranks:
+                raise ValueError(f"batch size {self._batch} does not split "
+                                 f"over the mesh's {ranks} ranks")
+            self._lead = self._step.shard.index == 0
 
         # epoch_time_s is additive to the reference's history keys.
         self.history = {"train_loss": [], "val_loss": [], "learning_rate": [],
@@ -150,15 +181,21 @@ class Trainer:
         bounds = [(i * batch, (i + 1) * batch) for i in range(n_batches)]
         if self.n_val > n_batches * batch:
             bounds.append((n_batches * batch, self.n_val))
-        sums = None
-        for lo, hi in bounds:
+        mine = bounds
+        if self.mesh is not None:  # whole batches dealt round the ranks
+            shard = self._step.shard
+            mine = bounds[shard.index::shard.count]
+        sums = torch.zeros(len(LOSS_KEYS), device=self.device)
+        for lo, hi in mine:
             _, details = self._step.compute_loss(
                 self.val_states[lo:hi], self.val_targets[lo:hi],
                 deterministic=True)
-            sums = details if sums is None else {
-                k: sums[k] + v for k, v in details.items()}
-        details = {k: float(v) / len(bounds) for k, v in sums.items()}
-        return details.get("total", float("nan")), details
+            sums = sums + torch.stack([details[k] for k in LOSS_KEYS])
+        if self.mesh is not None:
+            sums = self._step.reduce_sum(sums)
+        details = {k: v / len(bounds) for k, v in zip(LOSS_KEYS,
+                                                      sums.tolist())}
+        return details["total"], details
 
     def current_lr(self) -> float:
         return cosine_warm_restarts(max(self.current_epoch - 1, 0),
@@ -177,16 +214,19 @@ class Trainer:
         the slowest epoch and the first one's kernel builds; ``None`` or 0
         disables it.
         """
-        print(f"Training on {self.device}")
-        print(f"Model parameters: {count_parameters(self.model):,}")
+        say = print if self._lead else (lambda *a, **k: None)
+        say(f"Training on {self.device}")
+        say(f"Model parameters: {count_parameters(self.model):,}")
         if self.use_physics_loss:
-            print(f"Physics loss: ENABLED (masses loaded for "
-                  f"{self.masses.shape[0]} particles)")
+            say(f"Physics loss: ENABLED (masses loaded for "
+                f"{self.masses.shape[0]} particles)")
         else:
-            print("Physics loss: DISABLED (no masses)")
-        print(f"Input noise std: {self.noise_std}")
+            say("Physics loss: DISABLED (no masses)")
+        say(f"Input noise std: {self.noise_std}")
 
         # None/0 -> disabled; negative -> ValueError (as every command).
+        # Every rank arms its own: a rank that stalls holds the others in
+        # their next collective, so their watchdogs end them too.
         self._watchdog = maybe_watchdog(watchdog_s,
                                         what="training-epoch progress")
         patience_counter = 0
@@ -217,7 +257,7 @@ class Trainer:
                 self.history["epoch_time_s"].append(
                     round(time.time() - epoch_t0, 3))
 
-                if verbose:
+                if verbose and self._lead:
                     best_marker = (" ★ BEST" if val_loss < self.best_val_loss
                                    else "")
                     print(f"  Epoch {self.current_epoch:3d} | "
@@ -233,8 +273,10 @@ class Trainer:
                 else:
                     patience_counter += 1
 
+                # Every rank holds the same reduced losses, so every rank
+                # stops at the same epoch.
                 if patience_counter >= early_stopping_patience:
-                    print(f"\nEarly stopping at epoch {self.current_epoch}")
+                    say(f"\nEarly stopping at epoch {self.current_epoch}")
                     stopped_early = True
                     break
 
@@ -271,7 +313,10 @@ class Trainer:
         }
 
     def save_model(self, filename: str) -> str:
-        """A checkpoint in the JAX package's format (it loads there too)."""
+        """A checkpoint in the JAX package's format (it loads there too);
+        with a mesh only its first rank writes it."""
+        if not self._lead:
+            return str(self.model_dir / filename)
         return save_checkpoint(
             self.model_dir / filename,
             params=params_to_jax(self.model.state_dict()),
@@ -313,6 +358,8 @@ class Trainer:
         """Write training_history.json; ``completed`` adds the markers that
         ``train_model --resume auto`` reads (only in the file, never in
         ``self.history``, so no mid-run checkpoint carries a stale one)."""
+        if not self._lead:
+            return
         payload = dict(self.history)
         if completed:
             payload["completed"] = True

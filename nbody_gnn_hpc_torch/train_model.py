@@ -2,6 +2,8 @@
 
     python -m nbody_gnn_hpc_torch.train_model --data-dir data --epochs 200
     python -m nbody_gnn_hpc_torch.train_model --device cpu ...   # CPU, asked
+    torchrun --nproc-per-node 4 -m nbody_gnn_hpc_torch.train_model \
+        --data-parallel ...                        # one rank a GPU
 
 The same flags as the JAX CLI (minus its TPU-only ones), the same config
 override pattern, ``config.json`` written to the model directory for
@@ -9,6 +11,12 @@ evaluation and serving, and the val set normalised with the train set's
 statistics (reference ``train_model.py:94-100``).  Reads the windowed
 ``train_dataset.h5`` / ``val_dataset.h5`` or, where a ``--no-windows``
 datagen left only ``dataset_manifest.json``, the trajectory files it names.
+
+``--data-parallel`` joins the process group that torchrun describes (one
+rank a GPU, NCCL; gloo with ``--device cpu``), or forms a world of one on
+the chosen device without torchrun, and trains with each batch split over
+the ranks (``Trainer(mesh=)``); only rank 0 writes files and the run's log.
+Every rank prints its own kernel launches last.
 """
 
 import argparse
@@ -63,6 +71,10 @@ def build_parser():
     parser.add_argument("--physics-loss", action="store_true", default=True)
     parser.add_argument("--max-samples", type=int, default=None,
                         help="Limit training samples (default: use all)")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="Split each batch over the ranks of the "
+                             "process group torchrun describes (a world of "
+                             "one without torchrun); parameters replicated")
     parser.add_argument("--resume", type=str, default=None, metavar="CKPT",
                         help="Resume from a checkpoint file in --model-dir, "
                              "training --epochs MORE epochs; 'auto' picks "
@@ -91,7 +103,22 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if not args.data_parallel:
+        return _train(args)
+    import torch.distributed as dist
 
+    from nbody_gnn_hpc_torch.parallel.mesh import init_data_parallel
+
+    created = not dist.is_initialized()
+    device = init_data_parallel(args.device)  # raises without a card unasked
+    try:
+        return _train(args, device)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _train(args, device=None) -> int:
     from nbody_gnn_hpc_torch.config import TrainingConfig
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.io.model_io import latest_checkpoint
@@ -107,7 +134,19 @@ def main(argv=None) -> int:
         if override is not None:
             setattr(config, field, override)
 
-    device = resolve_device(args.device)  # raises without a card unasked
+    mesh = None
+    say = print
+    if device is None:
+        device = resolve_device(args.device)  # raises without a card unasked
+    else:
+        import torch.distributed as dist
+
+        from nbody_gnn_hpc_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh()
+        if dist.get_rank() != 0:  # the log is rank 0's
+            def say(*_, **__):
+                return None
     data_dir = Path(args.data_dir)
     model_dir = Path(args.model_dir)
     train_path = data_dir / "train_dataset.h5"
@@ -121,9 +160,9 @@ def main(argv=None) -> int:
         return 1
     model_dir.mkdir(parents=True, exist_ok=True)
 
-    print("=" * 60)
-    print("N-BODY GNN TRAINING (PyTorch)")
-    print("=" * 60)
+    say("=" * 60)
+    say("N-BODY GNN TRAINING (PyTorch)")
+    say("=" * 60)
     for label, v in (("Device", device), ("Epochs", config.epochs),
                      ("Batch Size", config.batch_size),
                      ("Learning Rate", config.learning_rate),
@@ -134,14 +173,14 @@ def main(argv=None) -> int:
                      ("Weight Decay", config.weight_decay),
                      ("Noise Std", config.noise_std),
                      ("Physics Loss", args.physics_loss)):
-        print(f"  {label + ':':<16} {v}")
-    print("=" * 60)
+        say(f"  {label + ':':<16} {v}")
+    say("=" * 60)
 
-    print("\nLoading datasets...")
+    say("\nLoading datasets...")
     if use_manifest:
         # --no-windows datagen: the (state, target) pairs straight from the
         # trajectory files, by the window protocol the manifest records.
-        print(f"  (trajectory-direct path via {manifest_path.name})")
+        say(f"  (trajectory-direct path via {manifest_path.name})")
         train_dataset, val_dataset = datasets_from_manifest(
             manifest_path, k_neighbors=config.k_neighbors)
     else:
@@ -155,7 +194,7 @@ def main(argv=None) -> int:
         ) if val_path.exists() else None
 
     if args.max_samples and len(train_dataset) > args.max_samples:
-        print(f"Subsampling: {len(train_dataset)} -> {args.max_samples}")
+        say(f"Subsampling: {len(train_dataset)} -> {args.max_samples}")
         train_dataset.last_states = train_dataset.last_states[:args.max_samples]
         train_dataset.targets = train_dataset.targets[:args.max_samples]
         train_dataset.n_samples = args.max_samples
@@ -170,14 +209,18 @@ def main(argv=None) -> int:
         "dtype": "float32",
         "edge_impl": args.edge_impl,
     }
-    print(f"\n  Train samples: {len(train_dataset)}")
+    say(f"\n  Train samples: {len(train_dataset)}")
     if val_dataset:
-        print(f"  Val samples:   {len(val_dataset)}")
+        say(f"  Val samples:   {len(val_dataset)}")
     model = model_from_config(model_config)
-    with open(model_dir / "config.json", "w") as f:
-        json.dump({"model_type": "gnn", "model_config": model_config,
-                   "training_config": config.to_dict()}, f, indent=2,
-                  default=str)
+    if say is print:
+        with open(model_dir / "config.json", "w") as f:
+            json.dump({"model_type": "gnn", "model_config": model_config,
+                       "training_config": config.to_dict()}, f, indent=2,
+                      default=str)
+    if mesh is not None:
+        say(f"  Data parallel:  {dist.get_world_size()} ranks "
+            f"({dist.get_backend()})")
 
     trainer = Trainer(
         model=model,
@@ -192,18 +235,19 @@ def main(argv=None) -> int:
         weight_decay=config.weight_decay,
         noise_std=config.noise_std,
         n_epochs=config.epochs,
+        mesh=mesh,
     )
-    print(f"  Parameters:    {count_parameters(trainer.model):,}")
+    say(f"  Parameters:    {count_parameters(trainer.model):,}")
 
     n_epochs = config.epochs
     resume_name = args.resume
     if resume_name == "auto":
         resume_name = latest_checkpoint(model_dir)
         if resume_name is None:
-            print("  --resume auto: no checkpoint found; starting fresh")
+            say("  --resume auto: no checkpoint found; starting fresh")
     if resume_name:
         trainer.load_model(resume_name)
-        print(f"  Resumed from:  {model_dir / resume_name} "
+        say(f"  Resumed from:  {model_dir / resume_name} "
               f"(epoch {trainer.current_epoch}, "
               f"best val {trainer.best_val_loss:.6f})")
         if args.resume == "auto":
@@ -211,21 +255,21 @@ def main(argv=None) -> int:
             # --resume CKPT trains --epochs more.
             n_epochs = remaining_epochs_auto(config.epochs,
                                              trainer.current_epoch, model_dir)
-            print(f"  Remaining:     {n_epochs} of {config.epochs} epochs")
+            say(f"  Remaining:     {n_epochs} of {config.epochs} epochs")
 
-    print("\nStarting training...")
+    say("\nStarting training...")
     history = trainer.train(n_epochs=n_epochs,
                             early_stopping_patience=config.early_stopping,
                             save_every=10, watchdog_s=args.watchdog)
 
-    print("\n" + "=" * 60)
-    print("TRAINING COMPLETE")
-    print("=" * 60)
-    print(f"  Best Val Loss:    {trainer.best_val_loss:.6f}")
+    say("\n" + "=" * 60)
+    say("TRAINING COMPLETE")
+    say("=" * 60)
+    say(f"  Best Val Loss:    {trainer.best_val_loss:.6f}")
     if history["train_loss"]:
-        print(f"  Final Train Loss: {history['train_loss'][-1]:.6f}")
-    print(f"  Model saved to:   {model_dir}")
-    print("=" * 60)
+        say(f"  Final Train Loss: {history['train_loss'][-1]:.6f}")
+    say(f"  Model saved to:   {model_dir}")
+    say("=" * 60)
     print(launch_line())
     return 0
 

@@ -842,3 +842,105 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             probe(x.to("meta"), 4)
         with pytest.raises(ValueError, match="accumulators"):
             probe(x, 4, start=(0.0, 1.0))
+
+
+# -- data parallel: the graph offset of the edge dropout, and world one ------
+
+DROPOUT_P = 0.1
+
+@pytest.mark.parametrize("split", [1, 5])
+def test_graph_offset_on_the_card(cuda, split):
+    """Kernels 1, 2 and 7 on the rows [split, 6) of a batch, counted from
+    ``split``, give the plain versions' results for those rows of the whole
+    batch: the same dropout masks (any other mask would move every output
+    far past the tolerance)."""
+    from nbody_gnn_hpc_torch.ops import (fused_full_layer,
+                                         fused_full_layer_reference)
+
+    b, n, k, h = 6, 200, 40, 256
+    tp, sp, ea, we, gamma, beta, edges = _inputs(b, n, k, h, cuda, seed=21)
+    seed = _seed(cuda)
+    ei = torch.stack([edges.row, edges.col], 1)
+    part = target_csr(ei[split:], n, sources=True, graph0=split)
+    args = (tp, sp, ea, we, gamma, beta)
+    with torch.inference_mode():
+        want = fused_edge_layer_reference(*args, edges, seed, DROPOUT_P)
+        got = fused_edge_layer(*(a[split:] if a.dim() == 3 else a
+                                 for a in args), part, seed,
+                               dropout_p=DROPOUT_P, deterministic=False)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want[split:], **TOL)
+        g_out = torch.randn(b, n, h, device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(2))
+        want_g = fused_edge_backward_reference(*args, edges, g_out, seed,
+                                               DROPOUT_P)
+        got_g = fused_edge_backward(*(a[split:] if a.dim() == 3 else a
+                                      for a in args), part, g_out[split:],
+                                    seed, DROPOUT_P)
+        torch.cuda.synchronize()
+        _assert_grads_close(got_g[:3], [w[split:] for w in want_g[:3]])
+
+        hh, ea7, p, edges7, mask = _full_inputs(b, n, k, h, cuda, seed=22)
+        ei7 = torch.stack([edges7.row, edges7.col], 1)
+        part7 = target_csr(ei7[split:], n, graph0=split)
+        want7, _ = fused_full_layer_reference(hh, ea7, p, edges7, seed, mask,
+                                              DROPOUT_P)
+        got7 = fused_full_layer(hh[split:], ea7[split:], p, part7, seed,
+                                mask[split:], dropout_p=DROPOUT_P,
+                                deterministic=False)
+        torch.cuda.synchronize()
+        err = (got7 - want7[split:]).abs().max().item()
+        assert err <= FULL_RTOL_OF_SCALE * want7.abs().max().item()
+
+
+def test_dp_step_at_world_one_equals_the_single_device_step(cuda):
+    """NCCL at world one: the ``gspmd`` DP step (noise and dropout on)
+    equals ``make_train_step`` on the same card, to 1e-6 of each tensor's
+    scale, and launches kernels 1 and 2 once a layer and step each."""
+    import torch.distributed as dist
+
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.parallel import (init_data_parallel,
+                                              make_dp_train_step, make_mesh)
+    from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
+
+    created = not dist.is_initialized()
+    init_data_parallel("cuda")
+    try:
+        rng = np.random.RandomState(5)
+        n, k, bsz = 60, 8, 4
+        pos = torch.from_numpy(rng.rand(n, 3).astype(np.float32) * 10)
+        ei = knn_edge_index(pos, k)
+        masses = torch.from_numpy(rng.uniform(1e10, 1e12, n).astype(
+            np.float32)).to(cuda)
+        states = torch.from_numpy(rng.randn(bsz, n, 6).astype(
+            np.float32)).to(cuda)
+        targets = states + 0.01
+
+        def run(mesh):
+            model = NBodyGNN(hidden_dim=64, n_layers=2, dropout=0.1,
+                             generator=torch.Generator().manual_seed(0))
+            model = model.to(cuda)
+            args = (model, make_optimizer(model, 5e-4, 1e-4), ei,
+                    torch.zeros(6), torch.ones(6),
+                    (masses / masses.mean())[:, None])
+            kw = dict(noise_std=0.003, masses=masses)
+            step = (make_train_step(*args, **kw) if mesh is None else
+                    make_dp_train_step(*args, mesh=mesh, **kw))
+            gen = torch.Generator(cuda).manual_seed(9)
+            before = fused_edge_layer.launches, fused_edge_backward.launches
+            losses = [step(states, targets, gen).item() for _ in range(2)]
+            launched = (fused_edge_layer.launches - before[0],
+                        fused_edge_backward.launches - before[1])
+            return losses, list(model.parameters()), launched
+
+        want, want_p, _ = run(None)
+        got, got_p, launched = run(make_mesh())
+        assert launched == (4, 4)  # 2 layers x 2 steps
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        for g, w in zip(got_p, want_p):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-6 * (w.abs().max().item() + 1e-12)
+    finally:
+        if created:
+            dist.destroy_process_group()

@@ -52,7 +52,12 @@ def test_importing_the_port_loads_no_jax():
             "nbody_gnn_hpc_torch.finetune_rollout, "
             "nbody_gnn_hpc_torch.select_checkpoint, "
             "nbody_gnn_hpc_torch.predict.selection, "
-            "nbody_gnn_hpc_torch.run_demo, nbody_gnn_hpc_torch.export_csv\n"
+            "nbody_gnn_hpc_torch.run_demo, nbody_gnn_hpc_torch.export_csv, "
+            "nbody_gnn_hpc_torch.sim.simulator, "
+            "nbody_gnn_hpc_torch.parallel.mesh, "
+            "nbody_gnn_hpc_torch.parallel.train_dp, "
+            "nbody_gnn_hpc_torch.parallel.smoke, "
+            "nbody_gnn_hpc_torch.multichip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
@@ -253,3 +258,64 @@ def test_whole_layer_wrapper_runs_its_kernel_on_cuda_tensors_only(
     with pytest.raises(ValueError, match="cuda or cpu"):
         ff.fused_full_layer(torch.zeros(4, 32, device="meta"), None, {},
                             None)
+
+
+def test_simulator_surface_refuses_cpu_unasked(no_cuda):
+    """The simulator, its factories, the batched runs and the aliases want
+    a GPU unless the CPU is asked for."""
+    import numpy as np
+
+    from nbody_gnn_hpc_torch.sim import (NBodySimulator,
+                                         compute_accelerations_direct,
+                                         compute_total_energy,
+                                         run_parallel_simulations)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NBodySimulator(n_particles=5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NBodySimulator.create_solar_system()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NBodySimulator.create_galaxy_collision(n_per_galaxy=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_parallel_simulations([{"init": {"n_particles": 5, "seed": s},
+                                   "run": {"n_steps": 2}} for s in (1, 2)])
+    pos, m = np.zeros((3, 3)), np.ones(3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_accelerations_direct(pos, m)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_total_energy(pos, pos, m)
+    assert NBodySimulator(n_particles=5, device="cpu").device.type == "cpu"
+
+
+def test_data_parallel_entry_points_refuse_cpu_unasked(no_cuda, tmp_path):
+    """Each wants a GPU before it touches a mesh or a process group."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.multichip_smoke import main as smoke_main
+    from nbody_gnn_hpc_torch.parallel import (init_data_parallel,
+                                              simulate_ensemble)
+    from nbody_gnn_hpc_torch.train import GNNDataset, Trainer
+    from nbody_gnn_hpc_torch.train_model import main as train_main
+
+    mesh = object()  # never reached
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_ensemble([1, 2], 5, 2, mesh=mesh)
+    rng = np.random.RandomState(0)
+    trajs = [dict(positions=rng.randn(8, 10, 3).astype(np.float32),
+                  velocities=rng.randn(8, 10, 3).astype(np.float32),
+                  masses=np.ones(10))]
+    ds = GNNDataset.from_trajectories(trajs, sequence_length=3,
+                                      k_neighbors=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(NBodyGNN(hidden_dim=32, n_layers=1), ds,
+                model_dir=str(tmp_path), mesh=mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--data-parallel", "--data-dir", str(tmp_path),
+                    "--model-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        smoke_main(["--skip-scaling"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_data_parallel()
+    assert not dist.is_initialized()
