@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, simulator, deployed-serving,
-ceilings, rollout fine-tune, one-command pipeline, data-parallel and
-simulator-surface paths on one NVIDIA GPU and check them.
+ceilings, rollout fine-tune, one-command pipeline, data-parallel,
+simulator-surface and checkpoint paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full-finetune   # the production curriculum
@@ -110,7 +110,10 @@ Phases (any failure exits non-zero and prints no result line):
    replicas, edge_impl and quantization; a saturated gate answers 503 with
    Retry-After; int8 and bf16 services against float32 (5e-2 / 2e-2 of
    scale, tests/test_quantize.py); an int8 checkpoint written, reloaded and
-   served.  One 394-step rollout of either service under torch.profiler.
+   served; a bf16 checkpoint written and reloaded where ``ml_dtypes``
+   imports (equal to the in-memory bf16 service over 5 steps; where it
+   does not, said so).  One 394-step rollout of either service under
+   torch.profiler.
 9. The card's ceilings, the fifth main path: the rate probes (kernels 10
    and 11) against their plain versions, rtol 1e-5, in each of the five
    forms the measurement launches at its own shape: the one-accumulator
@@ -197,6 +200,36 @@ Phases (any failure exits non-zero and prints no result line):
    line's ``launches_by_path`` has ``parallel`` (the spawned ranks'
    counts, read in their processes, included), ``simulator_surface`` and
    ``surrogate_large_n``.
+13. Async training checkpoints, the plots and the viewer, the ninth main
+   path.  Phase 6's data size (10 sims x 40 steps at N=200, written by
+   ``generate_data --no-windows --trajectory-format npz``, 8 train / 2
+   validation) at the production width.  Counts zeroed just before and
+   read just after each drive: (a) ``Trainer(ckpt_backend="orbax")`` and a
+   ``"pickle"`` trainer from the same seed, 2 epochs, ``save_every=1``
+   (kernels 1 and 2 exactly 6 a step and validation batch), the time each
+   ``save_model`` blocks, the final wait for durability; (b) fresh
+   trainers load each backend's ``final_model.pt``: parameters, AdamW
+   step and both moments bit-equal to what was saved and between the
+   backends, epoch, step count and ``norm_stats`` equal, the next epoch's
+   losses within rtol 1e-6.  After: (c) ``save_model``, one more step,
+   wait, restore: the pre-step parameters; the train step wall without a
+   write in flight, and for the trainer's flat layout and for the
+   per-tensor state dicts, in turns, the save call, the steps a write
+   outlasts and the save to durable; (d) an index entry whose step lacks
+   ``.metadata`` is passed over by ``latest_checkpoint(backend="orbax")``;
+   (e) ``train_model --ckpt-backend orbax`` as a process for one epoch,
+   then with ``--resume auto`` to two (each one's launches read from its
+   line, exactly); (f) where matplotlib imports, evaluate's three plots
+   (a 20-step rollout of the production checkpoint against the float32
+   ground truth), train_model's and the demo's, each non-empty; where it
+   does not, the commands must say that they skipped them; (g)
+   ``python -m nbody_gnn_hpc_torch.examples.demo_galaxy_collision`` at its
+   defaults as a process (its wall and launches), and
+   ``export_interactive_html`` of phase 12's galaxy trajectory (N=2,200 x
+   50 steps): every particle and 17 of 51 frames in its ``DATA``.  A JSON
+   line ``{"checkpoint": ...}`` gives the times.  The kernels line's
+   ``launches_by_path`` has ``checkpoint``, where kernels 1 and 2 must
+   have run.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -2002,6 +2035,27 @@ def phase_deployed(dev_name, fused_service, fused_traj20):
     check(health["model"]["quantization"] == "int8"
           and np.array_equal(out["positions"], quant5["int8"]),
           "the reloaded int8 checkpoint serves something else")
+    # A bf16 file holds ml_dtypes.bfloat16 arrays: written and read back
+    # where ml_dtypes imports.
+    try:
+        import ml_dtypes  # noqa: F401
+    except ImportError:
+        print("  ml_dtypes is not importable here: the bf16 checkpoint file "
+              "is verified on the CPU only (tests/test_torch_quantize.py)",
+              flush=True)
+    else:
+        info = quantize_checkpoint(MODEL, str(SERVE_DIR / "model.bf16.pt"),
+                                   "bf16")
+        from_file = build_service(str(SERVE_DIR / "model.bf16.pt"),
+                                  config_full)
+        out = from_file.rollout(pos[0], vel[0], masses, 5)["positions"]
+        same = np.array_equal(out, quant5["bf16"])
+        print(f"  bf16 checkpoint: {info['src_bytes']:,} -> "
+              f"{info['dst_bytes']:,} bytes ({info['ratio']}x); reloaded, "
+              f"quantization {from_file.model_info['quantization']}; 5 steps "
+              f"equal to the in-memory bf16 service: {same}", flush=True)
+        check(from_file.model_info["quantization"] == "bf16" and same,
+              "the reloaded bf16 checkpoint serves something else")
 
     # evaluate through fused_full, checked.
     check(rc == 0, f"evaluate (fused_full) exited {rc}")
@@ -3308,6 +3362,371 @@ def phase_surrogate_large_n(dev):
     return launches
 
 
+CKPT_DIR = Path("build/chip_smoke_ckpt")  # git-ignored
+CKPT_DATA = dict(n=N, n_sims=10, n_steps=40)  # phase 6's data size
+INFLIGHT_SAVES = 4  # saves a layout, train steps timed while each writes
+VIEWER_MAX_STEPS = 20  # the viewer's frame cap, so that it subsamples
+
+
+def _command(argv: list, log: Path, timeout: float = 300) -> tuple:
+    """``python -m <argv>`` as a process from the repository root: (its
+    output, its wall in s).  The output goes to ``log``; a failure prints
+    its last lines and fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        print("".join((proc.stdout + proc.stderr).splitlines(True)[-60:]),
+              flush=True)
+    check(proc.returncode == 0, f"{argv[0]} exited {proc.returncode}")
+    return proc.stdout, wall
+
+
+def _edge_launches(c: dict) -> str:
+    """The edge kernels' launches of a count dict, for a report line."""
+    other = sum(v for k, v in c.items() if not k.startswith("fused_edge"))
+    return (f"fused_edge_fwd {c.get('fused_edge_fwd', 0)}, fused_edge_bwd "
+            f"{c.get('fused_edge_bwd', 0)}, other kernels {other}")
+
+
+def _same_training_state(a, b) -> bool:
+    """Whether two trainers hold bit-equal parameters and AdamW states
+    (step, both moments)."""
+    import torch
+
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
+        "state"]
+    return (all(torch.equal(p, q) for p, q in zip(a.model.parameters(),
+                                                  b.model.parameters()))
+            and len(sa) == len(sb) == len(list(a.model.parameters()))
+            and all(set(sa[i]) == set(sb[i])
+                    and all(torch.equal(v, sb[i][k]) for k, v in
+                            sa[i].items()) for i in sa))
+
+
+def phase_checkpoint(dev):
+    """Async training checkpoints, the plots and the viewer on the card.
+    Returns this path's launches (the trainers' runs, the resumed epochs
+    and the two train_model processes)."""
+    import torch
+
+    from nbody_gnn_hpc_torch import evaluate, generate_data
+    from nbody_gnn_hpc_torch.config import TrainingConfig
+    from nbody_gnn_hpc_torch.io import latest_checkpoint
+    from nbody_gnn_hpc_torch.io.orbax_io import OrbaxCheckpointer, is_durable
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.parallel import simulate_ensemble
+    from nbody_gnn_hpc_torch.serve import build_service
+    from nbody_gnn_hpc_torch.sim import NBodySimulator, shared_masses
+    from nbody_gnn_hpc_torch.train import Trainer, datasets_from_manifest
+    from nbody_gnn_hpc_torch.train.dataset import MANIFEST_NAME
+    from nbody_gnn_hpc_torch.utils import export_interactive_html
+
+    cfg = TrainingConfig()  # production: batch 24, hidden 256, 6 layers
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    data = CKPT_DIR / "data"
+    check(generate_data.main([
+        "--particles", str(CKPT_DATA["n"]), "--simulations",
+        str(CKPT_DATA["n_sims"]), "--steps", str(CKPT_DATA["n_steps"]),
+        "--no-windows", "--trajectory-format", "npz", "--device", str(dev),
+        "--output-dir", str(data)]) == 0, "generate_data failed")
+    train, val = datasets_from_manifest(data / MANIFEST_NAME, k_neighbors=K,
+                                        cache=False)
+
+    def trainer(backend):
+        return Trainer(
+            NBodyGNN(hidden_dim=cfg.hidden_dim, n_layers=cfg.n_layers,
+                     dropout=cfg.dropout), train, val,
+            model_dir=str(CKPT_DIR / backend), device=dev,
+            learning_rate=cfg.learning_rate, batch_size=cfg.batch_size,
+            weight_decay=cfg.weight_decay, noise_std=cfg.noise_std,
+            n_epochs=2, seed=7, ckpt_backend=backend)
+
+    # (a) Two epochs under each backend from one seed, save_every=1; how
+    # long each save_model call blocks, and the orbax run's final wait.
+    steps = 2 * (train.n_samples // cfg.batch_size)
+    val_batches = 2 * -(-val.n_samples // cfg.batch_size)
+    trained, blocked, launches, waited = {}, {}, {}, []
+    for backend in ("orbax", "pickle"):
+        t = trained[backend] = trainer(backend)
+        blocked[backend] = []
+
+        def timed(name, save=t.save_model, out=blocked[backend]):
+            t0 = time.perf_counter()
+            path = save(name)
+            out.append((time.perf_counter() - t0) * 1e3)
+            return path
+
+        t.save_model = timed
+        if backend == "orbax":
+            mgr = t._orbax_mgr()
+
+            def timed_wait(wait=mgr.wait):
+                t0 = time.perf_counter()
+                wait()
+                waited.append((time.perf_counter() - t0) * 1e3)
+
+            mgr.wait = timed_wait
+        _zero_counts()
+        t0 = time.perf_counter()
+        history = t.train(n_epochs=2, save_every=1, verbose=False,
+                          early_stopping_patience=cfg.early_stopping)
+        wall = time.perf_counter() - t0
+        c = _counts()
+        launches = _add(launches, c)
+        del t.save_model  # the class's again
+        if backend == "orbax":
+            del mgr.wait
+        check((c["fused_edge_fwd"], c["fused_edge_bwd"])
+              == (6 * (steps + val_batches), 6 * steps),
+              f"the {backend} run's launch counts")
+        check(bool(np.isfinite(t.step_losses + history["val_loss"]).all()),
+              f"a loss of the {backend} run is not finite")
+        print(f"  {backend}: 2 epochs ({steps} steps at B={cfg.batch_size}, "
+              f"{val_batches} validation batches), save_every=1, in "
+              f"{wall:.2f} s; save_model blocked "
+              f"{['%.2f' % x for x in blocked[backend]]} ms (median "
+              f"{np.median(blocked[backend]):.2f})"
+              + (f"; the wait for durability at the end {waited[-1]:.2f} ms"
+                 if backend == "orbax" else "")
+              + f"; fused_edge_fwd {c['fused_edge_fwd']}, fused_edge_bwd "
+                f"{c['fused_edge_bwd']}", flush=True)
+    index = json.loads((CKPT_DIR / "orbax" / "orbax_index.json").read_text())
+    check(sorted(index) == ["best_model.pt", "checkpoint_epoch_1.pt",
+                            "checkpoint_epoch_2.pt", "final_model.pt"]
+          and all(is_durable(CKPT_DIR / "orbax" / "orbax" / str(e["step"]))
+                  for e in index.values()),
+          f"the orbax index or its steps are wrong: {index}")
+    same_runs = _same_training_state(trained["orbax"], trained["pickle"])
+    print(f"  the two backends' runs from one seed: losses equal "
+          f"{trained['orbax'].step_losses == trained['pickle'].step_losses}, "
+          f"parameters and AdamW states bit-equal {same_runs}", flush=True)
+
+    # (b) Fresh trainers resume final_model.pt from each backend.
+    fresh = {b: trainer(b) for b in trained}
+    for b, t in fresh.items():
+        t.load_model("final_model.pt")
+        check(_same_training_state(t, trained[b]),
+              f"the {b} resume is not bit-equal to the state it saved")
+    o, p = fresh["orbax"], fresh["pickle"]
+    check(o.current_epoch == p.current_epoch == 2
+          and o._step.count == p._step.count == steps
+          and all(np.array_equal(o.norm_stats[k], p.norm_stats[k])
+                  for k in p.norm_stats), "the resumed metadata differ")
+    check(same_runs == _same_training_state(o, p),
+          "the two resumes differ other than their runs did")
+    _zero_counts()
+    next_loss = {b: t.train_epoch() for b, t in fresh.items()}
+    launches = _add(launches, _counts())
+    print(f"  fresh trainers load final_model.pt: each bit-equal to the "
+          f"state its backend saved (parameters, AdamW step and both "
+          f"moments), epoch {o.current_epoch}, step count {o._step.count}, "
+          f"norm_stats equal; orbax against pickle bit-equal "
+          f"{_same_training_state(o, p)}; the next epoch's loss "
+          f"{next_loss['orbax']:.7f} vs {next_loss['pickle']:.7f} (rtol "
+          f"1e-6)", flush=True)
+    check(same_runs, "the two backends' runs from one seed differ")
+    check(abs(next_loss["orbax"] - next_loss["pickle"])
+          <= 1e-6 * abs(next_loss["pickle"]), "the resumed epochs differ")
+
+    # (c) The saved step holds save-time values: one more step while the
+    # write is queued does not reach it.
+    t = trained["orbax"]
+    ids = torch.arange(cfg.batch_size, device=dev)
+    s, y = t.train_states[ids], t.train_targets[ids]
+    before = {k: v.clone() for k, v in t.model.state_dict().items()}
+    t.save_model("probe.pt")
+    queued = t._orbax.pending
+    t._step(s, y, t.generator)
+    changed = sum(not torch.equal(v, before[k])
+                  for k, v in t.model.state_dict().items())
+    t._wait_durable()
+    probe = trainer("orbax")
+    probe.load_model("probe.pt")
+    kept = all(torch.equal(v, before[k])
+               for k, v in probe.model.state_dict().items())
+    print(f"  save_model, one more step ({changed} of {len(before)} tensors "
+          f"changed; writes still queued at the step: {queued}), wait, "
+          f"restore: equal to the pre-step parameters {kept}", flush=True)
+    check(changed > 0 and kept, "the saved step does not hold the values "
+                                "of the moment save_model was called")
+
+    # The step wall with a write in flight and without one.
+    def step_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t._step(s, y, t.generator)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    idle = [step_ms() for _ in range(10)][2:]
+    # The trainer's flat layout against the per-tensor state dicts (~320
+    # tensors), in turns: the save call, the steps a write outlasts, the
+    # save to durable.
+    layouts = {"flat": t._flat_state,
+               "per_tensor": lambda: {"params": t.model.state_dict(),
+                                      "opt_state": t.optimizer.state_dict()}}
+    cost = {name: {"save_block_ms": [], "step_ms_write_in_flight": [],
+                   "save_to_durable_ms": []} for name in layouts}
+    for turn, name in enumerate(("per_tensor", "flat", "flat", "per_tensor")):
+        mgr = OrbaxCheckpointer(str(CKPT_DIR / "inflight" / str(turn)))
+        for i in range(INFLIGHT_SAVES // 2):  # two turns a layout
+            t0 = time.perf_counter()
+            mgr.save(i + 1, layouts[name]())
+            cost[name]["save_block_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+            while mgr.pending:
+                during = step_ms()
+                if mgr.pending:  # the write outlasted the whole step
+                    cost[name]["step_ms_write_in_flight"].append(during)
+            mgr.wait()
+            cost[name]["save_to_durable_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+        mgr.close()
+    n_bytes = sum(v.numel() * v.element_size() for k, v in
+                  t._flat_state().items() if torch.is_tensor(v))
+    print(f"  train step wall (B={cfg.batch_size}, synchronised) with no "
+          f"write in flight: median {np.median(idle):.2f} ms (min "
+          f"{min(idle):.2f}, max {max(idle):.2f}); {n_bytes / 1e6:.1f} MB "
+          f"staged a save", flush=True)
+    for name, c in cost.items():
+        busy = c["step_ms_write_in_flight"]
+        print(f"  {name} layout: save blocks "
+              f"{['%.2f' % x for x in c['save_block_ms']]} ms; with a write "
+              f"in flight the step "
+              + (f"median {np.median(busy):.2f} ms over {len(busy)} steps "
+                 f"(min {min(busy):.2f}, max {max(busy):.2f})" if busy else
+                 "never: every write ended within one step")
+              + f"; save to durable "
+                f"{['%.1f' % x for x in c['save_to_durable_ms']]} ms",
+              flush=True)
+
+    # (d) Durability: an index entry whose step is not durable.
+    model_dir = CKPT_DIR / "orbax"
+    check(latest_checkpoint(model_dir, backend="orbax") == "final_model.pt",
+          "latest_checkpoint(backend='orbax') did not pick final_model.pt")
+    torn = t._orbax_step + 1
+    (model_dir / "orbax" / str(torn)).mkdir()
+    (model_dir / "orbax" / str(torn) / "__0_0.distcp").write_bytes(b"")
+    index = json.loads((model_dir / "orbax_index.json").read_text())
+    index["checkpoint_epoch_99.pt"] = {
+        "step": torn, "scheduler_state_dict": {"epoch": 99}}
+    (model_dir / "orbax_index.json").write_text(json.dumps(index))
+    picked = latest_checkpoint(model_dir, backend="orbax")
+    print(f"  an index entry at epoch 99 whose step {torn} has no .metadata: "
+          f"latest_checkpoint(backend='orbax') -> {picked}", flush=True)
+    check(picked == "final_model.pt", "a non-durable step was picked")
+
+    # (e) The command on the card: train_model --ckpt-backend orbax, then
+    # --resume auto to two epochs; each process's launches read from it.
+    cli_dir = CKPT_DIR / "cli"
+    argv = ["nbody_gnn_hpc_torch.train_model", "--data-dir", str(data),
+            "--model-dir", str(cli_dir), "--ckpt-backend", "orbax"]
+    per_epoch = (train.n_samples // cfg.batch_size,
+                 -(-val.n_samples // cfg.batch_size))
+    for run, flags in (("first", ["--epochs", "1"]),
+                       ("resumed", ["--epochs", "2", "--resume", "auto"])):
+        out, wall = _command(argv + flags, CKPT_DIR / f"cli_{run}.log")
+        c = stage_launches(out)
+        launches = _add(launches, c)
+        resumed = re.search(r"Resumed from: +\S+ \(epoch (\d+)", out)
+        print(f"  train_model --ckpt-backend orbax {' '.join(flags)}: "
+              f"{wall:.2f} s as a process"
+              + (f", resumed at epoch {resumed.group(1)}" if resumed else "")
+              + f"; {_edge_launches(c)}", flush=True)
+        check((c["fused_edge_fwd"], c["fused_edge_bwd"])
+              == (6 * sum(per_epoch), 6 * per_epoch[0]),
+              f"the {run} train_model run's launch counts")
+        check((resumed is None) == (run == "first")
+              and (resumed is None or resumed.group(1) == "1"),
+              f"the {run} train_model run did not resume as it should")
+    index = json.loads((cli_dir / "orbax_index.json").read_text())
+    check(index["final_model.pt"]["scheduler_state_dict"]["epoch"] == 2
+          and latest_checkpoint(cli_dir, backend="orbax") == "final_model.pt"
+          and not list(cli_dir.glob("*.pt")),
+          "the resumed train_model run left the wrong checkpoints")
+
+    # (g) The galaxy demo at its defaults, as a process (N=1,000: below
+    # 2,048 the force takes the plain broadcast form; no kernel).
+    demo_out, demo_wall = _command(
+        ["nbody_gnn_hpc_torch.examples.demo_galaxy_collision", "-o",
+         str(CKPT_DIR / "demo")], CKPT_DIR / "demo.log")
+    demo = stage_launches(demo_out)
+    print(f"  demo_galaxy_collision at its defaults (2 x 500 particles, 300 "
+          f"steps): {demo_wall:.2f} s as a process; "
+          f"{_edge_launches(demo)}", flush=True)
+    check("Integrating 1000 particles for 300 steps" in demo_out,
+          "the galaxy demo ran another scene")
+
+    # (f) Plots: evaluate's three (on a short rollout of the production
+    # checkpoint against the float32 ground truth), train_model's and the
+    # demo's.  Where matplotlib does not import, the commands say so.
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("  matplotlib is not importable here: the plots (evaluate's, "
+              "train_model's, the demos') are verified on the CPU only "
+              "(tests/test_torch_visualization.py and the command tests)",
+              flush=True)
+        check("(plotting skipped:" in demo_out
+              and "(Could not create plot:" in out,
+              "the demo or train_model did not say that it skipped its plot")
+    else:
+        from nbody_gnn_hpc_torch.utils import Visualizer
+
+        masses = shared_masses(N, seed=42)
+        truth = simulate_ensemble([9999], N, 25, box_size=10.0, dt=0.001,
+                                  shared_masses=masses, device=dev)
+        hpc_pos = truth.positions[0, 5:].cpu().numpy()
+        hpc_vel = truth.velocities[0, 5:].cpu().numpy()
+        ai = build_service(MODEL, CONFIG, device=dev).rollout(
+            hpc_pos[0], hpc_vel[0], masses, len(hpc_pos) - 1)
+        evaluate.plot_test(Visualizer(str(CKPT_DIR / "plots")), hpc_pos,
+                           hpc_vel, ai["positions"], ai["velocities"],
+                           masses)
+        files = [CKPT_DIR / "plots" / f"{name}_test_1.png" for name in (
+            "comparison", "error_over_time", "energy_conservation")] + [
+            cli_dir / "plots" / "training_history.png",
+            CKPT_DIR / "demo" / "galaxy_collision.png",
+            CKPT_DIR / "demo" / "galaxy_distribution.png"]
+        sizes = {f.name: f.stat().st_size if f.exists() else 0
+                 for f in files}
+        print(f"  plots written (bytes): {sizes}", flush=True)
+        check(all(sizes.values()), "a plot file is missing or empty")
+
+    # (g) The viewer on phase 12's galaxy-collision trajectory (N=2,200).
+    np.random.seed(2026)
+    sim = NBodySimulator.create_galaxy_collision(n_per_galaxy=GALAXY_PER,
+                                                 device=dev)
+    traj = sim.run_trajectory(GALAXY_STEPS)
+    t0 = time.perf_counter()
+    html = export_interactive_html(
+        traj.positions, traj.masses, CKPT_DIR / "galaxy.html",
+        times=traj.times, title="Galaxy collision (chip_smoke)",
+        max_steps=VIEWER_MAX_STEPS, max_particles=2 * GALAXY_PER)
+    wall = time.perf_counter() - t0
+    text = Path(html).read_text()
+    viewer = json.loads(re.search(r"const DATA = (\{.*?\});\n", text,
+                                  re.S).group(1))
+    frames = GALAXY_STEPS + 1
+    want = len(range(0, frames, -(-frames // VIEWER_MAX_STEPS)))
+    print(f"  export_interactive_html of the N={2 * GALAXY_PER} galaxy "
+          f"trajectory ({frames} frames, capped at {VIEWER_MAX_STEPS}): "
+          f"{len(viewer['positions'])} frames x "
+          f"{len(viewer['positions'][0])} particles, {len(text):,} bytes, "
+          f"{wall * 1e3:.1f} ms", flush=True)
+    check(len(viewer["positions"]) == len(viewer["times"]) == want
+          and len(viewer["positions"][0]) == len(viewer["masses"])
+          == 2 * GALAXY_PER, "the viewer's data has the wrong shape")
+    print(json.dumps({"checkpoint": {
+        "save_model_block_ms": blocked, "final_wait_ms": waited[0],
+        "staged_bytes": n_bytes, "step_ms_idle": idle, "layouts": cost,
+        "demo_galaxy_s": demo_wall}}), flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3437,6 +3856,16 @@ def main(argv=None) -> int:
                            ("surrogate_large_n", surrogate)):
         mxu_by_path[name] = launched.get("pairwise_symmetric_mxu", 0)
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+
+    # 13. Async training checkpoints, the plots and the viewer: the
+    # drives' counts zeroed just before and read after, the two train_model
+    # processes' read from their launch lines.
+    print("[13] async checkpoints (ckpt_backend orbax), resume, plots, the "
+          "galaxy demo and the HTML viewer", flush=True)
+    t13 = time.perf_counter()
+    checkpoint = phase_checkpoint(dev)
+    mxu_by_path["checkpoint"] = checkpoint.get("pairwise_symmetric_mxu", 0)
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -3495,6 +3924,7 @@ def main(argv=None) -> int:
                  "parallel": parallel.get(name, 0),
                  "simulator_surface": surface.get(name, 0),
                  "surrogate_large_n": surrogate.get(name, 0),
+                 "checkpoint": checkpoint.get(name, 0),
                  "oracle": oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
@@ -3532,6 +3962,9 @@ def main(argv=None) -> int:
     check(min(surface.get(k, 0) for k in ("pairwise_small",
                                           "pairwise_symmetric")) > 0,
           "the simulator surface launched no kernel 4 or 6")
+    check(min(checkpoint.get(k, 0) for k in ("fused_edge_fwd",
+                                             "fused_edge_bwd")) > 0,
+          "the checkpoint path launched no kernel 1 or 2")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

@@ -12,7 +12,10 @@ metrics aggregated mean and std into
 ``<output-dir>/evaluation_results.json``.  The ground truth is the float64
 host oracle with ``--f64-ground-truth`` (the reference's precision regime,
 so the RMSE compares with its published figures), else the float32
-ensemble simulator on the device.
+ensemble simulator on the device.  Where matplotlib imports, test 1's
+comparison, error-over-time and energy plots go to ``<output-dir>/plots``
+(best effort, as in the JAX script: without matplotlib they are left
+out and the run says so).
 """
 
 import argparse
@@ -26,10 +29,7 @@ SEQ_LEN = 5  # rollout start (published protocol, evaluate.py:79)
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(
-        description="Evaluate GNN Model",
-        epilog="Plots need the visualizer, which is not ported: they are "
-               "skipped.")
+    parser = argparse.ArgumentParser(description="Evaluate GNN Model")
     parser.add_argument("--model-path", "-m", type=str,
                         default="./models/best_model.pt")
     parser.add_argument("--config-path", "-c", type=str,
@@ -102,6 +102,28 @@ def _ground_truth(args, device, shared_masses, beat):
             ensemble.velocities.cpu().numpy().astype(np.float64))
 
 
+def plot_test(viz, hpc_pos, hpc_vel, ai_pos, ai_vel, masses) -> None:
+    """Test 1's three plots (``scripts/evaluate.py:171-192``): the HPC/AI
+    triptych, the per-step RMSE and the energy against the ground
+    truth's."""
+    viz.plot_comparison(hpc_pos, ai_pos, title="Test 1: HPC vs AI",
+                        save_name="comparison_test_1.png", show=False)
+    pos_rmse = np.sqrt(np.mean((ai_pos - hpc_pos) ** 2, axis=(1, 2)))
+    vel_rmse = np.sqrt(np.mean((ai_vel - hpc_vel) ** 2, axis=(1, 2)))
+    viz.plot_error_over_time(pos_rmse, vel_rmse,
+                             title="Test 1: Error Over Time",
+                             save_name="error_over_time_test_1.png",
+                             show=False)
+    from nbody_gnn_hpc_torch.utils import compute_energy_error
+
+    pred_energy, _ = compute_energy_error(ai_pos, ai_vel, masses)
+    target_energy, _ = compute_energy_error(hpc_pos, hpc_vel, masses)
+    viz.plot_energy_conservation(target_energy, pred_energy,
+                                 title="Test 1: Energy Conservation",
+                                 save_name="energy_conservation_test_1.png",
+                                 show=False)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -155,7 +177,6 @@ def main(argv=None) -> int:
         ground_truth, gt_pos, gt_vel = _ground_truth(
             args, device, shared_masses,
             watchdog.beat if watchdog is not None else None)
-        print("  (plots skipped: the visualizer is not ported)")
         if watchdog is not None:
             watchdog.beat()  # the ground truths are on the host
         # All rollouts as one batch on the device.
@@ -167,18 +188,28 @@ def main(argv=None) -> int:
         if watchdog is not None:
             watchdog.stop()  # host arrays: the device work is done
 
+    viz = None
+    try:
+        from nbody_gnn_hpc_torch.utils import Visualizer
+
+        viz = Visualizer(str(output_dir / "plots"))
+    except ImportError as e:
+        print(f"  (Plots disabled: {e})")
+
     test_results = []
     for i in range(args.n_test_sims):
         print(f"\n  Test {i + 1}/{args.n_test_sims}")
         hpc_pos = gt_pos[i, SEQ_LEN:SEQ_LEN + prediction_steps + 1]
         hpc_vel = gt_vel[i, SEQ_LEN:SEQ_LEN + prediction_steps + 1]
-        metrics = compute_all_metrics(
-            ai_all["positions"][i][:len(hpc_pos)],
-            ai_all["velocities"][i][:len(hpc_vel)],
-            hpc_pos, hpc_vel, shared_masses)
+        ai_pos = ai_all["positions"][i][:len(hpc_pos)]
+        ai_vel = ai_all["velocities"][i][:len(hpc_vel)]
+        metrics = compute_all_metrics(ai_pos, ai_vel, hpc_pos, hpc_vel,
+                                      shared_masses)
         test_results.append(metrics)
         print(f"    Position RMSE: {metrics['position_rmse']:.6e}")
         print(f"    Velocity RMSE: {metrics['velocity_rmse']:.6e}")
+        if i == 0 and viz is not None:
+            plot_test(viz, hpc_pos, hpc_vel, ai_pos, ai_vel, shared_masses)
 
     print("\n" + "=" * 60)
     print("EVALUATION RESULTS")

@@ -20,6 +20,7 @@ optimizer state as numpy arrays, so its files load in the JAX package and
 unpickle with numpy alone.
 """
 
+import json
 import os
 import pickle
 import re
@@ -29,6 +30,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from nbody_gnn_hpc_torch.io.orbax_io import is_durable
 
 
 class _OptaxState(tuple):
@@ -186,23 +189,44 @@ def _tie_rank(name: str) -> int:
     return 1 if name.startswith("checkpoint_epoch_") else 0
 
 
-def latest_checkpoint(model_dir) -> Optional[str]:
+def latest_checkpoint(model_dir, backend: str = "pickle") -> Optional[str]:
     """Filename of the training checkpoint with the highest recorded epoch
     (``scheduler_state_dict.epoch``) in ``model_dir``, or None.  Powers
     ``train_model --resume auto``; unreadable files are skipped, so a file
-    torn by a crash does not block recovery."""
+    torn by a crash does not block recovery.
+
+    With ``backend="orbax"`` the candidates are the entries of the sidecar
+    ``orbax_index.json`` (a torn index has none) whose async step is
+    durable: the index is written synchronously, the step it names in the
+    background, so a crash between the two leaves an entry without
+    ``orbax/<step>/.metadata``, which is passed over."""
+    model_dir = Path(model_dir)
+
+    def epoch_of(entry: dict) -> int:
+        sched = entry.get("scheduler_state_dict") or {}
+        return int(sched.get("epoch", 0) or 0)
+
     candidates = {}
-    for path in sorted(Path(model_dir).glob("*.pt")):
-        if not _TRAIN_CKPT_RE.match(path.name):
-            continue
+    if backend == "orbax":
         try:
-            ckpt = load_checkpoint(path)
-        except (OSError, EOFError, pickle.UnpicklingError, AttributeError,
-                ImportError, ValueError):
-            continue
-        if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
-            sched = ckpt.get("scheduler_state_dict") or {}
-            candidates[path.name] = int(sched.get("epoch", 0) or 0)
+            index = json.loads((model_dir / "orbax_index.json").read_text())
+        except (FileNotFoundError, json.JSONDecodeError):
+            index = {}  # none yet, or torn by the crash: no usable entry
+        for name, entry in index.items():
+            if _TRAIN_CKPT_RE.match(name) and is_durable(
+                    model_dir / "orbax" / str(entry.get("step"))):
+                candidates[name] = epoch_of(entry)
+    else:
+        for path in sorted(model_dir.glob("*.pt")):
+            if not _TRAIN_CKPT_RE.match(path.name):
+                continue
+            try:
+                ckpt = load_checkpoint(path)
+            except (OSError, EOFError, pickle.UnpicklingError,
+                    AttributeError, ImportError, ValueError):
+                continue
+            if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+                candidates[path.name] = epoch_of(ckpt)
     if not candidates:
         return None
     return max(candidates, key=lambda n: (candidates[n], _tie_rank(n)))

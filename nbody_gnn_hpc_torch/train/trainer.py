@@ -19,9 +19,16 @@ batch through the data-parallel step in ``gspmd`` numerics, so the run
 equals the single-device run to float32 rounding; the validation sums are
 reduced over the mesh, and only the mesh's first rank prints and writes
 files.
+
+``ckpt_backend="orbax"`` writes the parameters and the AdamW state as
+async checkpoints (:class:`~nbody_gnn_hpc_torch.io.orbax_io.OrbaxCheckpointer`,
+DCP's format) under ``model_dir/orbax/<step>/`` and the small metadata in
+a synchronous sidecar, ``model_dir/orbax_index.json``, keyed by the pickle
+backend's filenames, so ``save_model`` / ``load_model`` keep one surface.
 """
 
 import json
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -74,12 +81,22 @@ class Trainer:
                  noise_std: float = 0.003,
                  n_epochs: int = 200,
                  seed: int = 0,
-                 mesh=None):
+                 mesh=None,
+                 ckpt_backend: str = "pickle"):
         """``mesh``: a data-parallel mesh (``parallel.make_mesh`` or
         ``make_hybrid_mesh``) that every rank builds its Trainer with, the
         batch size a multiple of its size; None trains on ``device``
-        alone."""
+        alone.
+
+        ``ckpt_backend``: ``"pickle"`` (the JAX package's ``.pt`` files,
+        written synchronously) or ``"orbax"`` (async writes; with a mesh
+        only its first rank writes, and every rank reads)."""
         del num_workers
+        if ckpt_backend not in ("pickle", "orbax"):
+            raise ValueError(f"unknown ckpt_backend {ckpt_backend!r}")
+        self.ckpt_backend = ckpt_backend
+        self._orbax = None  # the checkpointer, made at the first use
+        self._orbax_step = 0
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
@@ -283,10 +300,12 @@ class Trainer:
                 if (epoch + 1) % save_every == 0:
                     self.save_model(
                         f"checkpoint_epoch_{self.current_epoch}.pt")
-            # Saving reads the parameters back from the device: the
+            # Saving reads the parameters back from the device, and the
+            # async writes must be durable before the run ends: the
             # watchdog stays armed until the last file is written.
             self.save_model("final_model.pt")
             self._save_history(completed=True, early_stopped=stopped_early)
+            self._wait_durable()
         finally:
             # Disarm even on an exception: an armed watchdog left behind
             # would end a healthy process later.
@@ -312,11 +331,115 @@ class Trainer:
             "edge_impl": self.model.edge_impl,
         }
 
+    def _wait_durable(self) -> None:
+        """Block until the async writes are durable.  With a mesh the
+        other ranks, which read what the first one wrote, wait for it too
+        (an all-reduce read back on the host)."""
+        if self._orbax is not None:
+            self._orbax.wait()
+        if self.ckpt_backend == "orbax" and self.mesh is not None:
+            self._step.reduce_sum(torch.zeros(1, device=self.device)).item()
+
+    def _orbax_mgr(self):
+        if self._orbax is None:
+            from nbody_gnn_hpc_torch.io.orbax_io import OrbaxCheckpointer
+
+            self._orbax = OrbaxCheckpointer(str(self.model_dir / "orbax"))
+            self._orbax_step = self._orbax.latest_step() or 0
+        return self._orbax
+
+    def _orbax_index_path(self) -> Path:
+        return self.model_dir / "orbax_index.json"
+
+    def _params(self) -> list:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _flat_state(self) -> Dict:
+        """What an async save writes: the parameters and each AdamW moment
+        as one flat tensor (the optimizer's parameter order), every
+        parameter's AdamW step, and the param groups.  DCP's Python costs
+        ~1 ms a tensor in the writer thread, which takes the GIL from the
+        training loop: five entries instead of ~320.  Zeros and step 0
+        (what AdamW's first step starts from) before any step."""
+        params = self._params()
+        state = [self.optimizer.state.get(p) or {
+            "step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+            "exp_avg_sq": torch.zeros_like(p)} for p in params]
+
+        def flat(tensors):
+            return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+        return {"params": flat(params),
+                "exp_avg": flat(s["exp_avg"] for s in state),
+                "exp_avg_sq": flat(s["exp_avg_sq"] for s in state),
+                "step": torch.stack([s["step"] for s in state]),
+                "param_groups": self.optimizer.state_dict()["param_groups"]}
+
+    def _save_orbax(self, filename: str) -> str:
+        """Queue an async save of the parameters and the AdamW state at the
+        next step, then write the step and the metadata under ``filename``
+        into the sidecar index (a temporary file renamed: the index gates
+        ``--resume auto``, so a crash must not tear it)."""
+        mgr = self._orbax_mgr()
+        self._orbax_step += 1
+        mgr.save(self._orbax_step, self._flat_state(), force=True)
+        path = self._orbax_index_path()
+        index = json.loads(path.read_text()) if path.exists() else {}
+        index[filename] = {
+            "step": self._orbax_step,
+            "scheduler_state_dict": {"epoch": self.current_epoch},
+            "best_val_loss": self.best_val_loss,
+            "history": self.history,
+            "norm_stats": {k: np.asarray(v).tolist()
+                           for k, v in self.norm_stats.items()}
+            if self.norm_stats else None,
+            "model_config": self._model_config,
+        }
+        tmp = path.with_suffix(".json.tmp")
+        tmp.write_text(json.dumps(index, indent=2))
+        os.replace(tmp, path)
+        return str(self.model_dir / "orbax" / str(self._orbax_step))
+
+    @torch.no_grad()
+    def _load_orbax(self, filename: str) -> Dict:
+        """Restore ``filename``'s step into the model and the optimizer;
+        returns its index entry.  The optimizer's per-parameter state is
+        rebuilt from the flat tensors (a fresh optimizer has none, and DCP
+        fills only the structure it is given)."""
+        index = json.loads(self._orbax_index_path().read_text())
+        if filename not in index:
+            raise FileNotFoundError(
+                f"{filename} not in {self._orbax_index_path()}")
+        entry = index[filename]
+        mgr = self._orbax_mgr()
+        mgr.wait()  # the step must be durable before it is read
+        like = {k: torch.empty_like(v) if torch.is_tensor(v) else v
+                for k, v in self._flat_state().items()}
+        flat = mgr.restore(entry["step"], like=like)
+        params = self._params()
+        sizes = [p.numel() for p in params]
+        moments = [flat[k].split(sizes) for k in ("exp_avg", "exp_avg_sq")]
+        for p, value in zip(params, flat["params"].split(sizes)):
+            p.copy_(value.view_as(p))
+        self.optimizer.load_state_dict({
+            "state": {i: {"step": flat["step"][i].clone(),
+                          "exp_avg": moments[0][i].view_as(p).clone(),
+                          "exp_avg_sq": moments[1][i].view_as(p).clone()}
+                      for i, p in enumerate(params)},
+            "param_groups": flat["param_groups"]})
+        if entry.get("norm_stats") is not None:
+            entry["norm_stats"] = {k: np.asarray(v, np.float32)
+                                   for k, v in entry["norm_stats"].items()}
+        return entry
+
     def save_model(self, filename: str) -> str:
-        """A checkpoint in the JAX package's format (it loads there too);
-        with a mesh only its first rank writes it."""
+        """A checkpoint in the JAX package's format (it loads there too),
+        or with ``ckpt_backend="orbax"`` a queued async one; with a mesh
+        only its first rank writes it."""
         if not self._lead:
             return str(self.model_dir / filename)
+        if self.ckpt_backend == "orbax":
+            return self._save_orbax(filename)
         return save_checkpoint(
             self.model_dir / filename,
             params=params_to_jax(self.model.state_dict()),
@@ -331,17 +454,21 @@ class Trainer:
     def load_model(self, filename: str) -> None:
         """Restore parameters, optimizer state (when the file holds the
         port's), best loss, history, stats and epoch."""
-        ckpt = load_checkpoint(self.model_dir / filename)
-        self.model.load_state_dict(params_from_jax(ckpt["model_state_dict"]))
-        opt = ckpt.get("optimizer_state_dict")
-        if isinstance(opt, dict) and {"state", "param_groups"} <= set(opt):
-            self.optimizer.load_state_dict(_to_torch(opt))
-            steps = [s["step"] for s in self.optimizer.state.values()
-                     if "step" in s]
-            self._step.count = int(steps[0]) if steps else 0
-        elif opt is not None:
-            print("  (optimizer state not in the port's format; starting "
-                  "the optimizer afresh)")
+        if self.ckpt_backend == "orbax":
+            ckpt = self._load_orbax(filename)
+        else:
+            ckpt = load_checkpoint(self.model_dir / filename)
+            self.model.load_state_dict(
+                params_from_jax(ckpt["model_state_dict"]))
+            opt = ckpt.get("optimizer_state_dict")
+            if isinstance(opt, dict) and {"state", "param_groups"} <= set(opt):
+                self.optimizer.load_state_dict(_to_torch(opt))
+            elif opt is not None:
+                print("  (optimizer state not in the port's format; "
+                      "starting the optimizer afresh)")
+        steps = [s["step"] for s in self.optimizer.state.values()
+                 if "step" in s]
+        self._step.count = int(steps[0]) if steps else 0
         self.best_val_loss = ckpt.get("best_val_loss", float("inf"))
         if ckpt.get("history"):
             self.history = ckpt["history"]

@@ -16,7 +16,11 @@ datagen left only ``dataset_manifest.json``, the trajectory files it names.
 rank a GPU, NCCL; gloo with ``--device cpu``), or forms a world of one on
 the chosen device without torchrun, and trains with each batch split over
 the ranks (``Trainer(mesh=)``); only rank 0 writes files and the run's log.
-Every rank prints its own kernel launches last.
+``--ckpt-backend orbax`` writes the checkpoints as async writes
+(``Trainer(ckpt_backend="orbax")``) and ``--resume auto`` then picks among
+the durable ones.  Where matplotlib imports, ``plots/training_history.png``
+is drawn into the model directory.  Every rank prints its own kernel
+launches last.
 """
 
 import argparse
@@ -87,6 +91,14 @@ def build_parser():
                              "projections and node MLP, or the whole layer "
                              "as one kernel (same parameters; written to "
                              "config.json)")
+    parser.add_argument("--ckpt-backend", choices=("pickle", "orbax"),
+                        default="pickle",
+                        help="Checkpoint backend: pickle .pt files (the "
+                             "JAX package's, synchronous) or orbax (async "
+                             "background writes in "
+                             "torch.distributed.checkpoint's format under "
+                             "<model-dir>/orbax, metadata in "
+                             "orbax_index.json)")
     parser.add_argument("--watchdog", type=float, default=None,
                         metavar="SECONDS",
                         help="Exit with a distinctive code if no epoch's "
@@ -236,13 +248,14 @@ def _train(args, device=None) -> int:
         noise_std=config.noise_std,
         n_epochs=config.epochs,
         mesh=mesh,
+        ckpt_backend=args.ckpt_backend,
     )
     say(f"  Parameters:    {count_parameters(trainer.model):,}")
 
     n_epochs = config.epochs
     resume_name = args.resume
     if resume_name == "auto":
-        resume_name = latest_checkpoint(model_dir)
+        resume_name = latest_checkpoint(model_dir, backend=args.ckpt_backend)
         if resume_name is None:
             say("  --resume auto: no checkpoint found; starting fresh")
     if resume_name:
@@ -270,6 +283,19 @@ def _train(args, device=None) -> int:
         say(f"  Final Train Loss: {history['train_loss'][-1]:.6f}")
     say(f"  Model saved to:   {model_dir}")
     say("=" * 60)
+    if say is print:  # plotting is best effort, as in the JAX CLI
+        try:
+            from nbody_gnn_hpc_torch.utils import Visualizer
+
+            viz = Visualizer(str(model_dir / "plots"))
+        except ImportError as e:
+            print(f"  (Could not create plot: {e})")
+        else:
+            viz.plot_training_history(history,
+                                      save_name="training_history.png",
+                                      show=False)
+            print(f"  Training plot:    "
+                  f"{model_dir / 'plots' / 'training_history.png'}")
     print(launch_line())
     return 0
 

@@ -153,6 +153,17 @@ def test_evaluate_cli_writes_the_results_schema(evaluated, ground_truth):
             np.std([r[key] for r in per_sim]))
 
 
+@pytest.mark.parametrize("ground_truth", ["float64_host", "float32_cpu"])
+def test_evaluate_cli_writes_test_one_plots(evaluated, trained, ground_truth):
+    """scripts/evaluate.py's three plots of test 1 (matplotlib is here)."""
+    pytest.importorskip("matplotlib")
+    plots = trained / f"results_{ground_truth}" / "plots"
+    assert sorted(p.name for p in plots.iterdir()) == [
+        "comparison_test_1.png", "energy_conservation_test_1.png",
+        "error_over_time_test_1.png"]
+    assert all(p.stat().st_size > 0 for p in plots.iterdir())
+
+
 def test_evaluate_f32_ground_truth_is_close_to_the_f64_oracle(evaluated):
     """Over 12 steps the float32 ensemble and the float64 oracle give the
     same metrics to float32 accuracy."""

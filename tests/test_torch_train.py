@@ -428,3 +428,5 @@ def test_train_model_cli_on_cpu(tmp_path):
     assert main(flags + ["--epochs", "2", "--resume", "auto"]) == 0
     hist = json.loads((out / "training_history.json").read_text())
     assert len(hist["train_loss"]) == 2
+    pytest.importorskip("matplotlib")
+    assert (out / "plots" / "training_history.png").stat().st_size > 0

@@ -95,7 +95,8 @@ def world_checks(rank, device, problem, jax_params=None):
     return out
 
 
-def _mesh_trainer(trajectories, model_dir, batch_size):
+def _mesh_trainer(trajectories, model_dir, batch_size,
+                  ckpt_backend="pickle"):
     from nbody_gnn_hpc_torch.train import GNNDataset, Trainer
 
     ds = GNNDataset.from_trajectories(trajectories, sequence_length=5,
@@ -105,7 +106,8 @@ def _mesh_trainer(trajectories, model_dir, batch_size):
         external_norm_stats=ds.get_normalization_stats())
     model = NBodyGNN(hidden_dim=32, n_layers=2, dropout=0.1)
     return Trainer(model, ds, val, model_dir=model_dir, device="cpu",
-                   batch_size=batch_size, seed=0, mesh=make_mesh())
+                   batch_size=batch_size, seed=0, mesh=make_mesh(),
+                   ckpt_backend=ckpt_backend)
 
 
 def trainer_epochs(rank, device, trajectories, model_dir, epochs):
@@ -115,6 +117,22 @@ def trainer_epochs(rank, device, trajectories, model_dir, epochs):
     trainer = _mesh_trainer(trajectories, f"{model_dir}/rank{rank}", 16)
     history = trainer.train(n_epochs=epochs, verbose=False)
     return history, trainer.step_losses, _state(trainer.model)
+
+
+def orbax_trainer(rank, device, trajectories, model_dir):
+    """Two epochs of ``Trainer(mesh=, ckpt_backend="orbax")`` into one
+    shared ``model_dir``, then a fresh trainer on each rank restores
+    final_model.pt: whether this rank's trainer made a checkpointer while
+    training (only the writer does), the trained and the restored
+    parameters, and the restored step count."""
+    del device
+    trainer = _mesh_trainer(trajectories, model_dir, 16, "orbax")
+    trainer.train(n_epochs=2, save_every=1, verbose=False)
+    wrote = trainer._orbax is not None
+    fresh = _mesh_trainer(trajectories, model_dir, 16, "orbax")
+    fresh.load_model("final_model.pt")
+    return (rank, wrote, _state(trainer.model), _state(fresh.model),
+            fresh._step.count)
 
 
 def trainer_odd_batch(rank, device, trajectories):
