@@ -325,6 +325,13 @@ LARGE_N, ODD_N = 10_000, 2_085
 # above a multiple of each tile it takes on an H100 (32 at N=2,085, 64 at
 # 4,097-8,192, 128 at N=10,000).
 SYM_EDGE_N = (1, 3, 2_048, 2_079, 2_081, 4_159, 4_161, 9_983, 9_985)
+# Kernel 3 at the edges of its schedule (ops.tiled_schedule on 132 SMs), as
+# (B, N): tiny systems, a last tile one short (2,047, 9,727) and of one
+# source (4,097, 9,729), one above a multiple of k (2,049), ragged receiver
+# groups (2,111, 4,097, 9,727, 9,729), k split into 2 and 4 slices (2,049 to
+# 4,097), blocks that stage two and four systems (3 x 2,085, 300 x 200).
+TILED_EDGE = ((1, 1), (1, 3), (1, 2_047), (1, 2_049), (1, 2_111), (1, 4_097),
+              (1, 9_727), (1, 9_729), (3, ODD_N), (300, 200))
 # Large-N /simulate against the CPU service, per particle: at N=10,000 in a
 # box of 10 the closest pairs sit ~1e-3 apart, where one ulp of a position
 # (5e-7) changes the pair force by ~1e-3, so a max-abs tolerance would
@@ -1376,13 +1383,24 @@ def phase_force_kernels(dev):
              ops.accelerations_symmetric_reference, pos, m,
              f"N={n} (tiles of {tile})", n * (n - 1) // 2,
              FLOPS_PER_UNORDERED_PAIR, False)
+    # Kernel 3's schedule at its edges (TILED_EDGE), untimed.
+    for b, n in TILED_EDGE:
+        pos, _, m = eval_states(b, n)
+        pos = torch.as_tensor(pos if b > 1 else pos[0], device=dev)
+        r, k, threads, tile = ops.tiled_schedule(b, n, sm_count)
+        held("pairwise_tiled", ops.accelerations_tiled,
+             ops.accelerations_tiled_reference, pos,
+             torch.as_tensor(m, device=dev),
+             f"B={b} N={n} (r {r}, k {k}, {threads} threads, tiles of "
+             f"{tile})", b * n * n, FLOPS_PER_ORDERED_PAIR, False)
 
     # Kernel 5, the moment form, which no entry point dispatches: held
     # against its plain version at the JAX test's tolerance on an offset
-    # cloud (tests/test_ops.py:170-178) and at N=2,085.  At N=10,000, the
-    # shape it is timed at, it is held against a float64 direct sum at the
-    # same tolerance, and its close-pair error, per particle, against its
-    # plain version, kernel 6 and the float64 sum is reported.
+    # cloud (tests/test_ops.py:170-178) and at N=2,085, where it is also
+    # timed.  At N=10,000, where it is timed too, it is held against a
+    # float64 direct sum at the same tolerance, and its close-pair error,
+    # per particle, against its plain version, kernel 6 and the float64 sum
+    # is reported.
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is enabled: kernel 5's plain version needs float32 products")
     for n, offset in ((700, 300.0), (ODD_N, 0.0), (LARGE_N, 0.0)):
@@ -1392,7 +1410,7 @@ def phase_force_kernels(dev):
         if n != LARGE_N:
             held("pairwise_symmetric_mxu", ops.accelerations_symmetric_mxu,
                  ops.accelerations_symmetric_mxu_reference, pos, m, label,
-                 n * (n - 1) // 2, FLOPS_PER_UNORDERED_PAIR, False,
+                 n * (n - 1) // 2, FLOPS_PER_UNORDERED_PAIR, n == ODD_N,
                  MXU_ATOL_OF_SCALE)
             continue
         got = ops.accelerations_symmetric_mxu(pos, m)

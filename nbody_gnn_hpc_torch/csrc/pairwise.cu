@@ -31,12 +31,29 @@
 // launch shape is a function of the shape and the device alone, so reruns
 // are bit-identical.
 //
-// Kernel 3 (tiled). One thread per receiver i, 128 receivers per block, the
-// batch on grid.y. Sources are staged through shared memory as float4
-// (x, y, z, G*m), 128 at a time; a thread keeps its three sums in registers
-// and adds sources in ascending j.
+// Kernel 3 (tiled, the public all-pairs form; the oracle of kernel 6). The
+// work is flattened over the ensemble as in kernel 4: a receiver group is r
+// consecutive receivers of one system (register tiling: one staged source
+// serves r pairs), and k lanes share a group. The k lanes are k / KL slices
+// of KL <= 32 lanes. The block stages the sources of every system its
+// groups touch through shared memory as float4 (x, y, z, G*m), `tile`
+// sources of each system at a time (the last tile filled with zero-mass
+// sources to a multiple of k); slice s of a group takes the s-th of k / KL
+// equal parts of each tile, and its lane p the entries p, p + KL, ... of
+// that part in ascending order. A slice's KL partial sums are added by xor
+// shuffles, then the slices' sums in slice order through shared memory: a
+// fixed order. Two tile buffers: the loads of tile t + 1 are issued into
+// registers before tile t's pairs and stored after them, so one barrier a
+// tile suffices and the copy overlaps the arithmetic. (r, k, threads, tile)
+// come from ops.pairwise.tiled_schedule(B, N, SM count): the largest r of
+// 4, 2, 1 and the least k that give every SM 16 warps with at least 32
+// sources a lane, and blocks sized so that one block an SM holds the whole
+// grid where it fits: (4, 32, 608, 1216) at N = 10,000, 132 blocks of 19
+// warps; (1, 64, 1024, 1536) at N = 2,085, 131 blocks of 32. Its form
+// before (one thread a receiver, blocks of 128) left 53 of 132 SMs idle at
+// N = 10,000 and ran each receiver's sources as one chain of dependent adds.
 //
-// What bounds kernels 4 and 6 on an H100. The card's float32 rate (67
+// What bounds kernels 3, 4 and 6 on an H100. The card's float32 rate (67
 // TFLOP/s, an FMA counted as two) and its rsqrt rate (16 a clock an SM, 1/8
 // of the FMA lanes) give the bounds the benchmark divides by: per ordered
 // pair (kernels 3, 4) 18 float32 operations and one rsqrt, per unordered
@@ -53,7 +70,11 @@
 // several receivers. At 4 x 132 warp instructions a clock (the card holds
 // 1.98 GHz under these kernels) that is ~6 us for 300 systems of N = 200
 // (12e6 pairs; bound 3.2 us) and ~32 us for N = 10,000 (5e7 unordered
-// pairs, ~21.5 slots each with the loads and shuffles; bound 18.7 us);
+// pairs, ~21.5 slots each with the loads and shuffles; bound 18.7 us).
+// Kernel 3 computes every ordered pair, the self pair included: 1e8 at
+// N = 10,000 at 16.25 slots (the load shared by r = 4 receivers), ~48.6 us
+// (bound 26.9 us), and 4.35e6 at N = 2,085 at 17 slots (r = 1), ~2.2 us
+// (bound 1.2 us); staging and the sums' shuffles add ~1 % and ~15 %.
 // FMA-only code sustains 86 % of the issue rate on this card. The rsqrt
 // is rsqrt.approx.ftz: rsqrtf without flush-to-zero adds a denormal fix-up
 // of three instructions a pair. Its argument d^2 + eps^2 is normal for any
@@ -109,7 +130,7 @@
 // 24 warps an SM hold them all at once) and N = 2,085 2,211 items of
 // 32 x 32.
 //
-// Both kernels, and kernel 6's slot sum, are launched as programmatic
+// Kernels 3, 4 and 6, and kernel 6's slot sum, are launched as programmatic
 // dependents (launch_dependent): each may start while the kernel ahead of
 // it drains and waits (griddepcontrol.wait) before its first read.
 
@@ -121,10 +142,12 @@
 namespace {
 
 constexpr float kG = 6.67430e-11f;
-constexpr int kTile = 128;      // kernels 3 and 5: receivers and sources a tile
+constexpr int kTile = 128;      // kernel 5: particles a tile
 constexpr int kMaxSmallN = 1024;
 constexpr int kSymWarps = 4;  // kernel 6: items (warps) a block
 constexpr int kSumParts = 8;  // kernel 6's slot sum: lanes a column
+constexpr int kTiledStage = 2;  // kernel 3: sources a thread stages a tile
+constexpr int kTiledSmem = 48 * 1024;  // kernel 3: what it takes unasked
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // One source as staged in shared memory: (x, y, z, G*m); beyond n a
@@ -136,54 +159,6 @@ __device__ __forceinline__ float4 load_source(const float* __restrict__ pos,
   return make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2], kG * mass[j]);
 }
 
-// Adds source p's pull on a receiver at (xi, yi, zi): f = G m_j / r^3,
-// selected to zero for a coincident pair, times the displacement.
-__device__ __forceinline__ void add_source(const float4 p, float xi, float yi,
-                                           float zi, float soft2, float& ax,
-                                           float& ay, float& az) {
-  const float dx = p.x - xi, dy = p.y - yi, dz = p.z - zi;
-  const float d2 = dx * dx + dy * dy + dz * dz;
-  const float inv_r = rsqrtf(d2 + soft2);
-  const float f = d2 > 0.f ? p.w * (inv_r * inv_r * inv_r) : 0.f;
-  ax += f * dx;
-  ay += f * dy;
-  az += f * dz;
-}
-
-// Kernel 3. grid (ceil(n / kTile), b), block kTile.
-__global__ void __launch_bounds__(kTile)
-pairwise_tiled_kernel(const float* __restrict__ pos,
-                      const float* __restrict__ mass, float* __restrict__ acc,
-                      int n, float soft2) {
-  __shared__ float4 src[kTile];
-  const size_t sys = blockIdx.y;
-  pos += sys * n * 3;
-  mass += sys * n;
-  acc += sys * n * 3;
-  const int i = blockIdx.x * kTile + threadIdx.x;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (i < n) {
-    xi = pos[3 * i];
-    yi = pos[3 * i + 1];
-    zi = pos[3 * i + 2];
-  }
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kTile) {
-    src[threadIdx.x] = load_source(pos, mass, j0 + threadIdx.x, n);
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < kTile; ++t) {
-      add_source(src[t], xi, yi, zi, soft2, ax, ay, az);
-    }
-    __syncthreads();
-  }
-  if (i < n) {
-    acc[3 * i] = ax;
-    acc[3 * i + 1] = ay;
-    acc[3 * i + 2] = az;
-  }
-}
-
 // 1 / sqrt(x) by the special-function unit, denormals flushed (see the note).
 __device__ __forceinline__ float rsqrt_ftz(float x) {
   float r;
@@ -191,8 +166,9 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
   return r;
 }
 
-// Source p's pull on receiver q, as add_source (kernel 4, and kernel 6's
-// diagonal tile pairs).
+// Adds source p's pull on receiver q: f = G m_j / r^3, selected to zero for
+// a coincident pair, times the displacement (kernels 3 and 4, and kernel
+// 6's diagonal tile pairs).
 __device__ __forceinline__ void add_pull(const float4 p, const float4 q,
                                          float soft2, float& ax, float& ay,
                                          float& az) {
@@ -306,6 +282,156 @@ pairwise_small_kernel(const float* __restrict__ pos,
     }
   }
   if (mine >= total || part != 0) return;
+  float* out = acc + (static_cast<size_t>(sys) * n + i0) * 3;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if (i0 + q < n) {
+      out[3 * q] = ax[q];
+      out[3 * q + 1] = ay[q];
+      out[3 * q + 2] = az[q];
+    }
+  }
+}
+
+// Kernel 3: entry e of a staged tile, source j0 + e % cnt of system
+// sys0 + e / cnt (zero-mass beyond n), and its slot in the buffer, `tile`
+// entries a system.
+__device__ __forceinline__ float4 tiled_entry(const float* __restrict__ pos,
+                                              const float* __restrict__ mass,
+                                              int sys0, int span, int n,
+                                              int j0, int cnt, int tile,
+                                              int e, int& slot) {
+  const int s = span == 1 ? 0 : e / cnt;
+  const int j = e - s * cnt;
+  slot = s * tile + j;
+  const size_t sys = static_cast<size_t>(sys0) + s;
+  return load_source(pos + sys * n * 3, mass + sys * n, j0 + j, n);
+}
+
+// Kernel 3. Block x takes receiver groups [x * blockDim.x / k, ...) of the
+// ensemble (a group: R consecutive receivers of one system, k = KL * slices
+// lanes); dynamic shared memory holds two tile buffers of `tile` sources of
+// every system those groups touch.
+template <int R, int KL>
+__global__ void __launch_bounds__(R == 4 ? 640 : 1024)
+pairwise_tiled_kernel(const float* __restrict__ pos,
+                      const float* __restrict__ mass, float* __restrict__ acc,
+                      int b, int n, float soft2, int k, int tile) {
+  extern __shared__ float4 tiled_src[];
+  constexpr int kUnroll = 8 / R;
+  const int slices = k / KL;
+  const int per_block = blockDim.x / k;    // receiver groups a block
+  const int groups = (n + R - 1) / R;      // receiver groups a system
+  const int total = b * groups;            // < 2^31: checked at the launch
+  const int first = blockIdx.x * per_block;
+  const int last = (first + per_block < total ? first + per_block : total) - 1;
+  const int sys0 = first / groups;
+  const int span = last / groups - sys0 + 1;
+  // Thread t: slice t / (per_block KL), then group, then lane within KL.
+  const int slice = threadIdx.x / (per_block * KL);
+  const int local = threadIdx.x / KL - slice * per_block;
+  const int part = threadIdx.x % KL;
+  // A group past the ensemble's end computes the last one again and writes
+  // nothing: every lane of a warp takes part in the shuffles.
+  const int mine = first + local;
+  const int g = mine < total ? mine : total - 1;
+  const int sys = g / groups;
+  const int i0 = (g - sys * groups) * R;
+  wait_for_prior_grids();
+  const float* spos = pos + static_cast<size_t>(sys) * n * 3;
+  float4 self[R];
+  float ax[R], ay[R], az[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = i0 + q < n ? i0 + q : n - 1;
+    self[q] = make_float4(spos[3 * i], spos[3 * i + 1], spos[3 * i + 2], 0.f);
+    ax[q] = ay[q] = az[q] = 0.f;
+  }
+  float4* cur = tiled_src;
+  float4* nxt = tiled_src + span * tile;
+  {
+    const int cnt = (min(tile, n) + k - 1) / k * k;
+    for (int e = threadIdx.x; e < span * cnt; e += blockDim.x) {
+      int slot;
+      const float4 v =
+          tiled_entry(pos, mass, sys0, span, n, 0, cnt, tile, e, slot);
+      cur[slot] = v;
+    }
+  }
+  __syncthreads();
+  const int own = (sys - sys0) * tile;  // this group's system in a buffer
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    // This tile's staged sources a system, and the next one's.
+    const int cnt = (min(tile, n - j0) + k - 1) / k * k;
+    const int j1 = j0 + tile;
+    const int next_cnt = j1 < n ? (min(tile, n - j1) + k - 1) / k * k : 0;
+    float4 ahead[kTiledStage];
+    int slot[kTiledStage];
+#pragma unroll
+    for (int u = 0; u < kTiledStage; ++u) {
+      const int e = threadIdx.x + u * blockDim.x;
+      slot[u] = -1;
+      ahead[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < span * next_cnt) {
+        ahead[u] = tiled_entry(pos, mass, sys0, span, n, j1, next_cnt, tile,
+                               e, slot[u]);
+      }
+    }
+    const float4* src = cur + own + slice * (cnt / slices) + part;
+    const int steps = cnt / k;
+#pragma unroll kUnroll
+    for (int t = 0; t < steps; ++t) {
+      const float4 p = src[t * KL];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        add_pull(p, self[q], soft2, ax[q], ay[q], az[q]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTiledStage; ++u) {
+      if (slot[u] >= 0) nxt[slot[u]] = ahead[u];
+    }
+    __syncthreads();
+    float4* done = cur;
+    cur = nxt;
+    nxt = done;
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+#pragma unroll
+    for (int off = KL / 2; off > 0; off >>= 1) {
+      ax[q] += __shfl_xor_sync(kFullMask, ax[q], off);
+      ay[q] += __shfl_xor_sync(kFullMask, ay[q], off);
+      az[q] += __shfl_xor_sync(kFullMask, az[q], off);
+    }
+  }
+  if (slices > 1) {
+    // The loop's last barrier freed the buffers: slices 1.. leave their
+    // sums there, and slice 0 adds them in slice order.
+    float* red = reinterpret_cast<float*>(tiled_src);
+    if (slice > 0 && part == 0) {
+      float* out = red + ((slice - 1) * per_block + local) * 3 * R;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        out[3 * q] = ax[q];
+        out[3 * q + 1] = ay[q];
+        out[3 * q + 2] = az[q];
+      }
+    }
+    __syncthreads();
+    if (slice == 0 && part == 0) {
+      for (int s = 1; s < slices; ++s) {
+        const float* in = red + ((s - 1) * per_block + local) * 3 * R;
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          ax[q] += in[3 * q];
+          ay[q] += in[3 * q + 1];
+          az[q] += in[3 * q + 2];
+        }
+      }
+    }
+  }
+  if (mine >= total || slice != 0 || part != 0) return;
   float* out = acc + (static_cast<size_t>(sys) * n + i0) * 3;
 #pragma unroll
   for (int q = 0; q < R; ++q) {
@@ -665,19 +791,65 @@ cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
 // Plain C entry points, called through ctypes. pos (b, n, 3), mass (b, n),
 // acc (b, n, 3) float32, contiguous, on one device; soft2 = eps^2. The
 // symmetric forms (kernels 6 and 5) take one system (n, 3) and a
-// (slots, n, 3) float32 scratch, one slot per tile. Kernel 4 and 6 take
+// (slots, n, 3) float32 scratch, one slot per tile. Kernels 3, 4 and 6 take
 // their schedule (ops/pairwise.py). They launch on `stream` and return
 // cudaGetLastError() (0 on success).
 
+using TiledKernel = void (*)(const float*, const float*, float*, int, int,
+                            float, int, int);
+
+template <int R>
+TiledKernel tiled_kernel(int kl) {
+  return kl == 1    ? pairwise_tiled_kernel<R, 1>
+         : kl == 2  ? pairwise_tiled_kernel<R, 2>
+         : kl == 4  ? pairwise_tiled_kernel<R, 4>
+         : kl == 8  ? pairwise_tiled_kernel<R, 8>
+         : kl == 16 ? pairwise_tiled_kernel<R, 16>
+         : kl == 32 ? pairwise_tiled_kernel<R, 32> : nullptr;
+}
+
+// Kernel 3: r receivers a group, k lanes a group (a power of two; KL =
+// min(k, 32) of them in a warp), `tile` sources of each system staged at a
+// time (a multiple of k); ops.pairwise.tiled_schedule.
 extern "C" int nbody_pairwise_tiled(const float* pos, const float* mass,
                                     float* acc, int b, int n, float soft2,
+                                    int r, int k, int threads, int tile,
                                     void* stream) {
-  if (b < 0 || n < 0 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 0 || n < 0 || b > 65535 || k < 1 || (k & (k - 1)) != 0 ||
+      threads % 32 != 0 || threads < 32 || threads > (r == 4 ? 640 : 1024) ||
+      threads % k != 0 || tile < k || tile % k != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (b == 0 || n == 0) return 0;
-  const dim3 grid((n + kTile - 1) / kTile, b);
-  pairwise_tiled_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      pos, mass, acc, n, soft2);
-  return static_cast<int>(cudaGetLastError());
+  const int kl = std::min(k, 32);
+  const TiledKernel kernel = r == 1   ? tiled_kernel<1>(kl)
+                             : r == 2 ? tiled_kernel<2>(kl)
+                             : r == 4 ? tiled_kernel<4>(kl) : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long groups = (n + r - 1) / r;
+  const long long total = groups * b;
+  if (total + threads > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The most systems one block's groups touch; each thread stages at most
+  // kTiledStage sources of a tile.
+  const int per_block = threads / k;
+  const long long span =
+      std::min<long long>(b, (groups + per_block - 2) / groups + 1);
+  if (span * tile > static_cast<long long>(kTiledStage) * threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = std::max<size_t>(
+      2 * span * tile * sizeof(float4),
+      static_cast<size_t>(threads / kl) * 3 * r * sizeof(float));
+  if (smem > static_cast<size_t>(kTiledSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>((total + per_block - 1) /
+                                                per_block);
+  return static_cast<int>(launch_dependent(
+      kernel, blocks, threads, smem, static_cast<cudaStream_t>(stream), pos,
+      mass, acc, b, n, soft2, k, tile));
 }
 
 extern "C" int nbody_pairwise_small(const float* pos, const float* mass,

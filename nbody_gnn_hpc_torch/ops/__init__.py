@@ -20,7 +20,7 @@ from nbody_gnn_hpc_torch.ops.pairwise import (
     accelerations_symmetric, accelerations_symmetric_mxu,
     accelerations_symmetric_mxu_reference, accelerations_symmetric_reference,
     accelerations_tiled, accelerations_tiled_reference, small_schedule,
-    sym_schedule)
+    sym_schedule, tiled_schedule)
 from nbody_gnn_hpc_torch.ops.probes import (fma_probe, fma_probe_reference,
                                             rsqrt_probe,
                                             rsqrt_probe_reference)

@@ -5,8 +5,10 @@ Port of ``nbody_gnn_hpc_tpu/ops/pairwise.py``:
 
     a_i = sum_j G m_j (x_j - x_i) / (|x_j - x_i|^2 + eps^2)^{3/2}
 
-- :func:`accelerations_tiled` (kernel 3, ``pallas_accelerations``): one
-  thread per receiver, sources staged in tiles; (N, 3) or (B, N, 3).
+- :func:`accelerations_tiled` (kernel 3, ``pallas_accelerations``): (N, 3)
+  or (B, N, 3); receivers flattened over the ensemble in groups of r, k
+  lanes a group splitting the sources, which are staged through shared
+  memory in tiles, double-buffered (:func:`tiled_schedule`).
 - :func:`accelerations_small` (kernel 4, ``pallas_accelerations_small``):
   N <= ``SMALL_MAX_N``; an ensemble (B, N, 3) is one launch (what
   ``jax.vmap`` of the TPU kernel gave), its receivers flattened over the
@@ -43,7 +45,7 @@ import torch
 
 from nbody_gnn_hpc_torch.device import G, SOFTENING, sm_count
 
-TILE = 128          # kernel 3's receivers a block / the plain versions' tile
+TILE = 128          # the plain versions' tile
 SMALL_MAX_N = 1024  # kernel 4 stages a whole system in shared memory
 # Kernel 4: lanes a receiver grow until the grid gives every SM
 # SMALL_WARPS_PER_SM warps; two receivers a group where that still leaves
@@ -51,6 +53,14 @@ SMALL_MAX_N = 1024  # kernel 4 stages a whole system in shared memory
 # whose triangle gives every SM SYM_WARPS_PER_SM warps.
 SMALL_WARPS_PER_SM, SMALL_PAIRED_MIN_WARPS, SYM_WARPS_PER_SM = 24, 8, 16
 SMALL_SMEM = 48 * 1024  # kernel 4 stages at most what a launch takes unasked
+# Kernel 3: receivers a group (r) and lanes a group (k) until the grid gives
+# every SM TILED_WARPS_PER_SM warps, a lane taking at least
+# TILED_MIN_SOURCES sources; each thread stages at most TILED_STAGE sources
+# of a tile into one of two buffers, which together take at most
+# TILED_SMEM; launch bounds cap a block at TILED_MAX_THREADS[r] threads.
+TILED_WARPS_PER_SM, TILED_MIN_SOURCES, TILED_STAGE = 16, 32, 2
+TILED_SMEM = 48 * 1024
+TILED_MAX_THREADS = {4: 640, 2: 1024, 1: 1024}
 
 
 def small_schedule(b: int, n: int, sm_count: int) -> tuple:
@@ -91,9 +101,52 @@ def small_schedule(b: int, n: int, sm_count: int) -> tuple:
 
 
 def small_staged(b: int, n: int, r: int, k: int, threads: int) -> int:
-    """The most systems one block of kernel 4 stages (its groups' span)."""
+    """The most systems one block of kernel 4 (or 3, a tile of each)
+    stages: its groups' span."""
     per_system, per_block = -(-n // r), threads // k
     return min(b, (per_system + per_block - 2) // per_system + 1)
+
+
+def tiled_schedule(b: int, n: int, sm_count: int) -> tuple:
+    """(r, k, threads, tile) of kernel 3: receivers a lane group, lanes a
+    group, threads a block and sources of each system staged a tile.
+
+    Receivers are flattened over the ensemble as in kernel 4: a group is
+    ``r`` consecutive receivers of one system, ``k`` lanes share it (up to
+    32 in a warp, the rest in slices across warps), and groups are dealt to
+    blocks in order.  ``r`` is the largest of 4, 2, 1 (at most N / 4) and
+    ``k`` the least power of two (at most N / ``TILED_MIN_SOURCES``) that
+    give every SM ``TILED_WARPS_PER_SM`` warps; else ``r`` = 1 and the
+    largest ``k``.  A block is sized so that one block an SM holds the whole
+    grid where ``TILED_MAX_THREADS`` allows (whole warps, whole groups), or
+    two, three, ... blocks an SM.  ``tile`` is the most sources of each
+    system the block's threads stage at ``TILED_STAGE`` apiece into two
+    buffers of ``TILED_SMEM``, a multiple of ``k``: at N=10,000 (4, 32,
+    608, 1216), at N=2,085 (1, 64, 1024, 1536) on 132 SMs.  A function of
+    the shape and the SM count alone, so reruns on one card are
+    bit-identical.
+    """
+    target = sm_count * TILED_WARPS_PER_SM * 32
+    parts = [k for k in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+             if k == 1 or k * TILED_MIN_SOURCES <= n]
+    r, k = 1, parts[-1]
+    for rows in (4, 2, 1):
+        fill = [p for p in parts if b * -(-n // rows) * p >= target]
+        if fill and (rows == 1 or 4 * rows <= n):
+            r, k = rows, fill[0]
+            break
+    groups = b * -(-n // r)
+    unit = max(32, k)
+    for per_sm in itertools.count(1):
+        lanes = -(-groups // (sm_count * per_sm)) * k
+        threads = max(unit, -(-lanes // unit) * unit)
+        if threads > TILED_MAX_THREADS[r]:
+            continue
+        room = min(TILED_STAGE * threads, TILED_SMEM // (2 * 16))
+        tile = min(-(-n // k) * k,
+                   room // small_staged(b, n, r, k, threads) // k * k)
+        if tile >= k:
+            return r, k, threads, tile
 
 
 def sym_schedule(n: int, sm_count: int) -> int:
@@ -274,7 +327,8 @@ def accelerations_tiled(positions: torch.Tensor, masses: torch.Tensor,
     """Tiled all-pairs accelerations (kernel 3; JAX counterpart
     ``pallas_accelerations``).  positions (N, 3) or (B, N, 3) float32,
     masses (N,) or (B, N) -> accelerations shaped as positions.  CUDA
-    tensors launch the kernel (``launches`` counts it), CPU tensors take
+    tensors launch the kernel on the grid of :func:`tiled_schedule`
+    (``launches`` counts it), CPU tensors take
     :func:`accelerations_tiled_reference`."""
     if positions.device.type == "cpu":
         return accelerations_tiled_reference(positions, masses, softening)
@@ -282,8 +336,9 @@ def accelerations_tiled(positions: torch.Tensor, masses: torch.Tensor,
     b, n, _ = pos.shape
     acc = torch.empty_like(pos)
     _launch("nbody_pairwise_tiled", accelerations_tiled, pos.device,
-            (_P, _P, _P, _I, _I, _F), pos.data_ptr(), m.data_ptr(),
-            acc.data_ptr(), b, n, float(softening) ** 2)
+            (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I), pos.data_ptr(),
+            m.data_ptr(), acc.data_ptr(), b, n, float(softening) ** 2,
+            *tiled_schedule(b, n, sm_count(pos.device.index)))
     return acc.view(positions.shape)
 
 

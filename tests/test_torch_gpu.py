@@ -383,7 +383,12 @@ def _force_kernels():
 # default batch, a large B with a ragged and with the largest N, two
 # blocks an SM of an odd count of warps (B=256, N=926); kernel 6
 # at tiny N, the dispatch's least N and one below and one above a multiple
-# of each tile it takes on an H100 (32, 64, 128 particles).
+# of each tile it takes on an H100 (32, 64, 128 particles); kernel 3
+# (ops.tiled_schedule on an H100's 132 SMs) at tiny N, a last tile one short
+# (2,047, 9,727) and of one source (4,097, 9,729), one above a multiple of k
+# (2,049), ragged receiver groups (2,111, 4,097, 9,727, 9,729), k split
+# into 2 and 4 slices (2,049 to 4,097), N=10,000, and blocks that stage two
+# and four systems (B=3 at N=2,085, B=300 at N=200).
 @pytest.mark.parametrize("name,n,batch", [
     ("tiled", 700, None), ("tiled", 2085, None), ("tiled", 128, None),
     ("tiled", 200, 5), ("symmetric", 700, None), ("symmetric", 2085, None),
@@ -395,7 +400,11 @@ def _force_kernels():
     ("symmetric", 2048, None), ("symmetric", 2079, None),
     ("symmetric", 2081, None), ("symmetric", 4159, None),
     ("symmetric", 4161, None), ("symmetric", 9983, None),
-    ("symmetric", 9985, None)])
+    ("symmetric", 9985, None),
+    ("tiled", 1, None), ("tiled", 3, None), ("tiled", 2047, None),
+    ("tiled", 2049, None), ("tiled", 2111, None), ("tiled", 4097, None),
+    ("tiled", 9727, None), ("tiled", 9729, None), ("tiled", 10000, None),
+    ("tiled", 2085, 3), ("tiled", 200, 300)])
 def test_force_kernel_matches_plain_version(cuda, name, n, batch):
     kernel, plain = _force_kernels()[name]
     pos, m = _system(n, cuda, seed=n, batch=batch)

@@ -322,3 +322,104 @@ def test_symmetric_schedule_at_the_simulate_shapes():
     assert ops.sym_schedule(2_085, 132) == 1   # 2,211 pairs of 32-tiles
     assert ops.sym_schedule(5_000, 132) == 2
     assert ops.sym_schedule(10_000, 8) == 4
+
+
+def _tiled_lanes(b, n, r, k, threads):
+    """Per thread of kernel 3's grid (pairwise_tiled_kernel): (block, live,
+    system, first receiver, slice, part), and per block the systems it
+    stages (first, count)."""
+    kl = min(k, 32)
+    groups = -(-n // r)
+    total = b * groups
+    per_block = threads // k
+    blocks = -(-total // per_block)
+    t = np.arange(blocks * threads)
+    block, tid = t // threads, t % threads
+    sl = tid // (per_block * kl)
+    local = tid // kl - sl * per_block
+    mine = block * per_block + local
+    g = np.minimum(mine, total - 1)
+    sys = g // groups
+    first = np.arange(blocks) * per_block
+    last = np.minimum(first + per_block, total) - 1
+    sys0 = first // groups
+    staged = (sys0, last // groups - sys0 + 1)
+    return (block, mine < total, sys, (g - sys * groups) * r, sl, tid % kl,
+            staged)
+
+
+def _tiled_sources(n, k, tile):
+    """Kernel 3's source entries of each (slice, part) of a group over all
+    tiles, as (entry j, slice, part, tile start, staged count)."""
+    kl = min(k, 32)
+    slices = k // kl
+    out = []
+    for j0 in range(0, n, tile):
+        cnt = -(-min(tile, n - j0) // k) * k
+        for s in range(slices):
+            for p in range(kl):
+                for t in range(cnt // k):
+                    out.append((j0 + s * (cnt // slices) + p + kl * t, s, p,
+                                j0, cnt))
+    return np.array(out, np.int64).reshape(-1, 5)
+
+
+@pytest.mark.parametrize("sm_count", [132, 8])
+@pytest.mark.parametrize("b,n", [(b, n) for b in (1, 5, 300)
+                                 for n in (1, 3, 127, 128, 129, 700, 2085,
+                                           10_000)] + [(65535, 13)])
+def test_tiled_schedule_covers_every_pair_once(b, n, sm_count):
+    """Every (system, receiver) is written by exactly one lane, every group
+    has its k lanes (whole KL-lane runs inside one warp for the shuffles),
+    the lanes of a group split the sources of every tile into a partition
+    of range(N) (the rest zero-mass padding inside the staged count), so
+    each ordered pair (i, j) of every system is added exactly once, and
+    every block's staged systems hold its groups' and fit its buffers."""
+    r, k, threads, tile = ops.tiled_schedule(b, n, sm_count)
+    assert r in (1, 2, 4) and k in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+    assert k == 1 or k * ops.pairwise.TILED_MIN_SOURCES <= n
+    assert threads % 32 == 0 and threads % k == 0
+    assert threads <= ops.pairwise.TILED_MAX_THREADS[r]
+    assert tile >= k and tile % k == 0
+    kl = min(k, 32)
+    block, live, sys, i0, sl, part, (sys0, span) = _tiled_lanes(
+        b, n, r, k, threads)
+    written = np.zeros((b, n), np.int64)
+    for q in range(r):
+        keep = live & (sl == 0) & (part == 0) & (i0 + q < n)
+        np.add.at(written, (sys[keep], i0[keep] + q), 1)
+    assert (written == 1).all()
+    groups = b * -(-n // r)
+    lanes = np.zeros((groups, k // kl, kl), np.int64)
+    mine = (sys * -(-n // r) + i0 // r)[live]
+    np.add.at(lanes, (mine, sl[live], part[live]), 1)
+    assert (lanes == 1).all()
+    # A shuffle partner (xor below KL) is in the same warp and group.
+    warp_run = (np.arange(len(block)) % threads) // kl
+    assert (warp_run * kl // 32 == (warp_run * kl + kl - 1) // 32).all()
+    src = _tiled_sources(n, k, tile)
+    hits = np.bincount(src[src[:, 0] < n, 0], minlength=n)
+    assert (hits == 1).all()
+    assert (src[:, 0] - src[:, 3] < src[:, 4]).all()
+    assert (src[:, 4] <= tile).all()
+    assert ((sys >= sys0[block]) & (sys < sys0[block] + span[block])).all()
+    most = ops.pairwise.small_staged(b, n, r, k, threads)
+    assert span.max() <= most
+    assert most * tile <= ops.pairwise.TILED_STAGE * threads
+    smem = max(2 * most * tile * 16, threads // kl * 3 * r * 4)
+    assert smem <= ops.pairwise.TILED_SMEM
+
+
+def test_tiled_schedule_is_pure_and_fills_the_card():
+    """The same shape gives the same launch; at the oracle's shapes (B=1,
+    N=10,000 and 2,085) on an H100's 132 SMs the grid gives every SM at
+    least 16 warps."""
+    for n, want in ((10_000, (4, 32, 608, 1216)),
+                    (2_085, (1, 64, 1024, 1536))):
+        got = ops.tiled_schedule(1, n, 132)
+        assert got == want == ops.tiled_schedule(1, n, 132)
+        r, k, threads, _ = got
+        groups = -(-n // r)
+        blocks = -(-groups // (threads // k))
+        assert blocks <= 132
+        assert blocks * threads // 32 >= 16 * 132
