@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. Environment: the card's name and power limit (nvidia-smi); no CUDA
    device is a failure.
 2. Build every CUDA kernel of the paths from ``nbody_gnn_hpc_torch/csrc``
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together); print each kernel's
+   registers, spills, static shared memory and SASS instruction count.
 3. Each kernel against its plain PyTorch version on the card, on the
    production checkpoint's layer-0 operands with evaluation-protocol states
    (box 10, seeds 9999+i, masses from seed 42): the edge forward (kernel 1)
@@ -37,12 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
    neutrality; a coincident heavy pair; zero-mass rows.
    The moment form
    (kernel 5, tensor-core products, dispatched by nothing) at N=700 offset
-   by 300 and N=2,085, rtol 2e-4 with atol 2e-5 of scale, and at N=10,000
-   against a float64 direct sum at the same tolerance, its per-particle
-   difference from its plain version and from kernel 6 reported; it must
-   then stay unlaunched on every path below (its launches are this
-   script's own, "oracle").  Reruns must be
-   bit-identical (no float atomics).  Times with CUDA events, bounds from
+   by 300 and N=2,085, rtol 2e-4 with atol 2e-5 of scale, at the edges of
+   its schedule (``MXU_EDGE_N``), and at N=10,000 against a float64 direct
+   sum at the same tolerance, its per-particle difference from its plain
+   version and from kernel 6 reported; it must then stay unlaunched on
+   every path below (its launches are this script's own, "oracle").
+   Reruns must be bit-identical (no float atomics).  Times with CUDA events, bounds from
    the bytes and float32 operations of each call; the keep fraction of the
    mask against 1-p.  The whole-layer kernel (kernel 7) on the checkpoint's
    layer 0 against ``fused_full_layer_reference`` at B=1, 8 (inference
@@ -332,6 +333,15 @@ SYM_EDGE_N = (1, 3, 2_048, 2_079, 2_081, 4_159, 4_161, 9_983, 9_985)
 # 4,097), blocks that stage two and four systems (3 x 2,085, 300 x 200).
 TILED_EDGE = ((1, 1), (1, 3), (1, 2_047), (1, 2_049), (1, 2_111), (1, 4_097),
               (1, 9_727), (1, 9_729), (3, ODD_N), (300, 200))
+# Kernel 5 at the edges of its schedule (ops.mma_schedule on 132 SMs): tiny
+# systems (tiles of 32), one below and one above a multiple of the tile it
+# takes near N=2,085 (64: 2,048, 2,112) and N=10,000 (128: 9,984).  From
+# MXU_F64_MIN_N on it is held, as at N=10,000, to the float64 direct sum:
+# there the float32 plain version itself misses that sum by ~2.8 times the
+# tolerance (the moment form's close-pair rounding), so no implementation
+# of the form could be held to it.
+MXU_EDGE_N = (1, 2, 127, 129, 2_047, 2_049, 2_111, 2_113, 9_983, 9_985)
+MXU_F64_MIN_N = 9_000
 # Large-N /simulate against the CPU service, per particle: at N=10,000 in a
 # box of 10 the closest pairs sit ~1e-3 apart, where one ulp of a position
 # (5e-7) changes the pair force by ~1e-3, so a max-abs tolerance would
@@ -366,23 +376,26 @@ PIPELINE_LOG = Path("build/chip_smoke_pipeline.log")  # git-ignored
 
 
 def _kernel_name(mangled: str) -> str:
-    """``name<args>`` of a mangled kernel: the length-prefixed name that
-    ends in ``_kernel`` and its integer template arguments."""
+    """``name<args>`` of a mangled kernel: the shortest length-prefixed
+    name that ends in ``_kernel`` (a hash's digits may run into the length
+    and make a longer one) and its integer template arguments."""
+    found = []
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
-        for k in range(len(digits)):  # a hash's digits may run into it
+        for k in range(len(digits)):
             end = m.end() + int(digits[k:])
             name = mangled[m.end():end]
             if name.endswith("_kernel"):
                 args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
                 values = re.findall(r"-?\d+", args[1]) if args else []
-                return name + (f"<{','.join(values)}>" if values else "")
-    return mangled
+                found.append(name + (f"<{','.join(values)}>" if values
+                                     else ""))
+    return min(found, key=len) if found else mangled
 
 
 def ptxas_report(log: str) -> list:
-    """(kernel, "N registers, spills") of each entry function in an nvcc
-    ``-Xptxas -v`` log."""
+    """(kernel, "N registers, spills, static shared memory") of each entry
+    function in an nvcc ``-Xptxas -v`` log."""
     out, entry, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -391,10 +404,32 @@ def ptxas_report(log: str) -> list:
             spill = line.strip()
         elif "registers" in line and entry:
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             out.append((entry, f"{regs.group(1) if regs else '?'} registers, "
-                               f"{spill}"))
+                               f"{spill}, {smem.group(1) if smem else 0} "
+                               f"bytes static shared memory"))
             entry = None
     return out
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: SASS instructions, NOPs aside} of each function in a built
+    library, by ``cuobjdump -sass`` (empty where the tool is missing):
+    static counts, so the body of a loop the compiler unrolled counts once
+    an iteration and that of a loop it kept, once."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not (Path(tool).exists() and lib.exists()):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+            counts[name] += 1
+    return counts
 
 
 def fail(msg: str) -> None:
@@ -1403,6 +1438,46 @@ def phase_force_kernels(dev):
     # is reported.
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is enabled: kernel 5's plain version needs float32 products")
+
+    def mxu_f64_gate(pos, m, label):
+        # Kernel 5 against the float64 direct sum at the JAX test's
+        # tolerance: finite, one count a call, reruns bit-identical.
+        before = ops.accelerations_symmetric_mxu.launches
+        got = ops.accelerations_symmetric_mxu(pos, m)
+        torch.cuda.synchronize()
+        check(ops.accelerations_symmetric_mxu.launches == before + 1,
+              "pairwise_symmetric_mxu did not count its launch")
+        check(bool(torch.isfinite(got).all()),
+              f"kernel 5 gave non-finite forces at {label}")
+        f64 = direct_f64(pos, m)
+        tol = (MXU_ATOL_OF_SCALE * f64.abs().max().item()
+               + FORCE_RTOL * f64.abs())
+        share = ((got.double() - f64).abs() / tol).max().item()
+        plain = ops.accelerations_symmetric_mxu_reference(pos, m)
+        plain_share = ((plain.double() - f64).abs() / tol).max().item()
+        same = torch.equal(got, ops.accelerations_symmetric_mxu(pos, m))
+        print(f"  {label}: kernel 5 vs the float64 direct sum at rtol "
+              f"{FORCE_RTOL:g}, atol {MXU_ATOL_OF_SCALE:g} of scale: largest "
+              f"difference {share:.3f} of the tolerance -> "
+              f"{'ok' if share <= 1 else 'MISMATCH'}; rerun bit-identical: "
+              f"{same}; its float32 plain version's own difference "
+              f"{plain_share:.3f} (reported)", flush=True)
+        check(share <= 1, f"kernel 5 disagrees with the float64 direct sum at "
+              f"{label}")
+        check(same, "pairwise_symmetric_mxu reruns are not bit-identical")
+        return got, f64, plain
+
+    for n in MXU_EDGE_N:
+        pos, _, m = protocol_system(n, dev)
+        tile, warps = ops.mma_schedule(n, sm_count)
+        label = f"N={n} (tiles of {tile}, {warps} warps a pair)"
+        if n >= MXU_F64_MIN_N:
+            mxu_f64_gate(pos, m, label)
+            continue
+        held("pairwise_symmetric_mxu", ops.accelerations_symmetric_mxu,
+             ops.accelerations_symmetric_mxu_reference, pos, m, label,
+             n * (n - 1) // 2, FLOPS_PER_UNORDERED_PAIR, False,
+             MXU_ATOL_OF_SCALE)
     for n, offset in ((700, 300.0), (ODD_N, 0.0), (LARGE_N, 0.0)):
         pos, _, m = protocol_system(n, dev)
         pos = pos + offset
@@ -1413,10 +1488,8 @@ def phase_force_kernels(dev):
                  n * (n - 1) // 2, FLOPS_PER_UNORDERED_PAIR, n == ODD_N,
                  MXU_ATOL_OF_SCALE)
             continue
-        got = ops.accelerations_symmetric_mxu(pos, m)
-        plain = ops.accelerations_symmetric_mxu_reference(pos, m)
+        got, f64, plain = mxu_f64_gate(pos, m, label)
         k6 = ops.accelerations_symmetric(pos, m)
-        f64 = direct_f64(pos, m)
         for a, b, what in ((got, plain, "kernel 5 vs its plain version"),
                            (got, k6, "kernel 5 vs kernel 6"),
                            (got, f64, "kernel 5 vs the float64 direct sum"),
@@ -1426,19 +1499,8 @@ def phase_force_kernels(dev):
             print(f"  {label}, {what}, per particle: median relative "
                   f"difference {rel.median().item():.3e}, largest "
                   f"{rel.max().item():.3e} (reported)", flush=True)
-        check(bool(torch.isfinite(got).all()),
-              f"kernel 5 gave non-finite forces at {label}")
-        scale = f64.abs().max().item()
-        share = ((got.double() - f64).abs() / (
-            MXU_ATOL_OF_SCALE * scale + FORCE_RTOL * f64.abs())).max().item()
-        print(f"  {label}: kernel 5 vs the float64 direct sum at rtol "
-              f"{FORCE_RTOL:g}, atol {MXU_ATOL_OF_SCALE:g} of scale: largest "
-              f"difference {share:.3f} of the tolerance -> "
-              f"{'ok' if share <= 1 else 'MISMATCH'}", flush=True)
-        check(share <= 1, f"kernel 5 disagrees with the float64 direct sum at "
-              f"{label}")
-        # The time includes the wrapper's centring (a mean and a
-        # subtraction), part of the function as a caller runs it.
+        # The time includes the centring (the kernel's first launch), part
+        # of the function as a caller runs it.
         ms = cuda_time_ms(lambda: ops.accelerations_symmetric_mxu(pos, m))
         plain_ms = cuda_time_ms(
             lambda: ops.accelerations_symmetric_mxu_reference(pos, m), 3, 2, 1)
@@ -1448,7 +1510,7 @@ def phase_force_kernels(dev):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                      "bound_by": bound[1], "pairs": n_pairs,
                      "gpairs_per_s": n_pairs / ms / 1e6})
-        print(f"    kernel with the wrapper's centring {ms:.5f} ms "
+        print(f"    kernel with its centring {ms:.5f} ms "
               f"({n_pairs / ms / 1e6:.1f} G pairs/s), "
               f"plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms "
               f"({bound[1]}: kernel 6's work, whatever implements it); no "
@@ -3770,7 +3832,8 @@ def main(argv=None) -> int:
           f"{torch.version.cuda} | {dev_name}", flush=True)
     from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
     from nbody_gnn_hpc_torch.models import model_from_config
-    from nbody_gnn_hpc_torch.ops.cuda_build import build, build_log
+    from nbody_gnn_hpc_torch.ops.cuda_build import (build, build_log,
+                                                    library_path)
     t_start = time.perf_counter()
 
     # 2. Build
@@ -3780,8 +3843,11 @@ def main(argv=None) -> int:
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in sources:
+        sass = sass_counts(library_path(name))
         for entry, report in ptxas_report(build_log(name)):
-            print(f"    {name}: {entry}: {report}", flush=True)
+            print(f"    {name}: {entry}: {report}, "
+                  f"{sass.get(entry, 'unknown')} SASS instructions",
+                  flush=True)
     dev = torch.device("cuda")
     if args.full_finetune:
         print(f"[10] the production fine-tune {FULL_CURRICULUM}, its "

@@ -1,5 +1,5 @@
 """Time the edge-stream kernels (kernels 1 and 2) and the direct-force
-kernels (kernels 3, 4 and 6) of two checkouts on one card.
+kernels (kernels 3, 4, 5 and 6) of two checkouts on one card.
 
     python -m nbody_gnn_hpc_torch.compare_checkouts --other DIR \
         [--kernels edge|force|all]
@@ -27,10 +27,12 @@ fixed seed, with the device time of each of its launches
 datagen ensembles (``parallel.build_ensemble_state``, ``sim.
 shared_masses``, ``chip_smoke.DATAGEN``) of 300, 100 (the ``generate_data``
 default batch) and 1 systems of N=200, and ``accelerations_symmetric``
-(kernel 6, with the device time of each of its launches) and
-``accelerations_tiled`` (kernel 3) on the evaluation-protocol systems
+(kernel 6), ``accelerations_tiled`` (kernel 3) and
+``accelerations_symmetric_mxu`` (kernel 5, the call as a caller runs it,
+its centring included) on the evaluation-protocol systems
 (``chip_smoke.protocol_system``) of N=10,000 and 2,085 (``LARGE_N``,
-``ODD_N``).
+``ODD_N``); kernels 6 and 5 with the device time of each of their
+launches.
 """
 
 import argparse
@@ -124,6 +126,11 @@ with torch.inference_mode():
         fn()
         torch.cuda.synchronize()
         rows.append({"kernel": 3, "form": f"N={n}", "ms": cuda_time_ms(fn)})
+        fn = lambda: ops.accelerations_symmetric_mxu(pos, m)
+        fn()
+        torch.cuda.synchronize()
+        rows.append({"kernel": 5, "form": f"N={n}", "ms": cuda_time_ms(fn),
+                     "passes": kernel_times_ms(fn)})
 """
 GROUPS = {"edge": ("fused_edge", _EDGE), "force": ("pairwise", _FORCE)}
 
@@ -151,7 +158,7 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path,
                     help="root of the other checkout")
     ap.add_argument("--kernels", choices=("edge", "force", "all"),
-                    default="all", help="kernels 1 and 2 (edge), 3, 4 and 6 "
+                    default="all", help="kernels 1 and 2 (edge), 3, 4, 5 and 6 "
                     "(force), or both")
     args = ap.parse_args(argv)
     groups = tuple(GROUPS) if args.kernels == "all" else (args.kernels,)

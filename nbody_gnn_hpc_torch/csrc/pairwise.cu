@@ -14,7 +14,7 @@
 //             by Newton's third law.
 //   kernel 5  _pairwise_sym_mxu_kernel (pallas_accelerations_symmetric_mxu):
 //             the tile-pair schedule with the mass weighting and the sums
-//             done as tensor-core products (its note is below its code).
+//             done as tensor-core products (its note is above its code).
 // The TPU layout is not carried over: no (8, N_pad) packing, no transposed
 // copy, no padding of N. Positions are read as (N, 3) rows, G*m is formed
 // while a tile is staged, a ragged last tile is filled with zero-mass
@@ -121,18 +121,20 @@
 // Every (slot, row) cell is written by exactly one warp; a second launch
 // adds the slots of each particle, eight lanes a column (each every eighth
 // slot in ascending order, then the eight sums by xor shuffles: a fixed
-// order). Kernel 5's sum_slots_kernel (one thread a column walking every
-// slot, an ordinary launch) made kernel 6 2.1 us slower at N = 2,085,
-// where 66 slots of 6,255 columns fill 25 blocks, and 1.3 us at N = 10,000.
+// order). A sum of one thread a column walking every slot, an ordinary
+// launch, made kernel 6 2.1 us slower at N = 2,085, where 66 slots of
+// 6,255 columns fill 25 blocks, and 1.3 us at N = 10,000; kernel 5 takes
+// this one too.
 // r comes from ops.pairwise.sym_schedule(N, SM count): the largest
 // of 4, 2, 1 whose triangle gives every SM 16 warps, so N = 10,000 runs
 // 3,160 items of 128 x 128 (launch bounds keep it under 80 registers, so
 // 24 warps an SM hold them all at once) and N = 2,085 2,211 items of
 // 32 x 32.
 //
-// Kernels 3, 4 and 6, and kernel 6's slot sum, are launched as programmatic
-// dependents (launch_dependent): each may start while the kernel ahead of
-// it drains and waits (griddepcontrol.wait) before its first read.
+// Every kernel here, the slot sum and kernel 5's centring included, is
+// launched as a programmatic dependent (launch_dependent): each may start
+// while the kernel ahead of it drains and waits (griddepcontrol.wait)
+// before its first read.
 
 #include <algorithm>
 #include <cstdint>
@@ -142,7 +144,6 @@
 namespace {
 
 constexpr float kG = 6.67430e-11f;
-constexpr int kTile = 128;      // kernel 5: particles a tile
 constexpr int kMaxSmallN = 1024;
 constexpr int kSymWarps = 4;  // kernel 6: items (warps) a block
 constexpr int kSumParts = 8;  // kernel 6's slot sum: lanes a column
@@ -575,22 +576,10 @@ sym_sum_kernel(const float* __restrict__ partial, float* __restrict__ acc,
   if (c < cols && part == 0) acc[c] = s;
 }
 
-// Kernel 5, second launch: acc[c] = sum over slots of partial[slot, c], in
-// slot order; cols = 3 n.
-__global__ void sum_slots_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ acc, int slots,
-                                 int cols) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = 0.f;
-  for (int k = 0; k < slots; ++k) s += partial[static_cast<size_t>(k) * cols + c];
-  acc[c] = s;
-}
-
 // Kernel 5 (symmetric, tensor-core moments). The TPU kernel moved the mass
 // weighting and the six reductions of kernel 6 onto the matrix unit through
-// the moment decomposition: with positions centred by the wrapper and
-// W_j = G m_j [1, x_j, y_j, z_j, 0, 0, 0, 0],
+// the moment decomposition: with positions centred by their mean and
+// W_j = G m_j [1, x_j, y_j, z_j],
 //   a_i = sum_j s_ij W_j[1:4] - x_i sum_j s_ij W_j[0],  s = (d^2 + eps^2)^-3/2,
 // so a tile pair's i side is M = s @ W_J and its j side (Newton's third law)
 // Mj = W_I^T @ s, a_j = Mj[1:4] - x_j Mj[0]. On the TPU it was a measured
@@ -598,51 +587,78 @@ __global__ void sum_slots_kernel(const float* __restrict__ partial,
 // are |x| / |d| times the force, so rounding is amplified for close pairs.
 // The port keeps that status: a public function that no entry point calls.
 //
-// Schedule: kernel 6's before its redesign. One block per tile pair
-// (I, J >= I) of 128 x 128 writes partial[J, rows of I] (i side) and
-// partial[I, rows of J] (j side; the diagonal block only the former, over
-// its whole plane), one writer per
-// (slot, tile) cell, and sum_slots_kernel adds the slots in order: no float
-// atomics, reruns are bit-identical.
-//
-// A block of 8 warps stages both tiles and their W rows, builds the s-plane
-// in shared memory (128 rows of 132 floats, 66 KB of dynamic shared memory;
-// zero where d^2 == 0, so a coincident pair and the self pair drop out), and
-// then warp w computes rows 16w..16w+15 of M and of Mj^T = s^T @ W_I with
-// mma.sync m16n8k8 TF32 tensor-core operations over k = 128 in 16 steps:
-// W's width of 8 is exactly the instruction's n. The row pitch of 132 puts
-// the i-side fragment loads on 32 distinct banks; the j side reads the plane
-// transposed, with 2-way conflicts.
+// Three launches, each a programmatic dependent: centre_kernel (one block:
+// the float32 mean of the positions in a fixed order), the pair pass, and
+// kernel 6's slot sum. The pair pass takes the
+// triangle of tile pairs (I, J >= I) of T x T particles, numbered row by
+// row as kernel 6's, one block each; T (128, 64 or 32) comes from
+// ops.pairwise.mma_schedule(N, SM count): the largest whose triangle gives
+// every SM 16 warps, so N = 10,000 runs 3,160 pairs of 128 (8 warps each)
+// and N = 2,085 561 pairs of 64 (4 warps). The block stages both tiles,
+// centred (a ragged tile filled with zero-mass particles at the origin),
+// and W_J as B fragments of the m16n8k8 TF32 product, W_hi in columns 0-3
+// and W_lo in 4-7. Warp w owns rows 16 w .. 16 w + 15 of I and walks J in
+// 16-column blocks:
+//   - its lanes build the 16 x 16 block of s directly in the A fragment's
+//     layout (zero where d^2 == 0, so a coincident pair and the self pair
+//     drop out) and split each value on the spot into hi = tf32(s) and
+//     lo = s - hi: no s-plane in shared memory;
+//   - the i side, M of the strip's rows, takes two k steps a block;
+//   - the j side needs the block transposed, the A fragment of s^T (rows
+//     of J), which takes s's other index from the lane's high bits (g).
+//     The lanes move s by shuffles and split it again. Three forms were
+//     built and timed on the card (PERF.md section 6): rebuild s in that
+//     layout (s_ij = s_ji, bit for bit), pass hi and lo once through a
+//     warp-private swizzled plane in shared memory (8 stores and 8 loads of
+//     64 bits a lane a block, no bank conflicts), or the shuffles. The
+//     shuffles won at N = 10,000 and 2,085 and are the one kept: a shuffle
+//     a value (each source lane sends the column its one reader wants; two
+//     rounds, a select on each side) costs 3 issue slots and the split 3,
+//     against the rebuild's 15 and a second rsqrt, and keeps shared memory
+//     free for the J loads, which the plane's 32 wavefronts a block crowd
+//     out;
+//   - the j side's sums of J block b are whole after its two k steps; the
+//     accumulator fragment goes to shared memory, and after the walk each
+//     thread adds one element of it over the strips in order.
+// The centring in the kernel's own first launch measured faster than the
+// torch mean and subtraction it replaced, at both sizes (PERF.md section 6).
+// The i side writes partial[J, rows of I], the j side partial[I, rows of
+// J], the diagonal pair (full plane, i side only) partial[I, rows of I]:
+// one writer per (slot, row), no float atomics, reruns bit-identical.
 //
 // Precision: 3xTF32. A TF32 operand keeps 10 bits of mantissa, about three
 // decimal digits, and the moment form multiplies that error by |x| / |d|:
 // one TF32 pass misses the float32 tolerance of the JAX package's test by
-// orders of magnitude. Each operand is split into hi = tf32(v) and
-// lo = tf32(v - hi), and each k step issues lo_a hi_b, hi_a lo_b and
-// hi_a hi_b, which keeps about 21 bits of every product (only lo_a lo_b,
-// ~2^-22 of it, is dropped). The running sums stay out of the tensor core: its float32
-// accumulation does not round as float32 adds do, and carrying the sums
-// through every instruction of a row (3 x 16 a tile pair) left one particle
-// of an N = 2,085 system 1.6 times the tolerance from the plain version on
-// the card. Each k step's three products go into a zeroed fragment, which
-// float32 adds then fold into the sums; the kernel is then nearer a float64
-// evaluation than the float32 plain version is.
+// orders of magnitude. W is split as hi = tf32(W), lo = tf32(W - hi), and
+// each k step's products lo_s hi_W, hi_s hi_W (columns 0-3) and hi_s lo_W
+// (columns 4-7; the packing takes two instructions for the three) go into
+// a zeroed fragment, which float32 adds then fold into the running sums;
+// columns 4-7 are added to 0-3 once, at the end. The running sums stay out
+// of the tensor core: its float32 accumulation does not round as float32
+// adds do, and carrying the sums through every instruction of a row left
+// one particle of an N = 2,085 system 1.6 times the tolerance from the
+// plain version on the card. What the split drops is amplified where it
+// differs between W's columns: lo_s lo_W, ~2^-22 of a product with s
+// rounded to nearest; truncating s instead doubles it, which a trial on
+// the card showed against the float64 sum near N = 10,000. The error of s
+// itself (lo_s read to TF32) is not: s_ij multiplies both terms of the
+// difference alike. The kernel stays nearer a float64 evaluation than the
+// float32 plain version does.
 //
 // Bounds on an H100. The function's work is kernel 6's (25 float32
-// operations and one rsqrt per unordered pair): at N = 10,000, 19 us. This
-// design builds each pair's s in 11 float32 operations and one rsqrt (12 us
-// of rsqrt), and issues 3 x 2 x 16 x 8 = 768 m16n8k8 operations per tile pair
-// (96 TF32 operations a pair, 10 us at the dense 495 TFLOP/s). What bounds it
-// is shared memory: 64 KB of s stored and read twice, and 64 KB of W read,
-// per tile pair, ~2,000 cycles of the 128 bytes a clock an SM moves, so about
-// 26 us at N = 10,000. Fewer passes over the plane (fragments built in
-// registers, one product per warp pair) are later work.
-constexpr int kMmaThreads = 256;     // 8 warps, 16 rows of each product apiece
-constexpr int kSPitch = kTile + 4;   // the s-plane's row pitch in floats
-constexpr int kWCols = 8;            // G m [1, x, y, z] padded to the mma's n
-constexpr size_t kMmaSmem =
-    2 * kTile * sizeof(float4) +
-    (static_cast<size_t>(kTile) * kSPitch + 4 * kTile * kWCols) * sizeof(float);
+// operations and one rsqrt per unordered pair): at N = 10,000, 19 us. The
+// issue floor of this design, per 16 x 16 block a warp
+// (256 values of s, 8 a lane): 96 slots to build s (12 a value: 3 FADD,
+// FMUL + 2 FFMA, FADD, MUFU.RSQ, 2 FMUL, FSETP + FSEL), 24 to split it, 6
+// loads (J, W_J), 12 for the i side's two k steps (4 HMMA, 8 FADD), 24 to
+// move s (8 SHFL, 16 selects), 24 to split it again, 8 for the j side (4
+// HMMA, 4 FADD) and a store: ~195 slots, 0.76 a pair. At 4 x 132 warp
+// instructions a clock and 1.98 GHz, N = 10,000 (3,081 off-diagonal and
+// 79 diagonal pairs of 128) is ~37 us; the rsqrt at 16 a clock an SM
+// (12.4 us) and the 1.6e6 HMMA (~12 us at half the dense TF32 rate) run
+// beside it; the compiled code adds moves, predicates and addresses. The
+// slot sum adds kernel 6's ~4 us at N = 10,000, ~2 us at N = 2,085.
+constexpr int kCentreThreads = 768;  // a multiple of 3: thread k sums x, y or z
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   uint32_t r;
@@ -656,113 +672,315 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = to_tf32(v - __uint_as_float(hi));
 }
 
+// s as the A operand of the 3xTF32 products: hi = tf32(s), rounded to
+// nearest (ties away from zero, as cvt.rna for a finite s) by two integer
+// operations, and lo = s - hi, which the tensor core reads to TF32. Rounding
+// halves lo against truncation, and with it the dropped product lo_s lo_W,
+// which differs between W's columns and so is amplified (see the note).
+__device__ __forceinline__ void split_s(float s, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(s) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(s - __uint_as_float(hi));
+}
+
+// s = (d^2 + eps^2)^-3/2 of particles a (of I) and b (of J), zero where
+// d^2 == 0.
+__device__ __forceinline__ float pair_s(const float4 a, const float4 b,
+                                        float soft2) {
+  const float dx = b.x - a.x, dy = b.y - a.y, dz = b.z - a.z;
+  const float d2 = dx * dx + dy * dy + dz * dz;
+  const float r = rsqrt_ftz(d2 + soft2);
+  return d2 > 0.f ? r * r * r : 0.f;
+}
+
 // c += a @ b for one m16n8k8 tile: a 16 x 8 (row), b 8 x 8 (col), TF32 in,
-// float32 accumulators.
+// float32 accumulators. Fragment layout: lane = 4 g + t holds A (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4), B (t, g), (t + 4, g) and
+// C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One warp: out (16 x 8) = A (16 x 128) @ w (128 x 8) in 3xTF32, both in
-// shared memory, A[r][k] = a[r * kRow + k * kCol] (the s-plane's rows for
-// the i side, its columns for the j side). Fragment layout of m16n8k8 TF32:
-// lane = 4 g + t holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4),
-// B (t, g), (t + 4, g) and C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-template <int kRow, int kCol>
-__device__ __forceinline__ void warp_moments(const float* a, const float* w,
-                                             float* out) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int k0 = 0; k0 < kTile; k0 += 8) {
-    uint32_t ah[4], al[4], bh[2], bl[2];
-    split_tf32(a[g * kRow + (k0 + t) * kCol], ah[0], al[0]);
-    split_tf32(a[(g + 8) * kRow + (k0 + t) * kCol], ah[1], al[1]);
-    split_tf32(a[g * kRow + (k0 + t + 4) * kCol], ah[2], al[2]);
-    split_tf32(a[(g + 8) * kRow + (k0 + t + 4) * kCol], ah[3], al[3]);
-    split_tf32(w[(k0 + t) * kWCols + g], bh[0], bl[0]);
-    split_tf32(w[(k0 + t + 4) * kWCols + g], bh[1], bl[1]);
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tf32(d, al, bh);  // the small terms first
-    mma_tf32(d, ah, bl);
-    mma_tf32(d, ah, bh);
+// acc += (or, kFresh, =) two k steps of s @ W in 3xTF32: A = (ah, al),
+// B = [W_hi | W_lo] (bw) and [W_hi | 0] (bwh), each step's small terms
+// first into a zeroed fragment (both steps' first products are issued
+// before either's second, which waits for the first).
+template <bool kFresh = false>
+__device__ __forceinline__ void moment_steps(float (&acc)[4],
+                                             const uint32_t (&ah)[2][4],
+                                             const uint32_t (&al)[2][4],
+                                             const uint32_t (&bw)[2][2],
+                                             const uint32_t (&bwh)[2][2]) {
+  float d[2][4] = {};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) c[q] += d[q];
+  for (int k = 0; k < 2; ++k) mma_tf32(d[k], al[k], bwh[k]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) mma_tf32(d[k], ah[k], bw[k]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    acc[q] = (kFresh ? d[0][q] : acc[q] + d[0][q]) + d[1][q];
   }
-  out[g * kWCols + 2 * t] = c[0];
-  out[g * kWCols + 2 * t + 1] = c[1];
-  out[(g + 8) * kWCols + 2 * t] = c[2];
-  out[(g + 8) * kWCols + 2 * t + 1] = c[3];
 }
 
-// Kernel 5, first launch. grid (tiles, tiles), block kMmaThreads, kMmaSmem
-// bytes of dynamic shared memory; block (x = J, y = I) works when J >= I.
-// pos is centred; partial is (tiles, n, 3).
-__global__ void __launch_bounds__(kMmaThreads)
-pairwise_sym_mma_kernel(const float* __restrict__ pos,
-                        const float* __restrict__ mass,
-                        float* __restrict__ partial, int n, float soft2) {
-  const int tile_i = blockIdx.y, tile_j = blockIdx.x;
-  if (tile_j < tile_i) return;  // the whole block: the pair is (J, I)'s
-  extern __shared__ float4 mma_smem[];
-  float4* src_i = mma_smem;  // (x, y, z, G m) of I's and J's particles
-  float4* src_j = src_i + kTile;
-  float* s = reinterpret_cast<float*>(src_j + kTile);  // [kTile][kSPitch]
-  float* w_i = s + kTile * kSPitch;                    // [kTile][kWCols]
-  float* w_j = w_i + kTile * kWCols;
-  float* m_i = w_j + kTile * kWCols;  // M, the i side's moments
-  float* m_j = m_i + kTile * kWCols;  // Mj^T, the j side's
-  const int tid = threadIdx.x, warp = tid >> 5, r = tid & (kTile - 1);
-  const bool diag = tile_i == tile_j, j_half = tid >= kTile;
-  {
-    // Threads 0..127 stage I's particles, 128..255 J's. A row beyond n is a
-    // zero-mass particle at the origin: its W row is zero, so its s values
-    // (finite: at most eps^-3) add nothing, and its result is not written.
-    const float4 q =
-        load_source(pos, mass, (j_half ? tile_j : tile_i) * kTile + r, n);
-    (j_half ? src_j : src_i)[r] = q;
-    float* w = (j_half ? w_j : w_i) + r * kWCols;
-    w[0] = q.w;
-    w[1] = q.w * q.x;
-    w[2] = q.w * q.y;
-    w[3] = q.w * q.z;
-    w[4] = w[5] = w[6] = w[7] = 0.f;
+// Kernel 5, first launch: centre[0..2] = the mean of the n rows of pos.
+// Thread k adds, in order, every kCentreThreads-th 16-byte group of the 3 n
+// floats (where pos is 16-byte aligned, else every such float): as
+// kCentreThreads is a multiple of 3, its floats' coordinates are k % 3,
+// k + 1, ... (mod 3) in every group, kept in three sums. A tree over the
+// threads then adds each coordinate's sums: a fixed order.
+__global__ void __launch_bounds__(kCentreThreads)
+centre_kernel(const float* __restrict__ pos, float* __restrict__ centre,
+              int n) {
+  __shared__ float sums[3][kCentreThreads];
+  wait_for_prior_grids();
+  const int k = threadIdx.x;
+  float a[3] = {0.f, 0.f, 0.f};  // coordinates k, k + 1, k + 2 (mod 3)
+  const int floats = 3 * n;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(pos) & 15) == 0) {
+    const float4* groups = reinterpret_cast<const float4*>(pos);
+    const int count = floats / 4;
+    done = 4 * count;
+    constexpr int kAhead = 8;  // loads in flight a thread
+    int v = k;
+    for (; v + (kAhead - 1) * kCentreThreads < count;
+         v += kAhead * kCentreThreads) {
+      float4 f[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) f[i] = groups[v + i * kCentreThreads];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        a[0] += f[i].x;
+        a[1] += f[i].y;
+        a[2] += f[i].z;
+        a[0] += f[i].w;
+      }
+    }
+    for (; v < count; v += kCentreThreads) {
+      const float4 f = groups[v];
+      a[0] += f.x;
+      a[1] += f.y;
+      a[2] += f.z;
+      a[0] += f.w;
+    }
   }
+  // The rest one float at a time: float e = done + k (mod kCentreThreads)
+  // has coordinate (done + k) % 3, a[done % 3]'s.
+  for (int e = done + k; e < floats; e += kCentreThreads) {
+    a[done % 3] += pos[e];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) sums[(k + c) % 3][k] = a[c];
   __syncthreads();
-  {
-    // The s-plane: this thread owns column r (a J particle) and every
-    // second row; a warp writes 32 consecutive floats of one row.
-    const float4 pj = src_j[r];
-    for (int row = tid / kTile; row < kTile; row += kMmaThreads / kTile) {
-      const float4 pi = src_i[row];
-      const float dx = pj.x - pi.x, dy = pj.y - pi.y, dz = pj.z - pi.z;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      const float inv_r = rsqrtf(d2 + soft2);
-      s[row * kSPitch + r] = d2 > 0.f ? inv_r * inv_r * inv_r : 0.f;
+  constexpr int kThird = kCentreThreads / 3;  // a power of two
+  if (k < kThird) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      sums[c][k] += sums[c][k + kThird];
+      sums[c][k] += sums[c][k + 2 * kThird];
     }
   }
   __syncthreads();
-  warp_moments<kSPitch, 1>(s + warp * 16 * kSPitch, w_j,
-                           m_i + warp * 16 * kWCols);
-  if (!diag) {
-    warp_moments<1, kSPitch>(s + warp * 16, w_i, m_j + warp * 16 * kWCols);
+#pragma unroll
+  for (int stride = kThird / 2; stride > 0; stride /= 2) {
+    if (k < stride) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sums[c][k] += sums[c][k + stride];
+    }
+    __syncthreads();
+  }
+  if (k < 3) centre[k] = sums[k][0] / static_cast<float>(n);
+}
+
+// Kernel 5, the pair pass. Block q: item q of the triangle of tile pairs
+// (I, J >= I) of T particles; 2 T threads, warp w the rows 16 w .. 16 w + 15
+// of I. centre: the mean to subtract (centre_kernel's); partial is
+// (tiles, n, 3).
+template <int T>
+__global__ void __launch_bounds__(2 * T, T == 128 ? 2 : 4)
+pairwise_mma_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ mass,
+                    const float* __restrict__ centre,
+                    float* __restrict__ partial, int n, float soft2,
+                    int tiles) {
+  constexpr int kWarps = T / 16;  // strips of I; also 16-column blocks of J
+  constexpr int kSteps = T / 8;   // k steps of a tile
+  __shared__ float4 pos_i[T], pos_j[T];  // centred (x, y, z), G m
+  // W_J's B fragments: k step K, lane 4 c + t holds rows t, t + 4 of column
+  // c of [W_hi | W_lo] (c < 4: W_hi[c]; c >= 4: W_lo[c - 4]), then of
+  // [W_hi | 0].
+  __shared__ float4 frag_j[kSteps][32];
+  // The j side's sums of each strip and J block: the whole accumulator
+  // fragment ([kWarps][kWarps][32], 2 T a strip).
+  __shared__ float4 red[kWarps * 2 * T];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int ti, tj;
+  tile_pair(blockIdx.x, tiles, ti, tj);
+  const bool diag = ti == tj;
+  {
+    // Threads 0 .. T-1 stage I's particles, T .. 2T-1 J's. A row beyond n
+    // is a zero-mass particle at the origin: its W is zero, so its s values
+    // (finite: at most eps^-3) add nothing, and its result is not written.
+    const bool j_half = tid >= T;
+    const int r = j_half ? tid - T : tid;
+    const int p = (j_half ? tj : ti) * T + r;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    wait_for_prior_grids();
+    if (p < n) {
+      q = make_float4(pos[3 * p] - centre[0], pos[3 * p + 1] - centre[1],
+                      pos[3 * p + 2] - centre[2], kG * mass[p]);
+    }
+    (j_half ? pos_j : pos_i)[r] = q;
+    if (j_half) {
+      float* f = reinterpret_cast<float*>(frag_j[r >> 3]);
+      const int at = 4 * (r & 3) + ((r >> 2) & 1);
+      const float w[4] = {q.w, q.w * q.x, q.w * q.y, q.w * q.z};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t hi, lo;
+        split_tf32(w[c], hi, lo);
+        f[16 * c + at] = f[16 * c + at + 2] = __uint_as_float(hi);
+        f[16 * (c + 4) + at] = __uint_as_float(lo);
+        f[16 * (c + 4) + at + 2] = 0.f;
+      }
+    }
   }
   __syncthreads();
-  // a = M[1:4] - x M[0]: threads 0..127 for I's rows, 128..255 for J's.
-  if (j_half && diag) return;
-  const int p = (j_half ? tile_j : tile_i) * kTile + r;
-  if (p >= n) return;
-  const float* m = (j_half ? m_j : m_i) + r * kWCols;
-  const float4 q = (j_half ? src_j : src_i)[r];
-  float* out =
-      partial + (static_cast<size_t>(j_half ? tile_i : tile_j) * n + p) * 3;
-  out[0] = m[1] - q.x * m[0];
-  out[1] = m[2] - q.y * m[0];
-  out[2] = m[3] - q.z * m[0];
+  const float4 pi[2] = {pos_i[16 * warp + g], pos_i[16 * warp + g + 8]};
+  // The j side's k rows 8 l + 4 v + t of the strip: W_I's B fragments
+  // (column g, made here once).
+  const bool low = g < 4;  // this lane's B column is one of W_hi's
+  uint32_t bi[2][2], bih[2][2];
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const float4 q = pos_i[16 * warp + 8 * l + 4 * v + t];
+      const int c = g & 3;
+      const float w = c == 0 ? q.w
+                             : q.w * (c == 1 ? q.x : c == 2 ? q.y : q.z);
+      uint32_t hi, lo;
+      split_tf32(w, hi, lo);
+      bi[l][v] = low ? hi : lo;
+      bih[l][v] = low ? hi : 0u;
+    }
+  }
+  float ci[4] = {0.f, 0.f, 0.f, 0.f};
+  // The shuffles' sources (below).
+  const bool e = g >= 4;
+  const int src = 16 * e + 4 * t + (g & 3);
+#pragma unroll
+  for (int b = 0; b < kWarps; ++b) {
+    // s of rows g + 8 h of the strip and columns 16 b + t + 4 u of J.
+    float s[2][4];
+    uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 pj = pos_j[16 * b + t + 4 * u];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h][u] = pair_s(pi[h], pj, soft2);
+        split_s(s[h][u], hi[h][u], lo[h][u]);
+      }
+    }
+    {
+      // k step k: columns 16 b + 8 k .. + 7.
+      uint32_t ah[2][4], al[2][4], bw[2][2], bwh[2][2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // A (g, t), (g + 8, t), (g, t + 4), ...
+          ah[k][q] = hi[q & 1][2 * k + (q >> 1)];
+          al[k][q] = lo[q & 1][2 * k + (q >> 1)];
+        }
+        const float4 f = frag_j[2 * b + k][lane];
+        bw[k][0] = __float_as_uint(f.x);
+        bw[k][1] = __float_as_uint(f.y);
+        bwh[k][0] = __float_as_uint(f.z);
+        bwh[k][1] = __float_as_uint(f.w);
+      }
+      moment_steps(ci, ah, al, bw, bwh);
+    }
+    if (diag) continue;  // the whole block: the full plane, i side only
+    // The j side's A fragments of s^T, k step l: [l][2 v + h] = s of strip
+    // row 8 l + 4 v + t and J column 16 b + g + 8 h; its sums for J block b
+    // are whole after these two k steps and go to red.
+    uint32_t jh[2][4], jl[2][4];
+    // Value (l, v, h) is s[l][g / 4 + 2 h] of lane 16 v + 4 t + g % 4.
+    // Round one brings v = e = g / 4 from lane src and round two v = 1 - e
+    // from src ^ 16: each source lane has one reader a round and sends it
+    // its column.
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sa = e ? s[l][1 + 2 * h] : s[l][2 * h];
+        const float sb = e ? s[l][2 * h] : s[l][1 + 2 * h];
+        const float ra = __shfl_sync(kFullMask, sa, src);
+        const float rb = __shfl_sync(kFullMask, sb, src ^ 16);
+        split_s(e ? rb : ra, jh[l][h], jl[l][h]);
+        split_s(e ? ra : rb, jh[l][2 + h], jl[l][2 + h]);
+      }
+    }
+    float cj[4];
+    moment_steps<true>(cj, jh, jl, bi, bih);
+    red[warp * 2 * T + 32 * b + lane] =
+        make_float4(cj[0], cj[1], cj[2], cj[3]);
+  }
+  // Columns 4-7 hold the W_lo parts of columns 0-3: lane t + 2 adds into
+  // lane t. Lane t = 0 then holds M[0:2] of rows g and g + 8, lane 1
+  // M[2:4]; they trade halves so that lane 0 has row g, lane 1 row g + 8.
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ci[q] += __shfl_xor_sync(kFullMask, ci[q], 2);
+  const bool odd = t & 1;
+  const float x0 = __shfl_xor_sync(kFullMask, odd ? ci[0] : ci[2], 1);
+  const float x1 = __shfl_xor_sync(kFullMask, odd ? ci[1] : ci[3], 1);
+  if (t < 2) {
+    const int p = ti * T + 16 * warp + g + 8 * t;
+    if (p < n) {
+      const float m0 = odd ? x0 : ci[0], m1 = odd ? x1 : ci[1];
+      const float m2 = odd ? ci[2] : x0, m3 = odd ? ci[3] : x1;
+      const float4 q = odd ? pi[1] : pi[0];
+      float* out = partial + (static_cast<size_t>(tj) * n + p) * 3;
+      out[0] = m1 - q.x * m0;
+      out[1] = m2 - q.y * m0;
+      out[2] = m3 - q.z * m0;
+    }
+  }
+  if (diag) return;  // the whole block
+  __syncthreads();  // every strip's sums are in red
+  // Thread tid adds element tid (J block tid / 32, lane tid % 32) of the
+  // strips' fragments in order, then, as the i side above, lanes t + 2
+  // into t and lanes 0, 1 trade halves: lane 0 ends with row g of the
+  // block, lane 1 with row g + 8.
+  float f[4];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float4 o = red[w * 2 * T + tid];
+    f[0] = w ? f[0] + o.x : o.x;
+    f[1] = w ? f[1] + o.y : o.y;
+    f[2] = w ? f[2] + o.z : o.z;
+    f[3] = w ? f[3] + o.w : o.w;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) f[q] += __shfl_xor_sync(kFullMask, f[q], 2);
+  const float y0 = __shfl_xor_sync(kFullMask, odd ? f[0] : f[2], 1);
+  const float y1 = __shfl_xor_sync(kFullMask, odd ? f[1] : f[3], 1);
+  const int row = 16 * (tid >> 5) + g + 8 * t;
+  if (t < 2 && tj * T + row < n) {
+    const float m0 = odd ? y0 : f[0], m1 = odd ? y1 : f[1];
+    const float m2 = odd ? f[2] : y0, m3 = odd ? f[3] : y1;
+    const float4 q = pos_j[row];
+    float* out = partial + (static_cast<size_t>(ti) * n + tj * T + row) * 3;
+    out[0] = m1 - q.x * m0;
+    out[1] = m2 - q.y * m0;
+    out[2] = m3 - q.z * m0;
+  }
 }
 
 // Launches `kernel` so that it may start while the kernels ahead of it in
@@ -791,8 +1009,8 @@ cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
 // Plain C entry points, called through ctypes. pos (b, n, 3), mass (b, n),
 // acc (b, n, 3) float32, contiguous, on one device; soft2 = eps^2. The
 // symmetric forms (kernels 6 and 5) take one system (n, 3) and a
-// (slots, n, 3) float32 scratch, one slot per tile. Kernels 3, 4 and 6 take
-// their schedule (ops/pairwise.py). They launch on `stream` and return
+// (slots, n, 3) float32 scratch, one slot per tile. Each kernel takes its
+// schedule (ops/pairwise.py). They launch on `stream` and return
 // cudaGetLastError() (0 on success).
 
 using TiledKernel = void (*)(const float*, const float*, float*, int, int,
@@ -915,26 +1133,39 @@ extern "C" int nbody_pairwise_symmetric(const float* pos, const float* mass,
   return static_cast<int>(err);
 }
 
-// Kernel 5: pos is one centred system (n, 3), partial a (ceil(n / 128), n, 3)
-// float32 scratch, as for the symmetric form.
+using MmaKernel = void (*)(const float*, const float*, const float*, float*,
+                          int, float, int);
+
+// Kernel 5: pos is one system (n, 3), partial a (ceil(n / tile), n, 3)
+// float32 scratch as for the symmetric form; tile 32, 64 or 128
+// (ops.pairwise.mma_schedule); centre 3 floats of scratch that the first
+// launch fills with the positions' mean.
 extern "C" int nbody_pairwise_symmetric_mma(const float* pos, const float* mass,
-                                            float* partial, float* acc, int n,
-                                            float soft2, void* stream) {
+                                            float* partial, float* centre,
+                                            float* acc, int n, float soft2,
+                                            int tile, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const int tiles = (n + kTile - 1) / kTile;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      pairwise_sym_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMmaSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const MmaKernel kernel = tile == 32    ? pairwise_mma_kernel<32>
+                           : tile == 64  ? pairwise_mma_kernel<64>
+                           : tile == 128 ? pairwise_mma_kernel<128> : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (n + tile - 1) / tile;
+  const long long items = tiles * (tiles + 1) / 2;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pairwise_sym_mma_kernel<<<dim3(tiles, tiles), kMmaThreads, kMmaSmem, s>>>(
-      pos, mass, partial, n, soft2);
-  err = cudaGetLastError();
+  cudaError_t err = launch_dependent(centre_kernel, 1, kCentreThreads, 0, s,
+                                     pos, centre, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_dependent(kernel, static_cast<unsigned>(items), 2 * tile, 0, s,
+                         pos, mass, static_cast<const float*>(centre),
+                         partial, n, soft2, static_cast<int>(tiles));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cols = 3 * n;
-  sum_slots_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, acc, tiles,
-                                                      cols);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned sum_blocks = static_cast<unsigned>(
+      (static_cast<long long>(cols) * kSumParts + 255) / 256);
+  err = launch_dependent(sym_sum_kernel, sum_blocks, 256, 0, s,
+                         static_cast<const float*>(partial), acc,
+                         static_cast<int>(tiles), cols);
+  return static_cast<int>(err);
 }

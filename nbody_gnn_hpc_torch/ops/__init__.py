@@ -19,8 +19,8 @@ from nbody_gnn_hpc_torch.ops.pairwise import (
     SMALL_MAX_N, accelerations_small, accelerations_small_reference,
     accelerations_symmetric, accelerations_symmetric_mxu,
     accelerations_symmetric_mxu_reference, accelerations_symmetric_reference,
-    accelerations_tiled, accelerations_tiled_reference, small_schedule,
-    sym_schedule, tiled_schedule)
+    accelerations_tiled, accelerations_tiled_reference, mma_schedule,
+    small_schedule, sym_schedule, tiled_schedule)
 from nbody_gnn_hpc_torch.ops.probes import (fma_probe, fma_probe_reference,
                                             rsqrt_probe,
                                             rsqrt_probe_reference)
@@ -64,6 +64,6 @@ __all__ = ["LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N",
            "fused_edge_layer_reference", "fused_full_layer",
            "fused_full_layer_plain", "fused_full_layer_reference",
            "is_row_regular", "knn_edge_index", "launch_counts",
-           "launch_line", "rsqrt_probe",
+           "launch_line", "mma_schedule", "rsqrt_probe",
            "rsqrt_probe_reference", "small_schedule", "source_csr",
            "sym_schedule", "target_csr"]

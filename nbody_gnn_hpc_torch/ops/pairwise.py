@@ -19,10 +19,14 @@ Port of ``nbody_gnn_hpc_tpu/ops/pairwise.py``:
   one warp each, the reaction on the j side by Newton's third law; one
   system (N, 3); tiles of 32 r particles (:func:`sym_schedule`).
 - :func:`accelerations_symmetric_mxu` (kernel 5,
-  ``pallas_accelerations_symmetric_mxu``): a block per tile pair with the
-  mass weighting and the sums as tensor-core products (the moment
-  decomposition).  Like its JAX counterpart it is dispatched by nothing:
-  numerically unsound for close pairs, kept as a public function.
+  ``pallas_accelerations_symmetric_mxu``): the moment decomposition, the
+  mass weighting and the sums as tensor-core products.  A launch takes the
+  positions' mean, then one block per tile pair (I, J >= I) of the
+  triangle, a warp per 16-row strip of I building s in registers in the
+  tensor core's layout (:func:`mma_schedule`) and moving it between lanes
+  for the j side's transposed product, then kernel 6's slot sum.
+  Like its JAX counterpart it is dispatched by nothing: numerically
+  unsound for close pairs, kept as a public function.
 
 CUDA tensors go to the kernels in ``csrc/pairwise.cu`` (its source note
 states the designs and the H100 bounds); each wrapper's ``launches`` counts
@@ -61,6 +65,9 @@ SMALL_SMEM = 48 * 1024  # kernel 4 stages at most what a launch takes unasked
 TILED_WARPS_PER_SM, TILED_MIN_SOURCES, TILED_STAGE = 16, 32, 2
 TILED_SMEM = 48 * 1024
 TILED_MAX_THREADS = {4: 640, 2: 1024, 1: 1024}
+# Kernel 5: the largest of MMA_TILES whose triangle of tile pairs gives
+# every SM MMA_WARPS_PER_SM warps, a warp per 16 rows of a tile.
+MMA_TILES, MMA_WARPS_PER_SM = (128, 64, 32), 16
 
 
 def small_schedule(b: int, n: int, sm_count: int) -> tuple:
@@ -163,6 +170,24 @@ def sym_schedule(n: int, sm_count: int) -> int:
         if tiles * (tiles + 1) // 2 >= sm_count * SYM_WARPS_PER_SM:
             return rows
     return 1
+
+
+def mma_schedule(n: int, sm_count: int) -> tuple:
+    """(tile, warps) of kernel 5: particles a tile and warps a tile pair.
+
+    One block computes one tile pair (I, J >= I) of the triangle, a warp
+    each 16-row strip of I, so the launch is ``tiles (tiles + 1) / 2``
+    blocks of ``tile / 16`` warps.  The largest of ``MMA_TILES`` whose
+    triangle gives every SM ``MMA_WARPS_PER_SM`` warps, else the smallest:
+    N=10,000 takes 128 (3,160 pairs of 8 warps), N=2,085 64 (561 pairs of
+    4).  A function of N and the SM count alone.
+    """
+    for tile in MMA_TILES:
+        tiles = -(-n // tile)
+        if tiles * (tiles + 1) // 2 * (tile // 16) >= sm_count * \
+                MMA_WARPS_PER_SM:
+            return tile, tile // 16
+    return MMA_TILES[-1], MMA_TILES[-1] // 16
 
 
 def _pair_planes(pos_i: torch.Tensor, pos_j: torch.Tensor, soft2: float):
@@ -368,22 +393,6 @@ def accelerations_small(positions: torch.Tensor, masses: torch.Tensor,
     return acc.view(positions.shape)
 
 
-def _launch_symmetric(symbol: str, wrapper, pos, m, softening, tile: int,
-                      *schedule):
-    """Launch kernel 6 or 5 (one system (1, N, 3), a (ceil(N / tile), N, 3)
-    slot scratch, pair pass + slot sum; kernel 6 also takes its rows a
-    lane) and count it once."""
-    n = pos.shape[1]
-    acc = torch.empty_like(pos)
-    partial = torch.empty((-(-n // tile), n, 3), dtype=torch.float32,
-                          device=pos.device)
-    _launch(symbol, wrapper, pos.device,
-            (_P, _P, _P, _P, _I, _F) + (_I,) * len(schedule), pos.data_ptr(),
-            m.data_ptr(), partial.data_ptr(), acc.data_ptr(), n,
-            float(softening) ** 2, *schedule)
-    return acc[0]
-
-
 def accelerations_symmetric(positions: torch.Tensor, masses: torch.Tensor,
                             softening: float = SOFTENING) -> torch.Tensor:
     """Newton's-third-law all-pairs accelerations of one system (kernel 6;
@@ -398,10 +407,16 @@ def accelerations_symmetric(positions: torch.Tensor, masses: torch.Tensor,
         return accelerations_symmetric_reference(positions, masses, softening)
     pos, m = _cuda_operands("accelerations_symmetric", positions, masses,
                             batched_ok=False)
-    rows = sym_schedule(pos.shape[1], sm_count(pos.device.index))
-    return _launch_symmetric("nbody_pairwise_symmetric",
-                             accelerations_symmetric, pos, m, softening,
-                             32 * rows, rows)
+    n = pos.shape[1]
+    rows = sym_schedule(n, sm_count(pos.device.index))
+    acc = torch.empty_like(pos)
+    partial = torch.empty((-(-n // (32 * rows)), n, 3), dtype=torch.float32,
+                          device=pos.device)
+    _launch("nbody_pairwise_symmetric", accelerations_symmetric, pos.device,
+            (_P, _P, _P, _P, _I, _F, _I), pos.data_ptr(), m.data_ptr(),
+            partial.data_ptr(), acc.data_ptr(), n, float(softening) ** 2,
+            rows)
+    return acc[0]
 
 
 def accelerations_symmetric_mxu(positions: torch.Tensor,
@@ -413,9 +428,9 @@ def accelerations_symmetric_mxu(positions: torch.Tensor,
     masses (N,), both contiguous -> (N, 3).  No entry point calls it: the
     moment form's error grows as |x| / |d| for close pairs (the JAX kernel's
     docstring records that as a measured negative result), so the
-    simulator dispatches kernel 6.  The wrapper centres the positions; CUDA
-    tensors then launch the kernel (pair pass + slot sum, counted as one in
-    ``launches``), CPU tensors take
+    simulator dispatches kernel 6.  CUDA tensors launch the kernel on the
+    tiles of :func:`mma_schedule` (centring, pair pass, slot sum, counted as
+    one in ``launches``), CPU tensors take
     :func:`accelerations_symmetric_mxu_reference`."""
     if positions.device.type == "cpu":
         return accelerations_symmetric_mxu_reference(positions, masses,
@@ -425,10 +440,18 @@ def accelerations_symmetric_mxu(positions: torch.Tensor,
                          "positions and masses")
     pos, m = _cuda_operands("accelerations_symmetric_mxu", positions, masses,
                             batched_ok=False)
-    return _launch_symmetric("nbody_pairwise_symmetric_mma",
-                             accelerations_symmetric_mxu,
-                             pos - pos.mean(1, keepdim=True), m, softening,
-                             TILE)
+    n = pos.shape[1]
+    tile, _ = mma_schedule(n, sm_count(pos.device.index))
+    slots = -(-n // tile)
+    acc = torch.empty_like(pos)
+    scratch = torch.empty(slots * n * 3 + 3, dtype=torch.float32,
+                          device=pos.device)
+    _launch("nbody_pairwise_symmetric_mma", accelerations_symmetric_mxu,
+            pos.device, (_P, _P, _P, _P, _P, _I, _F, _I), pos.data_ptr(),
+            m.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * slots * n * 3, acc.data_ptr(), n,
+            float(softening) ** 2, tile)
+    return acc[0]
 
 
 accelerations_tiled.launches = 0

@@ -279,7 +279,12 @@ def test_small_schedule_fills_the_card_at_the_datagen_shapes():
 
 def _tile_pairs(tiles):
     """Kernel 6's item -> (I, J) decode (tile_pair) for every item."""
-    q = np.arange(tiles * (tiles + 1) // 2, dtype=np.int64)
+    return _decode_items(np.arange(tiles * (tiles + 1) // 2, dtype=np.int64),
+                         tiles)
+
+
+def _decode_items(q, tiles):
+    """The kernels' item -> (I, J) decode (tile_pair) for items ``q``."""
     d = 2.0 * tiles + 1.0
     i = ((d - np.sqrt(d * d - 8.0 * q)) * 0.5).astype(np.int64)
     start = lambda r: r * tiles - r * (r - 1) // 2  # noqa: E731
@@ -423,3 +428,122 @@ def test_tiled_schedule_is_pure_and_fills_the_card():
         blocks = -(-groups // (threads // k))
         assert blocks <= 132
         assert blocks * threads // 32 >= 16 * 132
+
+
+# -- the launch schedule of kernel 5 (pairwise_mma_kernel) -------------------
+# Its index arithmetic repeated: the item decode of kernel 6, a warp per
+# 16-row strip of I and lanes (g, t) in the m16n8k8 fragments, the B
+# fragments W is staged into, the j side's shared plane and shuffles.
+
+def _mma_items(tiles, limit=4_000_000):
+    """Every item of the triangle, or (past ``limit``) the first and last of
+    each of 64 rows spread over it and of the last row."""
+    items = tiles * (tiles + 1) // 2
+    if items <= limit:
+        return np.arange(items, dtype=np.int64), True
+    rows = np.unique(np.linspace(0, tiles - 1, 64).astype(np.int64))
+    start = rows * tiles - rows * (rows - 1) // 2
+    end = start + (tiles - rows) - 1
+    return np.unique(np.concatenate([start, end, [items - 1]])), False
+
+
+@pytest.mark.parametrize("sm_count", [132, 8])
+@pytest.mark.parametrize("n", [1, 2, 5, 127, 128, 129, 700, 2047, 2048, 2085,
+                               10_000, 65_535 * 128])
+def test_mma_schedule_covers_every_pair_once(n, sm_count):
+    """Kernel 5's triangle of tile pairs is launched whole and once, none
+    below the diagonal; every ordered (receiver, source) tile pair is
+    summed exactly once (the diagonal tile's full plane on the i side, the
+    rest on the i side of (I, J) and the j side of (J, I)); every (slot,
+    tile) cell of the scratch has exactly one writer and every tile's slots
+    are all written; inside an item the warps' lanes cover the T x T plane
+    once on each side and write each row of I once and of J once."""
+    tile, warps = ops.mma_schedule(n, sm_count)
+    assert tile in ops.pairwise.MMA_TILES and tile % 16 == 0
+    assert warps == tile // 16
+    tiles = -(-n // tile)
+    assert tiles * (tiles + 1) // 2 <= 2 ** 31 - 1  # one block an item
+    q, whole = _mma_items(tiles)
+    ti, tj = _decode_items(q, tiles)
+    assert (ti <= tj).all() and (tj < tiles).all() and (ti >= 0).all()
+    start = ti * tiles - ti * (ti - 1) // 2
+    assert (q == start + tj - ti).all()  # row by row, J = I .. tiles - 1
+    if whole:
+        pairs = np.zeros((tiles, tiles), np.int64)
+        np.add.at(pairs, (ti, tj), 1)
+        assert (pairs == np.triu(np.ones_like(pairs))).all()
+        summed = np.zeros((tiles, tiles), np.int64)  # [receiver, source]
+        np.add.at(summed, (ti, tj), 1)               # i side
+        off = ti != tj
+        np.add.at(summed, (tj[off], ti[off]), 1)     # j side
+        assert (summed == 1).all()
+        writers = np.zeros((tiles, tiles), np.int64)  # [slot, row tile]
+        np.add.at(writers, (tj, ti), 1)               # i side: slot J
+        np.add.at(writers, (ti[off], tj[off]), 1)     # j side: slot I
+        assert (writers == 1).all()
+    # Inside an item: warp w, lane 4 g + t holds s of strip rows g + 8 h and
+    # J columns 16 b + t + 4 u (the i side's A fragments), and of strip rows
+    # 8 l + 4 v + t and J columns 16 b + g + 8 h (the j side's).
+    w, g, t, h, u, b = np.meshgrid(np.arange(warps), np.arange(8),
+                                   np.arange(4), np.arange(2), np.arange(4),
+                                   np.arange(tile // 16), indexing="ij")
+    plane = np.zeros((tile, tile), np.int64)
+    np.add.at(plane, (16 * w + g + 8 * h, 16 * b + t + 4 * u), 1)
+    assert (plane == 1).all()
+    plane[:] = 0
+    l, v = u // 2, u % 2
+    np.add.at(plane, (16 * w + 8 * l + 4 * v + t, 16 * b + g + 8 * h), 1)
+    assert (plane == 1).all()
+    rows = np.zeros(tile, np.int64)  # the i side: lanes t = 0, 1 of a warp
+    w, g, t = np.meshgrid(np.arange(warps), np.arange(8), np.arange(2),
+                          indexing="ij")
+    np.add.at(rows, 16 * w + g + 8 * t, 1)
+    assert (rows == 1).all()  # and the j side: threads 0 .. tile - 1
+
+
+def test_mma_schedule_is_pure_and_fills_the_card():
+    """The same N gives the same launch; at N=10,000 and 2,085 on an H100's
+    132 SMs the triangle gives every SM at least 16 warps: 3,160 pairs of
+    128 (8 warps each) and 561 pairs of 64 (4 warps)."""
+    for n, want, items in ((10_000, (128, 8), 3_160), (2_085, (64, 4), 561)):
+        assert ops.mma_schedule(n, 132) == want == ops.mma_schedule(n, 132)
+        tiles = -(-n // want[0])
+        assert tiles * (tiles + 1) // 2 == items
+        assert items * want[1] >= 16 * 132
+    assert ops.mma_schedule(100, 132) == (32, 2)  # too small to fill: 32
+
+
+def test_mma_fragment_layouts():
+    """The B fragments W is staged into (particle r of a tile: lane
+    4 c + r % 4, half (r % 8) / 4 of k step r / 8, column c) give lane
+    4 g + t rows t and t + 4 of column g, as m16n8k8 takes them; each of
+    the j side's shuffle rounds reads every source lane once and brings
+    the value the fragment wants."""
+    frag = {}
+    for r in range(16):
+        for c in range(8):
+            at = 2 * (r & 3) + ((r >> 2) & 1)
+            frag[(r >> 3, (8 * c + at) // 2, at % 2)] = (r, c)
+    for k in range(2):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            assert frag[(k, lane, 0)] == (8 * k + t, g)
+            assert frag[(k, lane, 1)] == (8 * k + t + 4, g)
+    # Shuffles: lane 4 g + t of the i side holds s[h][u] of strip row
+    # g + 8 h and column t + 4 u.
+    held = {(lane, hh, uu): ((lane >> 2) + 8 * hh, (lane & 3) + 4 * uu)
+            for lane in range(32) for hh in range(2) for uu in range(4)}
+    for l in range(2):
+        for h in range(2):
+            for rnd in range(2):
+                readers = set()
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    e = g >> 2
+                    src = (16 * e + 4 * t + (g & 3)) ^ (16 * rnd)
+                    se = (src >> 2) >> 2  # the source's own g / 4
+                    uu = ((1 - se) if rnd else se) + 2 * h
+                    v = e ^ rnd
+                    assert held[(src, l, uu)] == (8 * l + 4 * v + t, g + 8 * h)
+                    readers.add(src)
+                assert len(readers) == 32
