@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, simulator, deployed-serving,
 ceilings, rollout fine-tune, one-command pipeline, data-parallel,
-simulator-surface and checkpoint paths on one NVIDIA GPU and check them.
+simulator-surface and checkpoint paths and its last commands on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full-finetune   # the production curriculum
+    python3 chip_smoke.py --large-n         # the large-N pipeline
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -232,6 +234,22 @@ Phases (any failure exits non-zero and prints no result line):
    ``launches_by_path`` has ``checkpoint``, where kernels 1 and 2 must
    have run.
 
+14. The last commands, the tenth main path, each a process from the
+   repository root whose counts start at 0 and which prints them last
+   (``launches_by_path["commands"]``): ``benchmark_bh_temp -n 5000 --steps
+   5`` (kernel 6 exactly 2 + 50 x 6 times; its rounds and average step time
+   printed), ``examples.demo_surrogate --trajectory-format npz`` at its
+   defaults (kernel 4 exactly twice 81 times, kernels 1 and 2; six npz
+   trajectories; finite RMSEs), ``merge_dataset`` on that store where h5py
+   imports (train 4 x 76 and val 2 x 76 windows with masses; where it does
+   not, said so), ``examples.demo_serving`` at its defaults and at the
+   production width (``models/best_rollout_model.pt``, N=200, k=40, int8;
+   every client answered, kernel 1), ``examples.demo_parallel`` at world one
+   and with two spawned gloo ranks (its three sections; kernel 4 exactly
+   twice 51 times a rank, kernels 1 and 2).  Kernel 5 must read 0 in each.
+   A JSON line ``{"commands": ...}`` gives each command's wall, its
+   launches and the benchmark's step time.
+
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -243,6 +261,14 @@ fine-tunes ``models/best_model.pt`` with the production curriculum
 --f64-ground-truth`` of that file (inside < 60 / < 400) and its score
 against its base and the committed fine-tune (it must beat its base); it
 ends with a JSON summary line, the nvidia-smi line and the same last line.
+
+``--large-n`` runs phases 1 and 2, then ``python -m
+nbody_gnn_hpc_torch.largen_pipeline build/chip_smoke_largen
+--trajectory-format npz`` as a process: datagen, training (hidden 256, 6
+layers, k=40) and evaluation at N=2,085 and 5,000, each stage a process of
+its own; every stage must run on cuda, both scales give finite RMSEs, and
+kernels 1, 2 and 6 run and kernel 5 not.  It prints the stage walls and
+results, a JSON summary line, the nvidia-smi line and the same last line.
 """
 
 import json
@@ -2632,12 +2658,12 @@ def full_finetune(dev) -> dict:
 def stage_launches(output: str) -> dict:
     """The kernel launches a stage's process printed last
     (``ops.launch_line``): its counts started at 0 with the process."""
-    from nbody_gnn_hpc_torch.ops import LAUNCH_LINE
+    from nbody_gnn_hpc_torch.ops import read_launch_line
 
-    lines = [line for line in output.splitlines()
-             if line.startswith(LAUNCH_LINE)]
-    check(len(lines) == 1, "a stage printed no kernel launch line")
-    return json.loads(lines[0][len(LAUNCH_LINE):])
+    try:
+        return read_launch_line(output)
+    except ValueError as e:
+        fail(f"a stage's kernel launches: {e}")
 
 
 def phase_pipeline() -> dict:
@@ -3807,6 +3833,177 @@ def phase_checkpoint(dev):
     return launches
 
 
+COMMANDS_DIR = Path("build/chip_smoke_commands")  # git-ignored
+BH_ARGV = ("-n", "5000", "--steps", "5")  # the script's defaults
+BH_ROUND = 50  # benchmark_bh_temp.CHUNK: steps a timed round
+SURROGATE = dict(sims=6, n=24, steps=80)  # demo_surrogate's defaults
+PARALLEL = dict(n=24, sims=16, steps=50)  # demo_parallel's defaults
+FULL_WIDTH_SERVING = ("--checkpoint", MODEL, "--particles", "200",
+                      "--k-neighbors", "40", "--quantize", "int8")
+LARGEN_DIR = Path("build/chip_smoke_largen")  # git-ignored
+LARGEN_TIMEOUT_S = 3000
+
+
+def _launch_line_last(out: str, label: str) -> dict:
+    """The counts of the launch line ``out`` ends with (the large-N
+    pipeline's sums those its stages printed before it)."""
+    from nbody_gnn_hpc_torch.ops import LAUNCH_LINE
+
+    last = out.splitlines()[-1]
+    check(last.startswith(LAUNCH_LINE),
+          f"{label} did not print its kernel launches last")
+    return json.loads(last[len(LAUNCH_LINE):])
+
+
+def phase_commands() -> dict:
+    """The six commands ported last, each a process from the repository
+    root, its launches read from the line it prints last.  Returns their
+    sum and a summary (walls, the benchmark's step time)."""
+    import importlib.util
+
+    COMMANDS_DIR.mkdir(parents=True, exist_ok=True)
+    total, walls, launched = {}, {}, {}
+
+    def run(label, module, *flags):
+        out, wall = _command([f"nbody_gnn_hpc_torch.{module}", *flags],
+                             COMMANDS_DIR / f"{label}.log")
+        c = _launch_line_last(out, label)
+        nonzero = {k: v for k, v in c.items() if v}
+        print(f"  {label}: {wall:.2f} s as a process; launches {nonzero}",
+              flush=True)
+        walls[label], launched[label] = wall, c
+        check(c["pairwise_symmetric_mxu"] == 0, f"{label} launched kernel 5")
+        total.update(_add(total, c))
+        return out, c
+
+    # The large-N step benchmark: kernel 6 once a force evaluation (the
+    # initial one, the warm-up step, an untimed round and the rounds).
+    out, c = run("benchmark_bh_temp", "benchmark_bh_temp", *BH_ARGV)
+    rounds = [float(v) for v in re.findall(
+        r"^Round \d+ \(\d+ steps\): (\S+) ms/step$", out, re.M)]
+    avg = re.search(r"^Average step time: (\S+)s \((\S+) Gpairs/s\)$",
+                    out, re.M)
+    n_rounds = int(BH_ARGV[3])
+    check(avg is not None and len(rounds) == n_rounds
+          and all(np.isfinite(rounds)), "benchmark_bh_temp printed no "
+                                        "rounds or no average")
+    check(c["pairwise_symmetric"] == 2 + BH_ROUND * (n_rounds + 1),
+          f"benchmark_bh_temp launched kernel 6 {c['pairwise_symmetric']} "
+          f"times")
+    bench = {"n": int(BH_ARGV[1]), "round_ms_per_step": rounds,
+             "avg_step_s": float(avg.group(1)),
+             "gpairs_per_s": float(avg.group(2))}
+
+    # The surrogate quickstart on the npz store: kernel 4 for the ensemble
+    # and the test system (once a step and for the initial force), kernels
+    # 1 and 2 in training, kernel 1 in the rollout.
+    out, c = run("demo_surrogate", "examples.demo_surrogate",
+                 "--trajectory-format", "npz")
+    workdir = Path(re.search(r"^workdir: (\S+)$", out, re.M).group(1))
+    rmse = [float(v) for v in re.findall(r"position RMSE: (\S+)", out)]
+    check(len(rmse) == 2 and all(np.isfinite(rmse)),
+          "demo_surrogate printed no finite RMSE")
+    check(c["pairwise_small"] == 2 * (SURROGATE["steps"] + 1)
+          and c["fused_edge_fwd"] > 0 and c["fused_edge_bwd"] > 0,
+          "demo_surrogate did not launch kernels 1, 2 and 4 as it should")
+    names = sorted(p.name for p in (workdir / "checkpoints").iterdir())
+    check(names == [f"sim_{i:04d}_trajectory.npz"
+                    for i in range(SURROGATE["sims"])],
+          f"demo_surrogate wrote {names}")
+
+    # merge_dataset on that npz store, where h5py imports (the datasets are
+    # HDF5); the card's machine has had none.
+    if importlib.util.find_spec("h5py") is None:
+        print("  merge_dataset skipped: h5py is not importable here (its "
+              "datasets are HDF5); verified on the CPU against "
+              "scripts/merge_dataset.py (tests/test_torch_merge_dataset.py)",
+              flush=True)
+    else:
+        import h5py
+
+        run("merge_dataset", "merge_dataset", "-o", str(workdir),
+            "--sequence-length", "5")
+        per_file = SURROGATE["steps"] + 1 - 5
+        for name, files in (("train_dataset.h5", 4), ("val_dataset.h5", 2)):
+            with h5py.File(workdir / name, "r") as f:
+                check(int(f.attrs["n_samples"]) == files * per_file
+                      and f["inputs"].shape[1:] == (5, SURROGATE["n"], 6)
+                      and "masses" in f, f"merge_dataset wrote a wrong "
+                                         f"{name}")
+    shutil.rmtree(workdir)
+
+    # The serving demo at its defaults and at the production width (the
+    # trained checkpoint, int8 weights): kernel 1 on every rollout step.
+    for label, flags in (("demo_serving", ()),
+                         ("demo_serving_full_width", FULL_WIDTH_SERVING)):
+        out, c = run(label, "examples.demo_serving", *flags)
+        check("Concurrent wall clock" in out and out.count("client ") == 6
+              and "FAILED" not in out and "finite=True" in out,
+              f"{label} did not answer every client")
+        check(c["fused_edge_fwd"] > 0, f"{label} launched no kernel 1")
+        if flags:
+            check("'quantization': 'int8'" in out
+                  and "'hidden_dim': 256" in out,
+                  f"{label} did not serve the int8 production model")
+
+    # The parallel demo, a world of one (NCCL) and two gloo ranks sharing
+    # the card: kernel 4 twice a rank (sharded and alone), kernels 1 and 2
+    # in the step, kernel 1 in the pool.
+    for ranks in ("0", "2"):
+        label = f"demo_parallel_virtual_devices_{ranks}"
+        out, c = run(label, "examples.demo_parallel", "--virtual-devices",
+                     ranks)
+        check("equals unsharded" in out and "== 1-device" in out
+              and "device-pinned replicas" in out,
+              f"{label} did not print its three sections")
+        world = int(ranks) or 1
+        check(c["pairwise_small"] == 2 * world * (PARALLEL["steps"] + 1)
+              and c["fused_edge_fwd"] > 0 and c["fused_edge_bwd"] > 0,
+              f"{label} did not launch kernels 1, 2 and 4 as it should")
+    summary = {"walls_s": walls, "benchmark_bh_temp": bench,
+               "launches": launched}
+    print(json.dumps({"commands": summary}), flush=True)
+    return total
+
+
+def large_n() -> dict:
+    """``--large-n``: ``python -m nbody_gnn_hpc_torch.largen_pipeline`` on
+    the npz store in ``LARGEN_DIR``, as a process; its stage walls,
+    results and launches (kernels 1, 2 and 6 must run, kernel 5 not)."""
+    if LARGEN_DIR.exists():
+        shutil.rmtree(LARGEN_DIR)
+    LARGEN_DIR.parent.mkdir(parents=True, exist_ok=True)
+    log = LARGEN_DIR.parent / "chip_smoke_largen.log"
+    out, wall = _command(["nbody_gnn_hpc_torch.largen_pipeline",
+                          str(LARGEN_DIR), "--trajectory-format", "npz"],
+                         log, timeout=LARGEN_TIMEOUT_S)
+    c = _launch_line_last(out, "largen_pipeline")
+    walls = re.findall(r"^STAGE_WALL (\w+) n=(\d+) (\S+) s$", out, re.M)
+    results = re.findall(r"^LARGEN_RESULT n=(\d+) posRMSE=(\S+) "
+                         r"velRMSE=(\S+) energy_err=(\S+)$", out, re.M)
+    for line in out.splitlines():
+        if line.startswith(("STAGE_WALL", "LARGEN_RESULT")):
+            print(f"  {line}", flush=True)
+    check(len(walls) == 6 and [r[0] for r in results] == ["2085", "5000"],
+          "largen_pipeline did not run both scales")
+    check(all(np.isfinite(float(v)) for r in results for v in r[1:3]),
+          "largen_pipeline gave a non-finite RMSE")
+    stages = out.split("\nSTEP: ")[1:]
+    check(len(stages) == 6 and all(re.search(r"Device:\s+cuda\b", st)
+                                   for st in stages),
+          "a largen_pipeline stage did not run on cuda")
+    check(min(c[k] for k in ("fused_edge_fwd", "fused_edge_bwd",
+                             "pairwise_symmetric")) > 0
+          and c["pairwise_symmetric_mxu"] == 0,
+          f"largen_pipeline launched {c}")
+    return {"wall_s": wall, "launches": c,
+            "stage_walls_s": {f"{stage} n={n}": float(s)
+                              for stage, n, s in walls},
+            "results": {n: {"position_rmse": float(p),
+                            "velocity_rmse": float(v), "energy_err": e}
+                        for n, p, v, e in results}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3815,7 +4012,12 @@ def main(argv=None) -> int:
                         help=f"build, simulate the datagen states, then run "
                              f"the production curriculum {FULL_CURRICULUM} "
                              f"from {BASE_MODEL}, evaluate and score the "
-                             f"result (instead of phases 3-10)")
+                             f"result (instead of phases 3-14)")
+    parser.add_argument("--large-n", action="store_true",
+                        help="build, then run python -m "
+                             "nbody_gnn_hpc_torch.largen_pipeline (N=2,085 "
+                             "and 5,000, the production width) on the npz "
+                             "store (instead of phases 3-14)")
     args = parser.parse_args(argv)
     # 1. Environment
     import torch
@@ -3849,6 +4051,19 @@ def main(argv=None) -> int:
                   f"{sass.get(entry, 'unknown')} SASS instructions",
                   flush=True)
     dev = torch.device("cuda")
+    if args.large_n:
+        print("[14] the large-N pipeline: largen_pipeline --trajectory-format "
+              "npz", flush=True)
+        summary = large_n()
+        print(f"  chip_smoke --large-n took "
+              f"{time.perf_counter() - t_start:.1f} s after the imports",
+              flush=True)
+        print(json.dumps({"large_n": summary}), flush=True)
+        print(smi[0], flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.full_finetune:
         print(f"[10] the production fine-tune {FULL_CURRICULUM}, its "
               f"evaluation and selection", flush=True)
@@ -3950,6 +4165,15 @@ def main(argv=None) -> int:
     checkpoint = phase_checkpoint(dev)
     mxu_by_path["checkpoint"] = checkpoint.get("pairwise_symmetric_mxu", 0)
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
+
+    # 14. The six commands ported last, each a process whose counts start
+    # at 0 and which prints them last.
+    print("[14] the last commands: benchmark_bh_temp, demo_surrogate, "
+          "merge_dataset, demo_serving, demo_parallel", flush=True)
+    t14 = time.perf_counter()
+    commands = phase_commands()
+    mxu_by_path["commands"] = commands.get("pairwise_symmetric_mxu", 0)
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -4009,6 +4233,7 @@ def main(argv=None) -> int:
                  "simulator_surface": surface.get(name, 0),
                  "surrogate_large_n": surrogate.get(name, 0),
                  "checkpoint": checkpoint.get(name, 0),
+                 "commands": commands.get(name, 0),
                  "oracle": oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
@@ -4049,6 +4274,10 @@ def main(argv=None) -> int:
     check(min(checkpoint.get(k, 0) for k in ("fused_edge_fwd",
                                              "fused_edge_bwd")) > 0,
           "the checkpoint path launched no kernel 1 or 2")
+    check(min(commands.get(k, 0) for k in (
+        "fused_edge_fwd", "fused_edge_bwd", "pairwise_small",
+        "pairwise_symmetric")) > 0, "the last commands launched no kernel "
+                                    "1, 2, 4 or 6")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

@@ -49,6 +49,17 @@ def launch_line() -> str:
     return LAUNCH_LINE + json.dumps(launch_counts())
 
 
+def read_launch_line(output: str) -> Dict[str, int]:
+    """The counts of the one :func:`launch_line` in a command's output;
+    ``ValueError`` if it holds none or several."""
+    lines = [line for line in output.splitlines()
+             if line.startswith(LAUNCH_LINE)]
+    if len(lines) != 1:
+        raise ValueError(f"{len(lines)} kernel launch lines in the output, "
+                         f"expected one")
+    return json.loads(lines[0][len(LAUNCH_LINE):])
+
+
 __all__ = ["LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N",
            "SourceCSR",
            "TargetCSR", "accelerations_small", "aggregate_to_targets",
@@ -64,6 +75,6 @@ __all__ = ["LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N",
            "fused_edge_layer_reference", "fused_full_layer",
            "fused_full_layer_plain", "fused_full_layer_reference",
            "is_row_regular", "knn_edge_index", "launch_counts",
-           "launch_line", "mma_schedule", "rsqrt_probe",
-           "rsqrt_probe_reference", "small_schedule", "source_csr",
-           "sym_schedule", "target_csr"]
+           "launch_line", "mma_schedule", "read_launch_line",
+           "rsqrt_probe", "rsqrt_probe_reference", "small_schedule",
+           "source_csr", "sym_schedule", "target_csr"]

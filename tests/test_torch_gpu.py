@@ -1029,3 +1029,32 @@ def test_dp_step_at_world_one_equals_the_single_device_step(cuda):
     finally:
         if created:
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("command,argv,kernels", [
+    ("benchmark_bh_temp", ["-n", "2085", "--steps", "1"],
+     {"pairwise_symmetric": 1 + 1 + 50 + 50}),
+    ("examples.demo_serving", [], {"fused_edge_fwd": None}),
+])
+def test_commands_launch_their_kernels(cuda, command, argv, kernels):
+    """The large-N benchmark at N=2,085 (kernel 6 once a force evaluation:
+    the initial one, the warm-up step, the untimed round and one round) and
+    the serving demo at its defaults (kernel 1 on every rollout step), each
+    a process on the card, reading the launch line it prints last."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from nbody_gnn_hpc_torch.ops import LAUNCH_LINE, read_launch_line
+
+    proc = subprocess.run(
+        [sys.executable, "-m", f"nbody_gnn_hpc_torch.{command}", *argv],
+        cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-1500:]
+    assert proc.stdout.splitlines()[-1].startswith(LAUNCH_LINE)
+    counts = read_launch_line(proc.stdout)
+    for name, want in kernels.items():
+        assert counts[name] > 0 if want is None else counts[name] == want, \
+            (name, counts)
+    assert counts["pairwise_symmetric_mxu"] == 0

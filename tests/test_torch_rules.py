@@ -57,7 +57,13 @@ def test_importing_the_port_loads_no_jax():
             "nbody_gnn_hpc_torch.parallel.mesh, "
             "nbody_gnn_hpc_torch.parallel.train_dp, "
             "nbody_gnn_hpc_torch.parallel.smoke, "
-            "nbody_gnn_hpc_torch.multichip_smoke\n"
+            "nbody_gnn_hpc_torch.multichip_smoke, "
+            "nbody_gnn_hpc_torch.merge_dataset, "
+            "nbody_gnn_hpc_torch.benchmark_bh_temp, "
+            "nbody_gnn_hpc_torch.largen_pipeline, "
+            "nbody_gnn_hpc_torch.examples.demo_surrogate, "
+            "nbody_gnn_hpc_torch.examples.demo_serving, "
+            "nbody_gnn_hpc_torch.examples.demo_parallel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'h5py'})!r})\n"
             "assert not bad, bad")
@@ -319,3 +325,25 @@ def test_data_parallel_entry_points_refuse_cpu_unasked(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_data_parallel()
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("command,argv", [
+    ("benchmark_bh_temp", ["-n", "8", "--steps", "1"]),
+    ("examples.demo_surrogate", []),
+    ("examples.demo_serving", []),
+    ("examples.demo_parallel", []),
+    ("examples.demo_parallel", ["--virtual-devices", "2"]),
+    ("largen_pipeline", ["work"]),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
+def test_commands_refuse_cpu_unasked(no_cuda, tmp_path, monkeypatch,
+                                     command, argv):
+    """Each wants a GPU before it writes a file, spawns a rank or starts a
+    stage."""
+    import importlib
+
+    main = importlib.import_module(f"nbody_gnn_hpc_torch.{command}").main
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+    assert not any(tmp_path.iterdir())
