@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, simulator, deployed-serving,
 ceilings, rollout fine-tune, one-command pipeline, data-parallel,
-simulator-surface and checkpoint paths and its last commands on one NVIDIA
-GPU and check them.
+simulator-surface and checkpoint paths, its last commands and bf16
+training on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full-finetune   # the production curriculum
@@ -63,8 +63,8 @@ Phases (any failure exits non-zero and prints no result line):
    just before and read just after; the edge forward must run exactly 6
    times per rollout step, the backward never.  Outputs must be finite, of
    the expected shapes, and agree with a ``device="cpu"`` run.
-5. Profile: one 394-step rollout under torch.profiler, for where the time
-   goes (device-busy share, time by kernel).
+5. Profile: a 40-step rollout (``PROFILE_STEPS``) under torch.profiler,
+   for where the time goes (device-busy share, time by kernel).
 6. Training, the second main path: 10 trajectories made on the card by the
    port's simulator (N=200, box 10, shared masses, dt 0.001, 40 steps),
    ``GNNDataset.from_trajectories`` (8 train, 2 validation on the train
@@ -115,7 +115,7 @@ Phases (any failure exits non-zero and prints no result line):
    scale, tests/test_quantize.py); an int8 checkpoint written, reloaded and
    served; a bf16 checkpoint written and reloaded where ``ml_dtypes``
    imports (equal to the in-memory bf16 service over 5 steps; where it
-   does not, said so).  One 394-step rollout of either service under
+   does not, said so).  A 40-step rollout of either service under
    torch.profiler.
 9. The card's ceilings, the fifth main path: the rate probes (kernels 10
    and 11) against their plain versions, rtol 1e-5, in each of the five
@@ -154,14 +154,16 @@ Phases (any failure exits non-zero and prints no result line):
    against the f64 oracle, the CSV export.  Every stage must exit 0 and
    the five that drive the device name cuda; the manifest must record
    npz beside 300 npz trajectories; every model, selection, evaluation and
-   CSV file must exist; the metrics must be finite (no band: one epoch
-   cannot reach it); ``best_rollout_model.pt`` must record the cut
-   curriculum from ``selected_model.pt``.  Each stage's process starts
-   its counts at 0 and prints them last (``ops.launch_line``): kernel 4
-   once per step and batch in datagen, kernels 1 and 2 6 times per step
-   and validation batch in training and per update and validation in the
-   fine-tune, kernel 1 6 x 395 per checkpoint in selection and 6 x 394 in
-   evaluation, exactly.  A JSON line ``{"pipeline": ...}`` gives each
+   CSV file must exist; training must have run in bf16 (``config.json``),
+   as ``train_model`` does on the card; the RMSEs must be finite and
+   inside the evaluation band (< 60 / < 400); ``best_rollout_model.pt``
+   must record the cut curriculum from ``selected_model.pt``.  Each
+   stage's process starts its counts at 0 and prints them last
+   (``ops.launch_line``): kernel 4 once per step and batch in datagen,
+   the bf16 forms of kernels 1 and 2 6 times per step and validation
+   batch in training, kernels 1 and 2 6 times per update and validation
+   in the fine-tune, kernel 1 6 x 395 per checkpoint in selection and 6 x
+   394 in evaluation, exactly.  A JSON line ``{"pipeline": ...}`` gives each
    stage's wall, the total, the two RMSEs and the cuts.
 12. Data parallel and the simulator surface, the eighth main path, each
    drive's counts zeroed just before and read just after.  (a) World one
@@ -222,7 +224,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``.metadata`` is passed over by ``latest_checkpoint(backend="orbax")``;
    (e) ``train_model --ckpt-backend orbax`` as a process for one epoch,
    then with ``--resume auto`` to two (each one's launches read from its
-   line, exactly); (f) where matplotlib imports, evaluate's three plots
+   line, exactly: the bf16 forms of kernels 1 and 2, its default on the
+   card); (f) where matplotlib imports, evaluate's three plots
    (a 20-step rollout of the production checkpoint against the float32
    ground truth), train_model's and the demo's, each non-empty; where it
    does not, the commands must say that they skipped them; (g)
@@ -250,8 +253,44 @@ Phases (any failure exits non-zero and prints no result line):
    A JSON line ``{"commands": ...}`` gives each command's wall, its
    launches and the benchmark's step time.
 
+15. bf16 training, the production recipe's precision, the eleventh main
+   path.  (a) The bf16-stream form of kernels 1 and 2 (bf16 t_proj /
+   s_proj; kernel 1 rounds each activation to bf16 after dropout and sums
+   in float32; kernel 2 reads g_out at bf16 precision, rounds dz to bf16
+   for d_t_proj only and returns d_t_proj / d_s_proj in bf16) against
+   their plain bf16 versions on the checkpoint's layer-0 operands:
+   kernel 1 in inference form at B=1 and in training form at B=1 and 24,
+   kernel 2 in training form at B=1 and 24; within 2^-7 of scale with at
+   most 1 % of the elements beyond 1e-4 of scale (a bf16 rounding that a
+   float32 difference flips moves a value by its bf16 step), kernel 2's
+   float32 gradients within 1e-4 of scale; exact launch counts (the bf16
+   forms are counted apart, as ``fused_edge_fwd_bf16`` /
+   ``fused_edge_bwd_bf16``); reruns bit for bit; CUDA-event times of the
+   bf16 and float32 kernels on the same operands, and the bound.  (b)
+   ``Trainer`` with a bf16 ``NBodyGNN`` at the production configuration
+   (B=24, hidden 256, 6 layers, dropout and noise on) for an epoch on
+   phase 13's data size, counts zeroed just before and read just after
+   (the bf16 forms exactly 6 a step and validation batch, the float32
+   ones never); losses finite, parameters float32; on one batch the bf16
+   and float32 models' step walls in turns and a profiled window each,
+   the bf16 loss falling; the production checkpoint's gradients through
+   the bf16 kernels against the plain bf16 path (5e-2 of each tensor's
+   scale, the loss 1e-3); the saved checkpoint, whose config says
+   bfloat16, served at float32 by ``build_service`` for 5 steps against
+   ``device="cpu"`` (1e-4 of scale).  (c) ``python -m
+   nbody_gnn_hpc_torch.train_model`` for one step and its validation, as
+   three processes at once: its defaults write ``"dtype": "bfloat16"``
+   and launch the bf16 forms, ``--no-bf16`` writes float32 and launches
+   the float32 ones, ``--remat`` launches kernel 1 once more a layer (the
+   recompute), and its first step's loss and the validation loss after
+   that step equal the default run's.  A JSON
+   line ``{"bf16": ...}`` gives the step walls, busy shares and losses.
+
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
+
+The kernels line's ``launches_by_path`` has ``bf16`` (phase 15's Trainer
+and its three processes).
 
 ``--full-finetune`` runs phases 1 and 2, simulates the datagen states and
 fine-tunes ``models/best_model.pt`` with the production curriculum
@@ -321,6 +360,11 @@ SIM_DIR = Path("build/chip_smoke_sim")      # git-ignored
 SERVE_DIR = Path("build/chip_smoke_serve")  # git-ignored
 FINETUNE_DIR = Path("build/chip_smoke_finetune")  # git-ignored
 ROLLOUT_STEPS = 394  # the evaluation protocol's rollout
+# The profiled serving window ([5], [8]): every step of a rollout is alike
+# (337 launches with "fused", 175 with "fused_full").  Over all 394 steps
+# [5] took 70.7 s on an H100's host around a 3.2 s rollout and its 9.9 s
+# profiled twin: the rest was reading the profile's 132,777 launches.
+PROFILE_STEPS = 40
 # Quantized services against float32 over 5 steps, of the position scale
 # (tests/test_quantize.py).
 QUANT_RTOL = {"bf16": 2e-2, "int8": 5e-2}
@@ -401,10 +445,15 @@ PIPELINE_CUTS = {"finetune_rollout": {"--curriculum": CUT_CURRICULUM}}
 PIPELINE_LOG = Path("build/chip_smoke_pipeline.log")  # git-ignored
 
 
+# Template arguments of a mangled kernel name: integers, float and bf16.
+_TEMPLATE_ARG = r"Li(-?\d+)E|(f)|13(__nv_bfloat16)"
+
+
 def _kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled kernel: the shortest length-prefixed
     name that ends in ``_kernel`` (a hash's digits may run into the length
-    and make a longer one) and its integer template arguments."""
+    and make a longer one) and its template arguments (integers, ``float``
+    and ``bf16``)."""
     found = []
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
@@ -412,8 +461,9 @@ def _kernel_name(mangled: str) -> str:
             end = m.end() + int(digits[k:])
             name = mangled[m.end():end]
             if name.endswith("_kernel"):
-                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
-                values = re.findall(r"-?\d+", args[1]) if args else []
+                args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[end:])
+                values = [i or ("float" if f else "bf16") for i, f, _ in
+                          re.findall(_TEMPLATE_ARG, args[1])] if args else []
                 found.append(name + (f"<{','.join(values)}>" if values
                                      else ""))
     return min(found, key=len) if found else mangled
@@ -528,18 +578,19 @@ def _bound(n_bytes: int, flops: int) -> tuple:
 
 def _operand_bytes(args) -> int:
     tp, sp, ea, we, gamma, beta, edges = args
-    return 4 * (tp.numel() + sp.numel() + ea.numel() + we.numel()
-                + gamma.numel() + beta.numel() + edges.perm.numel()
-                + edges.src.numel() + edges.offsets.numel())
+    return sum(t.numel() * t.element_size() for t in (
+        tp, sp, ea, we, gamma, beta, edges.perm, edges.src, edges.offsets))
 
 
 def edge_bound_ms(args, dropout: bool = False) -> tuple:
     """Least H100 time for one fused edge-stream forward on these
-    operands: each input read once, the output written once, over HBM
-    bandwidth; and (13 + 2*D) float32 operations per edge channel (z: 2
-    adds + D FMAs; statistics: 3; normalise: 4; SiLU: exp, add, divide;
-    accumulate: 1), one more with dropout (the scale), over the
-    non-tensor-core float32 peak.  Philox's integer work is not counted."""
+    operands: each input read once (t_proj and s_proj at their element
+    size: 2 bytes in the bf16 stream), the float32 output written once,
+    over HBM bandwidth; and (13 + 2*D) float32 operations per edge channel
+    (z: 2 adds + D FMAs; statistics: 3; normalise: 4; SiLU: exp, add,
+    divide; accumulate: 1), one more with dropout (the scale), over the
+    non-tensor-core float32 peak.  Philox's integer work and the bf16
+    stream's conversions are not counted."""
     tp, ea = args[0], args[2]
     b, n, h = tp.shape
     e, d = ea.shape[1], ea.shape[2]
@@ -556,14 +607,15 @@ def edge_bwd_bound_ms(args, dropout: bool = False,
     sums (z and statistics 5+2D; x, y 4; sigmoid 3; silu' and dy 5;
     dy*gamma 1; the two means 3; dz 4; d_t_proj, d_s_proj, d_gamma, d_beta
     5; d_w_e 2D), one more with dropout, 2*D more for d_edge_attr (its D
-    dot products); Philox not counted."""
+    dot products); Philox not counted.  In the bf16 stream d_t_proj and
+    d_s_proj are written at 2 bytes (g_out is float32 in both)."""
     tp, ea, edges = args[0], args[2], args[6]
     b, n, h = tp.shape
     e, d = ea.shape[1], ea.shape[2]
     src = edges.sources
     n_bytes = (_operand_bytes(args) + 4 * (src.perm.numel() + src.dst.numel()
                                            + src.offsets.numel())
-               + 4 * b * n * h * 3 + 4 * (d + 2) * h
+               + b * n * h * (4 + 2 * tp.element_size()) + 4 * (d + 2) * h
                + (4 * b * e * d if d_edge_attr else 0))
     flops = 30 + 4 * d + int(dropout) + (2 * d if d_edge_attr else 0)
     return _bound(n_bytes, flops * b * e * h)
@@ -1066,11 +1118,12 @@ def phase_serving(dev_name):
     return service, launches, traj20
 
 
-def profile_window(label: str, fn, steps: int = 0):
+def profile_window(label: str, fn, steps: int = 0, out: dict = None):
     """Run ``fn`` once plain and once under torch.profiler; print the wall
     times, the device-busy share, the launches (per step where ``steps``)
     and the top kernels by device time.  Returns the device rows (name,
-    device µs, count), or None where no device time was recorded."""
+    device µs, count), or None where no device time was recorded; ``out``
+    gets the unprofiled wall (ms) and the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1099,6 +1152,9 @@ def profile_window(label: str, fn, steps: int = 0):
         return None
     busy_us = sum(t for _, t, _ in rows)
     n_launches = sum(c for _, _, c in rows)
+    if out is not None:
+        out.update(wall_ms=plain_wall * 1e3,
+                   busy_share=busy_us / 1e6 / plain_wall)
     per_step = (f" = {n_launches / steps:.1f} a step, wall "
                 f"{plain_wall * 1e3 / steps:.3f} ms a step" if steps else "")
     print(f"  profile {label}: wall {plain_wall * 1e3:.1f} ms unprofiled, "
@@ -1111,13 +1167,13 @@ def profile_window(label: str, fn, steps: int = 0):
 
 
 def phase_profile(service, label: str = "fused"):
-    """One 394-step final-state rollout under torch.profiler."""
+    """A PROFILE_STEPS-step final-state rollout under torch.profiler."""
     pos, vel, masses = eval_states(1)
-    profile_window(f"394-step rollout, edge_impl {label} (service call, no "
-                   f"HTTP)",
+    profile_window(f"{PROFILE_STEPS}-step rollout, edge_impl {label} "
+                   f"(service call, no HTTP)",
                    lambda: service.rollout(pos[0], vel[0], masses,
-                                           ROLLOUT_STEPS, trajectory=False),
-                   steps=ROLLOUT_STEPS)
+                                           PROFILE_STEPS, trajectory=False),
+                   steps=PROFILE_STEPS)
 
 
 def training_data(dev, cfg):
@@ -1149,12 +1205,22 @@ def training_data(dev, cfg):
     return train, val
 
 
-def model_gradients_agree(train, cfg, dev, edge_impl: str = "fused") -> float:
+def model_gradients_agree(train, cfg, dev, edge_impl: str = "fused",
+                          dtype: str = "float32") -> dict:
     """Gradients of every parameter of the production checkpoint on one
     training batch (dropout and noise on), through the kernels of
     ``edge_impl`` and through the plain versions with the same generator
-    seed (so the same masks).  Returns the largest error relative to each
-    tensor's scale."""
+    seed (so the same masks), the model computing in ``dtype``.
+
+    bfloat16: the bf16 forms, held to BF16_MODEL_GRAD_RTOL and
+    BF16_LOSS_RTOL; then two more runs through the kernels.  With remat
+    the loss and every gradient must equal the kernel path's bit for bit
+    (the recomputed backward is read: ``decoder_out`` is non-zero here).
+    A float32 model of the same weights is the control: its gradients,
+    held to the bf16 plain path by the same measure, must lie beyond
+    BF16_MODEL_GRAD_RTOL, so that limit tells the bf16 forms from a model
+    that rounds nothing.  Returns the readings (errors relative to each
+    tensor's scale)."""
     import torch
 
     from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
@@ -1167,51 +1233,108 @@ def model_gradients_agree(train, cfg, dev, edge_impl: str = "fused") -> float:
     from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
 
     with open(CONFIG) as f:
-        model = model_from_config({**json.load(f)["model_config"],
-                                   "edge_impl": edge_impl}).to(dev)
-    load_into(model, load_checkpoint(MODEL))
+        config = {**json.load(f)["model_config"], "edge_impl": edge_impl}
     masses = torch.as_tensor(train.get_masses_tensor(), device=dev)
-    step = make_train_step(
-        model, make_optimizer(model, cfg.learning_rate, cfg.weight_decay),
-        train.edge_index, train.state_mean, train.state_std,
-        (masses / masses.mean())[:, None], noise_std=cfg.noise_std,
-        masses=masses)
     states = torch.as_tensor(train.last_states[:cfg.batch_size], device=dev)
     targets = torch.as_tensor(train.targets[:cfg.batch_size], device=dev)
 
-    def grads(edge_stream, full_layer):
-        for layer in model.layers:
+    def built(dt):
+        m = model_from_config(config, dtype_override=dt).to(dev)
+        load_into(m, load_checkpoint(MODEL))
+        return m, make_train_step(
+            m, make_optimizer(m, cfg.learning_rate, cfg.weight_decay),
+            train.edge_index, train.state_mean, train.state_std,
+            (masses / masses.mean())[:, None], noise_std=cfg.noise_std,
+            masses=masses)
+
+    model, step = built(dtype)
+
+    def grads(edge_stream, full_layer, m=model, st=step):
+        for layer in m.layers:
             layer.edge_stream, layer.full_layer = edge_stream, full_layer
-        model.zero_grad(set_to_none=True)
-        loss, _ = step.compute_loss(
+        m.zero_grad(set_to_none=True)
+        loss, _ = st.compute_loss(
             states, targets, torch.Generator(dev).manual_seed(321))
         loss.backward()
-        return loss.item(), [p.grad.clone() for p in model.parameters()]
+        return loss.item(), [p.grad.clone() for p in m.parameters()]
 
-    counted = fused_full_layer if edge_impl == "fused_full" else \
-        fused_edge_layer
-    before = counted.launches, fused_edge_backward.launches
+    def rel_of(got, want):
+        return max((a - b).abs().max().item() / (b.abs().max().item() + 1e-12)
+                   for a, b in zip(got, want))
+
+    bf16 = dtype == "bfloat16"
+    rtol, loss_rtol = ((BF16_MODEL_GRAD_RTOL, BF16_LOSS_RTOL) if bf16
+                       else (MODEL_GRAD_RTOL, 1e-5))
+
+    def launched():
+        if bf16:
+            return (fused_edge_layer.bf16_launches,
+                    fused_edge_backward.bf16_launches)
+        counted = fused_full_layer if edge_impl == "fused_full" else \
+            fused_edge_layer
+        return counted.launches, fused_edge_backward.launches
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(launched(), before))
+
+    before = launched()
     loss_k, g_k = grads(fused_edge_layer, fused_full_layer)
-    check((counted.launches - before[0],
-           fused_edge_backward.launches - before[1]) == (6, 6),
-          f"the {edge_impl} kernel path did not launch its forward and "
-          f"kernel 2 six times each")
+    check(delta(before) == (6, 6),
+          f"the {edge_impl} {dtype} kernel path did not launch its forward "
+          f"and kernel 2 six times each")
     loss_p, g_p = grads(fused_edge_layer_plain, fused_full_layer_plain)
     n = sum(g.numel() for g in g_k)
     check(n == count_parameters(model) == 2_550_150, "parameter count")
-    rel = max((a - b).abs().max().item() / (b.abs().max().item() + 1e-12)
-              for a, b in zip(g_k, g_p))
+    rel = rel_of(g_k, g_p)
     zero = sum(int(b.abs().max().item() == 0) for b in g_p)
     print(f"  gradients of all {n:,} parameters, edge_impl {edge_impl}, "
-          f"kernels vs plain versions (production checkpoint, B={cfg.batch_size}, dropout + noise on, "
-          f"same seeds): loss {loss_k:.7f} vs {loss_p:.7f}; max error / "
-          f"tensor scale {rel:.3e} over {len(g_k)} tensors (tolerance "
-          f"{MODEL_GRAD_RTOL:g}); tensors with an all-zero gradient: {zero}",
-          flush=True)
-    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "losses disagree")
-    check(rel <= MODEL_GRAD_RTOL, "kernel-path gradients disagree with the "
-                                  "plain-version path")
-    return rel
+          f"{dtype}, kernels vs plain versions (production checkpoint, "
+          f"B={cfg.batch_size}, dropout + noise on, same seeds): loss "
+          f"{loss_k:.7f} vs {loss_p:.7f}; max error / tensor scale "
+          f"{rel:.3e} over {len(g_k)} tensors (tolerance {rtol:g}); tensors "
+          f"with an all-zero gradient: {zero}", flush=True)
+    check(all(p.dtype == g.dtype == torch.float32
+              for p, g in zip(model.parameters(), g_k)),
+          "a parameter or its gradient is not float32")
+    check(zero == 0, "a parameter's gradient is all zero")
+    check(abs(loss_k - loss_p) <= loss_rtol * abs(loss_p), "losses disagree")
+    check(rel <= rtol, "kernel-path gradients disagree with the "
+                       "plain-version path")
+    readings = {"kernel_vs_plain": rel}
+    if not bf16:
+        return readings
+
+    # remat: the layers recomputed in the backward pass, their kernels
+    # launched again, the same draws.
+    model.remat = True
+    before = launched()
+    loss_r, g_r = grads(fused_edge_layer, fused_full_layer)
+    model.remat = False
+    moved = delta(before)
+    same = loss_r == loss_k and all(torch.equal(a, b)
+                                    for a, b in zip(g_r, g_k))
+    readings["remat_vs_kernel"] = rel_of(g_r, g_k)
+    print(f"  remat=True, the same batch and seeds through the kernels: loss "
+          f"{loss_r!r} vs {loss_k!r}; every gradient bit-equal to the run "
+          f"without remat: {same} (max error / scale "
+          f"{readings['remat_vs_kernel']:.3e}); launches {moved} (12 "
+          f"forward, 6 backward)", flush=True)
+    check(same, "remat changed the loss or a gradient")
+    check(moved == (12, 6), "remat did not recompute each layer's forward "
+                            "kernel once")
+
+    # The control: a float32 model of the same weights, through its kernels.
+    _, g_c = grads(fused_edge_layer, fused_full_layer, *built("float32"))
+    control = readings["float32_vs_plain"] = rel_of(g_c, g_p)
+    print(f"  control: the float32 model's gradients (same weights, seeds) "
+          f"against the bf16 plain path: max error / tensor scale "
+          f"{control:.3e}; the limit {BF16_MODEL_GRAD_RTOL:g} lies between "
+          f"it and the bf16 kernels' {rel:.3e}: "
+          f"{rel <= BF16_MODEL_GRAD_RTOL < control}", flush=True)
+    check(control > BF16_MODEL_GRAD_RTOL,
+          "the bf16 gradient limit does not tell the bf16 forms from a "
+          "float32 model")
+    return readings
 
 
 def phase_train(dev):
@@ -1940,8 +2063,8 @@ def _concurrently(fns):
         barrier.wait()
         try:
             results[i] = fns[i]()
-        except Exception as e:  # noqa: BLE001 - reported below
-            errors[i] = e
+        except (Exception, SystemExit) as e:  # noqa: BLE001 - reported below
+            errors[i] = e  # SystemExit: a check failed in the thread
 
     threads = [threading.Thread(target=work, args=(i,))
                for i in range(len(fns))]
@@ -2278,7 +2401,7 @@ def _finetune_model(edge_impl, dev):
         cfg = json.load(f)["model_config"]
     if edge_impl is not None:
         cfg = {**cfg, "edge_impl": edge_impl}
-    model = model_from_config(cfg).to(dev)
+    model = model_from_config(cfg, dtype_override="float32").to(dev)
     return model, load_into(model, load_checkpoint(BASE_MODEL))
 
 
@@ -2511,7 +2634,8 @@ def phase_finetune(states, masses, dev):
     from nbody_gnn_hpc_torch.models import model_from_config
 
     t0 = time.perf_counter()
-    scores = score_checkpoints(model_from_config(cfg["model_config"]),
+    scores = score_checkpoints(model_from_config(cfg["model_config"],
+                                                 dtype_override="float32"),
                                [BASE_MODEL, MODEL], val, masses, K,
                                horizon=SELECT_HORIZON,
                                start_step=SELECT_START, device=dev)
@@ -2639,7 +2763,8 @@ def full_finetune(dev) -> dict:
           "the fine-tuned checkpoint's evaluation RMSE is outside the band")
 
     scores = score_checkpoints(
-        model_from_config(cfg["model_config"]), [BASE_MODEL, MODEL, str(out)],
+        model_from_config(cfg["model_config"], dtype_override="float32"),
+        [BASE_MODEL, MODEL, str(out)],
         states[TRAIN_SIMS:TRAIN_SIMS + SELECT_SIMS], masses, K,
         horizon=SELECT_HORIZON, start_step=SELECT_START, device=dev)
     summary["selection"] = {s["path"]: s["position_rmse"] for s in scores}
@@ -2737,6 +2862,9 @@ def phase_pipeline() -> dict:
               and evaluation["n_test_simulations"] == cfg.n_test_sims
               and bool(np.isfinite(rmse).all()),
               f"the evaluation is not finite or not the protocol: {rmse}")
+        with open(models / "config.json") as f:
+            check(json.load(f)["model_config"]["dtype"] == "bfloat16",
+                  "the pipeline's train_model did not train in bf16")
         ft = load_checkpoint(models / "best_rollout_model.pt")["finetune"]
         check([tuple(r) for r in ft["curriculum"]]
               == parse_curriculum(CUT_CURRICULUM)
@@ -2755,9 +2883,10 @@ def phase_pipeline() -> dict:
         want = {
             "generate_data": {"pairwise_small":
                               -(-cfg.simulations // 100) * n_saves},
-            "train_model": {"fused_edge_fwd":
+            # train_model trains in bf16 on the card (its default).
+            "train_model": {"fused_edge_fwd_bf16":
                             6 * (steps + -(-val // cfg.batch_size)),
-                            "fused_edge_bwd": 6 * steps},
+                            "fused_edge_bwd_bf16": 6 * steps},
             "select_checkpoint": {"fused_edge_fwd": 6 * selection["horizon"]
                                   * len(selection["scores"])},
             "finetune_rollout": {"fused_edge_fwd": ft_fwd,
@@ -2786,11 +2915,13 @@ def phase_pipeline() -> dict:
                   f"{r['seconds']:.1f} s, kernel launches "
                   f"{ {k: v for k, v in counts.items() if v} }", flush=True)
         print(f"  the pipeline took {total:.1f} s; evaluation of "
-              f"best_rollout_model.pt (one epoch, cut fine-tune) against "
-              f"the f64 oracle: position RMSE {rmse[0]:.4f}, velocity RMSE "
-              f"{rmse[1]:.4f} (no band: the cut run cannot reach it)",
-              flush=True)
+              f"best_rollout_model.pt (one bf16 epoch, cut fine-tune) "
+              f"against the f64 oracle: position RMSE {rmse[0]:.4f}, "
+              f"velocity RMSE {rmse[1]:.4f} (band < {EVAL_POS_RMSE_MAX:g} / "
+              f"< {EVAL_VEL_RMSE_MAX:g})", flush=True)
         print(json.dumps({"pipeline": summary}), flush=True)
+        check(rmse[0] < EVAL_POS_RMSE_MAX and rmse[1] < EVAL_VEL_RMSE_MAX,
+              "the pipeline's evaluation RMSE is outside the band")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -2832,6 +2963,13 @@ SURFACE_SIMS, SURFACE_STEPS = 8, 50  # run_parallel_simulations' group
 SURROGATE_STEPS = 5  # the GNN at N=2,085 (ODD_N), fused and fused_full
 DP2_TIMEOUT_S = 300
 DP_WIDTH = dict(hidden_dim=256, n_layers=6)  # TrainingConfig()'s
+# The two-rank DP steps: name -> (edge_impl, dtype).  bf16 is held to one
+# device taking the same halves only: its bf16 Dense rounds each half's
+# weight gradient to bf16 (as the JAX model does), and AdamW's first step
+# turns such a rounding into the sign of an update.
+DP_VARIANTS = {"fused": ("fused", "float32"),
+               "fused_full": ("fused_full", "float32"),
+               "fused bf16": ("fused", "bfloat16")}
 
 
 def _sync(dev) -> None:
@@ -2856,6 +2994,8 @@ def _zero_counts() -> None:
                ops.accelerations_symmetric_mxu, ops.fma_probe,
                ops.rsqrt_probe):
         fn.launches = 0
+    ops.fused_edge_layer.bf16_launches = 0
+    ops.fused_edge_backward.bf16_launches = 0
 
 
 def _add(total: dict, more: dict) -> dict:
@@ -2962,11 +3102,13 @@ def _split_step(base, parts: int):
     return step
 
 
-def dp_steps(dev, problem, edge_impl, mesh, split: int = 0):
+def dp_steps(dev, problem, edge_impl, mesh, split: int = 0,
+             dtype: str = "float32"):
     """Two train steps at the production width (hidden 256, 6 layers,
-    dropout 0.1, noise 0.003) on ``problem``'s batches from a seeded model,
-    through ``make_train_step`` (``mesh`` None), the ``gspmd`` DP step, or
-    (``split`` > 0) ``split`` ranks' arithmetic in this one process:
+    dropout 0.1, noise 0.003) on ``problem``'s batches from a seeded model
+    computing in ``dtype``, through ``make_train_step`` (``mesh`` None),
+    the ``gspmd`` DP step, or (``split`` > 0) ``split`` ranks' arithmetic
+    in this one process:
     (losses, parameters on the host, synchronised step walls, the first
     step's clipped gradients and the parameters after it on the host)."""
     import torch
@@ -2976,7 +3118,7 @@ def dp_steps(dev, problem, edge_impl, mesh, split: int = 0):
     from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
 
     model = NBodyGNN(**problem["width"], dropout=DROPOUT_P,
-                     edge_impl=edge_impl,
+                     edge_impl=edge_impl, dtype=dtype,
                      generator=torch.Generator().manual_seed(11)).to(dev)
     m = torch.as_tensor(problem["masses"], device=dev)
     args = (model, make_optimizer(model, 5e-4, 1e-4), problem["edge_index"],
@@ -3016,16 +3158,18 @@ def _ensemble_positions(dev, ens, seeds, mesh=None):
                              mesh=mesh, device=dev).positions.cpu()
 
 
-def _dp_rank(rank, dev, problem, edge_impls, ensembles):
-    """One of two gloo ranks on the shared card: the DP steps of each edge
-    impl and the sharded ensembles, each with its own launch counts."""
+def _dp_rank(rank, dev, problem, variants, ensembles):
+    """One of two gloo ranks on the shared card: the DP steps of each
+    variant (DP_VARIANTS) and the sharded ensembles, each with its own
+    launch counts."""
     from nbody_gnn_hpc_torch.parallel import make_mesh
 
     mesh = make_mesh()
     out = {}
-    for edge_impl in edge_impls:
+    for key in variants:
+        edge_impl, dtype = DP_VARIANTS[key]
         _zero_counts()
-        out[edge_impl] = dp_steps(dev, problem, edge_impl, mesh) + (
+        out[key] = dp_steps(dev, problem, edge_impl, mesh, dtype=dtype) + (
             _counts(),)
     for name, ens in ensembles.items():
         _zero_counts()
@@ -3083,6 +3227,31 @@ def phase_parallel(dev):
               "the DP step at world one disagrees with make_train_step")
         check((c["fused_edge_fwd"], c["fused_edge_bwd"]) == (12, 12),
               "DP step launch counts at world one")
+        # ... and a bf16 model through the same step.
+        want = dp_steps(rank_dev, problem, "fused", None, dtype="bfloat16")
+        _zero_counts()
+        got = dp_steps(rank_dev, problem, "fused", mesh, dtype="bfloat16")
+        c = _counts()
+        launches = _add(launches, c)
+        rel = _rel_err(got[1], want[1])
+        print(f"  world one (NCCL), bf16 model: gspmd DP step vs "
+              f"make_train_step: losses {got[0]} vs {want[0]}; parameters "
+              f"max error / scale {rel:.3e} (tolerance {DP_REL:g}); "
+              f"parameters and gradients float32: "
+              f"{all(p.dtype == torch.float32 for p in got[1].values())}, "
+              f"{all(g.dtype == torch.float32 for g in got[3].values())}; "
+              f"launches fused_edge_fwd_bf16 {c['fused_edge_fwd_bf16']}, "
+              f"fused_edge_bwd_bf16 {c['fused_edge_bwd_bf16']} (expected 12 "
+              f"each)", flush=True)
+        check(all(abs(a - b) <= DP_REL * abs(b) for a, b in
+                  zip(got[0], want[0])) and rel <= DP_REL,
+              "the bf16 DP step at world one disagrees with make_train_step")
+        check(all(t.dtype == torch.float32 for t in
+                  list(got[1].values()) + list(got[3].values())),
+              "the bf16 DP step's parameters or gradients are not float32")
+        check((c["fused_edge_fwd_bf16"], c["fused_edge_bwd_bf16"],
+               c["fused_edge_fwd"], c["fused_edge_bwd"]) == (12, 12, 0, 0),
+              "bf16 DP step launch counts at world one")
 
         # (b) Trainer(mesh=) for an epoch of 20 steps and a validation
         def trainer(m):
@@ -3165,18 +3334,22 @@ def phase_parallel(dev):
 
     # (d) two gloo ranks sharing cuda:0 (spawned processes)
     t0 = time.perf_counter()
-    ranks = run_local_world(_dp_rank, 2, (problem, ("fused", "fused_full"),
+    ranks = run_local_world(_dp_rank, 2, (problem, tuple(DP_VARIANTS),
                                           DP2_ENSEMBLES),
                             device="cuda", backend="gloo",
                             timeout=DP2_TIMEOUT_S)
     spawn_wall = time.perf_counter() - t0
-    for edge_impl in ("fused", "fused_full"):
-        want = dp_steps(dev, problem, edge_impl, None)
-        split = dp_steps(dev, problem, edge_impl, None, split=2)
+    for key, (edge_impl, dtype) in DP_VARIANTS.items():
+        bf16 = dtype == "bfloat16"
+        want = dp_steps(dev, problem, edge_impl, None, dtype=dtype)
+        split = dp_steps(dev, problem, edge_impl, None, split=2, dtype=dtype)
         counted = "fused_full_fwd" if edge_impl == "fused_full" else \
             "fused_edge_fwd"
+        bwd = "fused_edge_bwd"
+        if bf16:
+            counted, bwd = counted + "_bf16", bwd + "_bf16"
         for r, out in enumerate(ranks):
-            losses, params, walls, grads, first, c = out[edge_impl]
+            losses, params, walls, grads, first, c = out[key]
             launches = _add(launches, c)
             # The two ranks against one device doing the same two halves.
             same = _rel_errs({**params, **{f"d {k}": g for k, g in
@@ -3195,7 +3368,7 @@ def phase_parallel(dev):
                 params, want[1], DP2_PARAM_RTOL, DP2_PARAM_ATOL)
             loss_ok = all(abs(a - b) <= DP2_LOSS_RTOL * abs(b)
                           for a, b in zip(losses, want[0]))
-            print(f"  two gloo ranks on cuda:0, rank {r}, {edge_impl}: "
+            print(f"  two gloo ranks on cuda:0, rank {r}, {key}: "
                   f"losses {losses}; vs one device taking the same two "
                   f"halves: losses {split[0]}, parameters and first "
                   f"gradients max error / scale {max(same.values()):.3e} "
@@ -3212,16 +3385,20 @@ def phase_parallel(dev):
                   f"{float(want[1][p_worst].abs().max()):.3e}); step walls "
                   f"{['%.2f ms' % (w * 1e3) for w in walls]} (one device "
                   f"{['%.2f ms' % (w * 1e3) for w in want[2]]}); launches "
-                  f"{counted} {c[counted]}, fused_edge_bwd "
-                  f"{c['fused_edge_bwd']} (expected 12 each)", flush=True)
+                  f"{counted} {c[counted]}, {bwd} {c[bwd]} (expected 12 "
+                  f"each)" + (" (bf16: the whole batch printed, not held)"
+                              if bf16 else ""), flush=True)
             check(max(same.values()) <= DP_REL,
-                  f"two-rank {edge_impl} DP step disagrees with one device "
+                  f"two-rank {key} DP step disagrees with one device "
                   f"taking the same two halves")
-            check(loss_ok and g_errs[g_worst] <= DP2_GRAD_REL
-                  and first_ratio <= 1.0,
-                  f"two-rank {edge_impl} DP step disagrees with one device")
-            check((c[counted], c["fused_edge_bwd"]) == (12, 12),
-                  f"two-rank {edge_impl} DP launch counts")
+            check(bf16 or (loss_ok and g_errs[g_worst] <= DP2_GRAD_REL
+                           and first_ratio <= 1.0),
+                  f"two-rank {key} DP step disagrees with one device")
+            check((c[counted], c[bwd]) == (12, 12),
+                  f"two-rank {key} DP launch counts")
+            check(all(t.dtype == torch.float32 for t in
+                      list(params.values()) + list(grads.values())),
+                  f"two-rank {key}: a parameter or gradient is not float32")
     for name, ens in DP2_ENSEMBLES.items():
         seeds = list(range(42, 42 + ens["n_sims"]))
         per = -(-ens["n_sims"] // 2)
@@ -3427,7 +3604,8 @@ def phase_surrogate_large_n(dev):
 
     # One training step at N=2,085, B=2: kernels against plain versions.
     with open(CONFIG) as f:
-        model = model_from_config(json.load(f)["model_config"]).to(dev)
+        model = model_from_config(json.load(f)["model_config"],
+                                  dtype_override="float32").to(dev)
     norm = load_into(model, load_checkpoint(MODEL))
     (p2,), (v2,), _ = eval_states(1, ODD_N)
     states = np.stack([np.concatenate([pos, vel], -1),
@@ -3493,8 +3671,9 @@ def _command(argv: list, log: Path, timeout: float = 300) -> tuple:
 def _edge_launches(c: dict) -> str:
     """The edge kernels' launches of a count dict, for a report line."""
     other = sum(v for k, v in c.items() if not k.startswith("fused_edge"))
-    return (f"fused_edge_fwd {c.get('fused_edge_fwd', 0)}, fused_edge_bwd "
-            f"{c.get('fused_edge_bwd', 0)}, other kernels {other}")
+    return ", ".join(f"{k} {c.get(k, 0)}" for k in (
+        "fused_edge_fwd", "fused_edge_bwd", "fused_edge_fwd_bf16",
+        "fused_edge_bwd_bf16")) + f", other kernels {other}"
 
 
 def _same_training_state(a, b) -> bool:
@@ -3727,14 +3906,22 @@ def phase_checkpoint(dev):
 
     # (e) The command on the card: train_model --ckpt-backend orbax, then
     # --resume auto to two epochs; each process's launches read from it.
+    # (g)'s galaxy demo runs as a process beside them (it launches no
+    # kernel; its wall is its process's, not a measurement).
     cli_dir = CKPT_DIR / "cli"
     argv = ["nbody_gnn_hpc_torch.train_model", "--data-dir", str(data),
             "--model-dir", str(cli_dir), "--ckpt-backend", "orbax"]
     per_epoch = (train.n_samples // cfg.batch_size,
                  -(-val.n_samples // cfg.batch_size))
-    for run, flags in (("first", ["--epochs", "1"]),
-                       ("resumed", ["--epochs", "2", "--resume", "auto"])):
-        out, wall = _command(argv + flags, CKPT_DIR / f"cli_{run}.log")
+    cli_runs = (("first", ["--epochs", "1"]),
+                ("resumed", ["--epochs", "2", "--resume", "auto"]))
+    (demo_out, demo_wall), cli_outs = _concurrently([
+        lambda: _command(["nbody_gnn_hpc_torch.examples.demo_galaxy_collision",
+                          "-o", str(CKPT_DIR / "demo")],
+                         CKPT_DIR / "demo.log"),
+        lambda: [_command(argv + flags, CKPT_DIR / f"cli_{run}.log")
+                 for run, flags in cli_runs]])
+    for (run, flags), (out, wall) in zip(cli_runs, cli_outs):
         c = stage_launches(out)
         launches = _add(launches, c)
         resumed = re.search(r"Resumed from: +\S+ \(epoch (\d+)", out)
@@ -3742,8 +3929,11 @@ def phase_checkpoint(dev):
               f"{wall:.2f} s as a process"
               + (f", resumed at epoch {resumed.group(1)}" if resumed else "")
               + f"; {_edge_launches(c)}", flush=True)
-        check((c["fused_edge_fwd"], c["fused_edge_bwd"])
-              == (6 * sum(per_epoch), 6 * per_epoch[0]),
+        # The command trains in bf16 on the card (its default): the bf16
+        # forms of kernels 1 and 2, and no float32 ones.
+        check((c["fused_edge_fwd_bf16"], c["fused_edge_bwd_bf16"],
+               c["fused_edge_fwd"], c["fused_edge_bwd"])
+              == (6 * sum(per_epoch), 6 * per_epoch[0], 0, 0),
               f"the {run} train_model run's launch counts")
         check((resumed is None) == (run == "first")
               and (resumed is None or resumed.group(1) == "1"),
@@ -3756,9 +3946,6 @@ def phase_checkpoint(dev):
 
     # (g) The galaxy demo at its defaults, as a process (N=1,000: below
     # 2,048 the force takes the plain broadcast form; no kernel).
-    demo_out, demo_wall = _command(
-        ["nbody_gnn_hpc_torch.examples.demo_galaxy_collision", "-o",
-         str(CKPT_DIR / "demo")], CKPT_DIR / "demo.log")
     demo = stage_launches(demo_out)
     print(f"  demo_galaxy_collision at its defaults (2 x 500 particles, 300 "
           f"steps): {demo_wall:.2f} s as a process; "
@@ -3864,9 +4051,15 @@ def phase_commands() -> dict:
     COMMANDS_DIR.mkdir(parents=True, exist_ok=True)
     total, walls, launched = {}, {}, {}
 
-    def run(label, module, *flags):
-        out, wall = _command([f"nbody_gnn_hpc_torch.{module}", *flags],
-                             COMMANDS_DIR / f"{label}.log")
+    def start(label, module, *flags):
+        return _command([f"nbody_gnn_hpc_torch.{module}", *flags],
+                        COMMANDS_DIR / f"{label}.log")
+
+    def run(label, module, *flags, done=None):
+        """The command's (output, counts); ``done``: its (output, wall),
+        where it already ran."""
+        out, wall = done if done is not None else start(label, module,
+                                                        *flags)
         c = _launch_line_last(out, label)
         nonzero = {k: v for k, v in c.items() if v}
         print(f"  {label}: {wall:.2f} s as a process; launches {nonzero}",
@@ -3894,11 +4087,29 @@ def phase_commands() -> dict:
              "avg_step_s": float(avg.group(1)),
              "gpairs_per_s": float(avg.group(2))}
 
+    # The demos as five processes at once (the benchmark ran alone: it
+    # times its steps; a demo's wall is its process's, not a measurement).
+    demos = {"demo_surrogate": ("examples.demo_surrogate",
+                                "--trajectory-format", "npz"),
+             "demo_serving": ("examples.demo_serving",),
+             "demo_serving_full_width": ("examples.demo_serving",
+                                         *FULL_WIDTH_SERVING),
+             "demo_parallel_virtual_devices_0": (
+                 "examples.demo_parallel", "--virtual-devices", "0"),
+             "demo_parallel_virtual_devices_2": (
+                 "examples.demo_parallel", "--virtual-devices", "2")}
+    t0 = time.perf_counter()
+    ran = dict(zip(demos, _concurrently([
+        (lambda label=label, argv=argv: start(label, *argv))
+        for label, argv in demos.items()])))
+    print(f"  the five demo processes at once in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
     # The surrogate quickstart on the npz store: kernel 4 for the ensemble
     # and the test system (once a step and for the initial force), kernels
     # 1 and 2 in training, kernel 1 in the rollout.
-    out, c = run("demo_surrogate", "examples.demo_surrogate",
-                 "--trajectory-format", "npz")
+    out, c = run("demo_surrogate", *demos["demo_surrogate"],
+                 done=ran["demo_surrogate"])
     workdir = Path(re.search(r"^workdir: (\S+)$", out, re.M).group(1))
     rmse = [float(v) for v in re.findall(r"position RMSE: (\S+)", out)]
     check(len(rmse) == 2 and all(np.isfinite(rmse)),
@@ -3936,7 +4147,7 @@ def phase_commands() -> dict:
     # trained checkpoint, int8 weights): kernel 1 on every rollout step.
     for label, flags in (("demo_serving", ()),
                          ("demo_serving_full_width", FULL_WIDTH_SERVING)):
-        out, c = run(label, "examples.demo_serving", *flags)
+        out, c = run(label, *demos[label], done=ran[label])
         check("Concurrent wall clock" in out and out.count("client ") == 6
               and "FAILED" not in out and "finite=True" in out,
               f"{label} did not answer every client")
@@ -3951,8 +4162,7 @@ def phase_commands() -> dict:
     # in the step, kernel 1 in the pool.
     for ranks in ("0", "2"):
         label = f"demo_parallel_virtual_devices_{ranks}"
-        out, c = run(label, "examples.demo_parallel", "--virtual-devices",
-                     ranks)
+        out, c = run(label, *demos[label], done=ran[label])
         check("equals unsharded" in out and "== 1-device" in out
               and "device-pinned replicas" in out,
               f"{label} did not print its three sections")
@@ -3992,9 +4202,10 @@ def large_n() -> dict:
     check(len(stages) == 6 and all(re.search(r"Device:\s+cuda\b", st)
                                    for st in stages),
           "a largen_pipeline stage did not run on cuda")
-    check(min(c[k] for k in ("fused_edge_fwd", "fused_edge_bwd",
-                             "pairwise_symmetric")) > 0
-          and c["pairwise_symmetric_mxu"] == 0,
+    # Its train_model stages train in bf16 on the card (their default).
+    check(min(c[k] for k in ("fused_edge_fwd", "fused_edge_fwd_bf16",
+                             "fused_edge_bwd_bf16", "pairwise_symmetric")) > 0
+          and c["pairwise_symmetric_mxu"] == c["fused_edge_bwd"] == 0,
           f"largen_pipeline launched {c}")
     return {"wall_s": wall, "launches": c,
             "stage_walls_s": {f"{stage} n={n}": float(s)
@@ -4002,6 +4213,368 @@ def large_n() -> dict:
             "results": {n: {"position_rmse": float(p),
                             "velocity_rmse": float(v), "energy_err": e}
                         for n, p, v, e in results}}
+
+
+# Phase 15: bf16 training, the production recipe's precision.
+BF16_DIR = Path("build/chip_smoke_bf16")  # git-ignored
+# The bf16 stream against its plain bf16 version: where a float32
+# difference of the two (the kernel's approximate sigmoid, the sum order)
+# moves a value across a bf16 rounding boundary, the result moves by that
+# value's bf16 step (2^-8 of it).  So the largest error may reach
+# BF16_MAX_OF_SCALE of the result's scale, and at most BF16_SHARE of the
+# elements may lie beyond the float32 bound (1e-4 of scale).  The share
+# tells the forms apart: the bf16 kernels put at most 0.004 % of the
+# elements beyond it, the float32 kernels on the same bf16 values 6-7 %
+# (kernel 1) and 22-41 % (kernel 2's d_t, d_s), measured on an H100; every
+# run holds that control.  Kernel 2's float32 results (d_edge_attr, d_W_e,
+# d_gamma, d_beta, from the unrounded dz of the same bf16 inputs) keep
+# GRAD_RTOL.
+BF16_MAX_OF_SCALE, BF16_SHARE = 2.0 ** -7, 1e-2
+# The bf16 model, kernel path against plain path on the production
+# checkpoint: those bf16 steps carried through six layers, 7.0e-3 and
+# 2.3e-2 of scale on two batches; the float32 model of the same weights
+# reads 3.0 against the bf16 plain path (H100; held in every run).
+BF16_MODEL_GRAD_RTOL, BF16_LOSS_RTOL = 5e-2, 1e-3
+BF16_FIXED_STEPS = 12  # optimizer steps on one batch a dtype, 2 warm-up
+BF16_CLI_SAMPLES = 24  # train_model --max-samples: one step of B=24
+
+
+def bf16_errors(got, want) -> tuple:
+    """(max abs error, max error / scale, share of elements beyond 1e-4 of
+    scale) of a bf16-stream result against its plain version."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item() + 1e-6
+    err = (got - want).abs()
+    return (err.max().item(), err.max().item() / scale,
+            (err > 1e-4 * scale).float().mean().item())
+
+
+def phase_bf16_kernels(model, norm_stats, dev):
+    """(a) Kernels 1 and 2 in their bf16-stream form against their plain
+    bf16 versions, on the production checkpoint's layer-0 operands with
+    the projections in bf16: kernel 1 in inference form at B=1 and in
+    training form (dropout 0.1) at B=1 and 24, kernel 2 in training form
+    at B=1 and 24 (the batch folded); exact launch counts (bf16 forms
+    only); a rerun bit for bit; CUDA-event times of both dtypes' kernels.
+    Called under inference_mode.  Returns the timed rows and each form's
+    largest absolute error."""
+    import torch
+
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_edge_backward_reference,
+                                         fused_edge_layer,
+                                         fused_edge_layer_reference)
+
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    rows, errs = [], {"fused_edge_fwd_bf16": 0.0, "fused_edge_bwd_bf16": 0.0}
+
+    def counts():
+        return (fused_edge_layer.launches, fused_edge_layer.bf16_launches,
+                fused_edge_backward.launches,
+                fused_edge_backward.bf16_launches)
+
+    def within(got, want):
+        _, rel, share = bf16_errors(got, want)
+        return rel <= BF16_MAX_OF_SCALE and share <= BF16_SHARE
+
+    def held(name, label, got, want, again, moved, control):
+        err, rel, share = bf16_errors(got, want)
+        ok = within(got, want)
+        errs[name] = max(errs[name], err)
+        _, c_rel, c_share = bf16_errors(control, want)
+        print(f"  {name} {label}: max abs err {err:.3e}, {rel:.3e} of "
+              f"scale, {100 * share:.3f} % beyond 1e-4 of scale (tolerance "
+              f"{BF16_MAX_OF_SCALE:g} of scale, {100 * BF16_SHARE:g} %) -> "
+              f"{'ok' if ok else 'MISMATCH'}; rerun bit-identical: {again}; "
+              f"control, the float32 kernel on the same bf16 values: "
+              f"{c_rel:.3e} of scale, {100 * c_share:.3f} % beyond -> "
+              f"{'refused' if not within(control, want) else 'PASSED'}",
+              flush=True)
+        check(ok, f"{name} disagrees with its plain bf16 version ({label})")
+        check(not within(control, want),
+              f"{name}'s tolerance does not tell the bf16 stream from the "
+              f"float32 one ({label})")
+        check(again, f"{name} reruns are not bit-identical")
+        check(moved, f"{name} did not count one bf16 launch and no float32 "
+                     f"one ({label})")
+
+    def timed(name, form, b, fn, fn32, plain, bound, reps):
+        ms, ms32 = cuda_time_ms(fn), cuda_time_ms(fn32)
+        plain_ms = cuda_time_ms(plain, *reps)
+        rows.append({"kernel": name, "form": form, "B": b, "N": N, "k": K,
+                     "ms": ms, "ms_float32": ms32, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        print(f"  {name} {form} B={b}: bf16 kernel {ms:.5f} ms, float32 "
+              f"kernel {ms32:.5f} ms (same call, same operands), plain bf16 "
+              f"{plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}; "
+              f"float32 operands: {bound[2]:.6f} ms); library_ms null",
+              flush=True)
+
+    for b, form, sd, p in ((1, "inference", None, 0.0),
+                           (1, "training", seed, DROPOUT_P),
+                           (24, "training", seed, DROPOUT_P)):
+        a32 = edge_layer_inputs(model, norm_stats, b, N, K, dev)
+        args = (a32[0].bfloat16(), a32[1].bfloat16()) + a32[2:]
+        rounded = (args[0].float(), args[1].float()) + a32[2:]
+        kw = dict(dropout_p=p, deterministic=sd is None)
+        before = counts()
+        got = fused_edge_layer(*args, sd, **kw)
+        torch.cuda.synchronize()
+        moved = tuple(x - y for x, y in zip(counts(), before)) == (0, 1, 0, 0)
+        check(got.dtype == torch.float32, "kernel 1's bf16 form is not "
+                                          "float32 out")
+        held("fused_edge_fwd_bf16", f"{form} B={b}", got,
+             fused_edge_layer_reference(*args, sd, p),
+             torch.equal(got, fused_edge_layer(*args, sd, **kw)), moved,
+             fused_edge_layer(*rounded, sd, **kw))
+        timed("fused_edge_fwd_bf16", form, b,
+              lambda: fused_edge_layer(*args, sd, **kw),
+              lambda: fused_edge_layer(*a32, sd, **kw),
+              lambda: fused_edge_layer_reference(*args, sd, p),
+              edge_bound_ms(args, sd is not None) + (
+                  edge_bound_ms(a32, sd is not None)[0],),
+              (3, 5) if b == 24 else ())
+    for b in (1, 24):
+        a32 = edge_layer_inputs(model, norm_stats, b, N, K, dev)
+        args = (a32[0].bfloat16(), a32[1].bfloat16()) + a32[2:]
+        rounded = (args[0].float(), args[1].float()) + a32[2:]
+        g_out = torch.randn(a32[0].shape, device=dev,
+                            generator=torch.Generator(dev).manual_seed(b))
+        before = counts()
+        got = fused_edge_backward(*args, g_out, seed, DROPOUT_P,
+                                  need_d_edge_attr=False)
+        torch.cuda.synchronize()
+        moved = tuple(x - y for x, y in zip(counts(), before)) == (0, 0, 0, 1)
+        check([g.dtype for g in got[:2]] == [torch.bfloat16] * 2
+              and got[2] is None, "kernel 2's bf16 form returned the wrong "
+                                  "dtypes")
+        want = fused_edge_backward_reference(*args, g_out, seed, DROPOUT_P)
+        again = fused_edge_backward(*args, g_out, seed, DROPOUT_P,
+                                    need_d_edge_attr=False)
+        same = all(torch.equal(x, y) for x, y in zip(got[:2] + got[3:],
+                                                     again[:2] + again[3:]))
+        control = fused_edge_backward(*rounded, g_out, seed, DROPOUT_P,
+                                      need_d_edge_attr=False)
+        for i, label in enumerate(("d_t_proj", "d_s_proj")):
+            held("fused_edge_bwd_bf16", f"training B={b} {label}", got[i],
+                 want[i], same, moved, control[i])
+        err, rel = _grad_errors(got[3:], want[3:])
+        errs["fused_edge_bwd_bf16"] = max(errs["fused_edge_bwd_bf16"], err)
+        print(f"  fused_edge_bwd_bf16 training B={b} d_W_e, d_gamma, d_beta "
+              f"(float32): max abs err {err:.3e}, max err / gradient scale "
+              f"{rel:.3e} (tolerance {GRAD_RTOL:g}) -> "
+              f"{'ok' if rel <= GRAD_RTOL else 'MISMATCH'}", flush=True)
+        check(rel <= GRAD_RTOL, "kernel 2's bf16 form: a float32 gradient "
+                                "disagrees with its plain version")
+        timed("fused_edge_bwd_bf16", "training", b,
+              lambda: fused_edge_backward(*args, g_out, seed, DROPOUT_P,
+                                          need_d_edge_attr=False),
+              lambda: fused_edge_backward(*a32, g_out, seed, DROPOUT_P,
+                                          need_d_edge_attr=False),
+              lambda: fused_edge_backward_reference(*args, g_out, seed,
+                                                    DROPOUT_P),
+              edge_bwd_bound_ms(args, True) + (
+                  edge_bwd_bound_ms(a32, True)[0],),
+              (3, 5) if b == 24 else ())
+    return rows, errs
+
+
+def phase_bf16(dev, model, norm_stats) -> tuple:
+    """Phase 15, bf16 training: (a) the kernels' bf16 form
+    (``phase_bf16_kernels``); (b) ``Trainer`` with the production
+    ``TrainingConfig`` (B=24, hidden 256, 6 layers) and a bf16 model for an
+    epoch, losses finite, parameters float32, a fixed batch's loss falling
+    over its optimizer steps, the step wall and busy share beside the
+    float32 model's on the same batch, kernel-path and plain-path gradients
+    of the production checkpoint in bf16 (with remat and a float32 control,
+    ``model_gradients_agree``), and the saved checkpoint served
+    at float32 (``build_service``) for 5 steps against ``device="cpu"``;
+    (c) ``python -m nbody_gnn_hpc_torch.train_model`` as three processes at
+    once, at its defaults (bf16), with ``--no-bf16`` and with ``--remat``.
+    Returns (timed rows, errors, this path's launches, a summary)."""
+    import torch
+
+    from nbody_gnn_hpc_torch import generate_data
+    from nbody_gnn_hpc_torch.config import TrainingConfig
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.serve import build_service
+    from nbody_gnn_hpc_torch.train import (Trainer, datasets_from_manifest,
+                                           make_optimizer, make_train_step)
+    from nbody_gnn_hpc_torch.train.dataset import MANIFEST_NAME
+
+    with torch.inference_mode():
+        rows, errs = phase_bf16_kernels(model, norm_stats, dev)
+
+    # (b) Trainer in bf16 at the production configuration.
+    cfg = TrainingConfig()
+    shutil.rmtree(BF16_DIR, ignore_errors=True)
+    data = BF16_DIR / "data"
+    check(generate_data.main([
+        "--particles", str(CKPT_DATA["n"]), "--simulations",
+        str(CKPT_DATA["n_sims"]), "--steps", str(CKPT_DATA["n_steps"]),
+        "--no-windows", "--trajectory-format", "npz", "--device", str(dev),
+        "--output-dir", str(data)]) == 0, "generate_data failed")
+    train, val = datasets_from_manifest(data / MANIFEST_NAME, k_neighbors=K,
+                                        cache=False)
+    width = dict(hidden_dim=cfg.hidden_dim, n_layers=cfg.n_layers,
+                 dropout=cfg.dropout)
+    trainer = Trainer(
+        NBodyGNN(dtype=torch.bfloat16, **width), train, val,
+        model_dir=str(BF16_DIR / "trainer"), device=dev,
+        learning_rate=cfg.learning_rate, batch_size=cfg.batch_size,
+        weight_decay=cfg.weight_decay, noise_std=cfg.noise_std, n_epochs=1,
+        seed=7)
+    val_batches = -(-val.n_samples // cfg.batch_size)
+    # main-path run starts here
+    _zero_counts()
+    history = trainer.train(n_epochs=1, save_every=10)
+    launches = _counts()
+    # main-path run ends here
+    steps = trainer.steps_per_epoch
+    want = {"fused_edge_fwd_bf16": 6 * (steps + val_batches),
+            "fused_edge_bwd_bf16": 6 * steps}
+    got = {k: v for k, v in launches.items() if v}
+    print(f"  Trainer, bf16 model, 1 epoch: {steps} steps at B="
+          f"{cfg.batch_size} + {val_batches} validation batches; step losses "
+          f"{['%.4f' % x for x in trainer.step_losses]}, validation "
+          f"{['%.4f' % x for x in history['val_loss']]}; launches {got} "
+          f"(expected {want})", flush=True)
+    check(got == want, "the bf16 training path's launch counts")
+    check(bool(np.isfinite(trainer.step_losses + history["val_loss"]).all()),
+          "a bf16 training loss is not finite")
+    check(trainer.model.dtype == torch.bfloat16
+          and all(p.dtype == torch.float32
+                  for p in trainer.model.parameters()),
+          "the bf16 model's parameters are not float32")
+
+    # One batch: bf16 and float32 models from the same weights, step walls
+    # in turns, a profiled window each; the bf16 loss must fall.
+    ids = torch.arange(cfg.batch_size, device=dev)
+    s, t = trainer.train_states[ids], trainer.train_targets[ids]
+    f32 = NBodyGNN(**width).to(dev)
+    f32.load_state_dict(trainer.model.state_dict())
+    masses = trainer.masses
+    step32 = make_train_step(
+        f32, make_optimizer(f32, cfg.learning_rate, cfg.weight_decay),
+        trainer.edge_index, trainer.norm_stats["state_mean"],
+        trainer.norm_stats["state_std"], (masses / masses.mean())[:, None],
+        noise_std=cfg.noise_std, masses=masses)
+    steppers = {"bfloat16": trainer._step, "float32": step32}
+    with torch.no_grad():
+        before = trainer._step.compute_loss(s, t, deterministic=True)[0].item()
+    walls = {"bfloat16": [], "float32": []}
+    gen = torch.Generator(dev).manual_seed(5)
+    for turn in range(2 * BF16_FIXED_STEPS):
+        name = ("bfloat16", "float32")[turn // 2 % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steppers[name](s, t, gen)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    with torch.no_grad():
+        after = trainer._step.compute_loss(s, t, deterministic=True)[0].item()
+    summary = {"step_ms": {}, "busy_share": {}}
+    for name, w in walls.items():
+        summary["step_ms"][name] = float(np.median(w[2:]) * 1e3)
+        print(f"  train step wall, {name} (B={cfg.batch_size}, "
+              f"synchronised, in turns of two, after 2 warm-up): median "
+              f"{summary['step_ms'][name]:.2f} ms, min "
+              f"{min(w[2:]) * 1e3:.2f} ms, max {max(w[2:]) * 1e3:.2f} ms",
+              flush=True)
+        window = {}
+        profile_window(f"3 train steps, {name}", lambda: [
+            steppers[name](s, t, gen) for _ in range(3)], steps=3,
+            out=window)
+        summary["busy_share"][name] = window.get("busy_share")
+    print(f"  fixed batch, bf16 loss with dropout and noise off: "
+          f"{before:.6f} before, {after:.6f} after {BF16_FIXED_STEPS} bf16 "
+          f"steps on it", flush=True)
+    check(after < before, "bf16 optimizer steps on one batch did not lower "
+                          "its loss")
+    summary["grad_rel"] = model_gradients_agree(train, cfg, dev,
+                                                dtype="bfloat16")
+
+    # The bf16-trained checkpoint served at float32 (config.json says
+    # bfloat16, as train_model writes it).
+    model_dir = BF16_DIR / "trainer"
+    with open(model_dir / "config.json", "w") as f:
+        json.dump({"model_type": "gnn", "model_config": {
+            **trainer._model_config, "dtype": "bfloat16", "remat": False},
+            "training_config": cfg.to_dict()}, f, indent=2)
+    served = build_service(str(model_dir / "best_model.pt"),
+                           str(model_dir / "config.json"))
+    ref = build_service(str(model_dir / "best_model.pt"),
+                        str(model_dir / "config.json"), device="cpu")
+    check(served.predictor.model.dtype == ref.predictor.model.dtype
+          == torch.float32,
+          "the bf16-trained checkpoint was not served at float32")
+    pos, vel, masses = eval_states(1)
+    out = served.rollout(pos[0], vel[0], masses, 5)
+    diff, ok = close_to(out["positions"], ref.rollout(
+        pos[0], vel[0], masses, 5)["positions"], 1e-4)
+    print(f"  served the bf16-trained best_model.pt at float32: 5 steps, "
+          f"max abs diff from device='cpu' {diff:.3e} (1e-4 of scale)",
+          flush=True)
+    check(ok and np.isfinite(out["positions"]).all(),
+          "the bf16-trained checkpoint's rollout disagrees with the CPU run")
+
+    # (c) The command, three processes at once: defaults, --no-bf16 and
+    # --remat, one step of B=24 each, then validation.
+    runs = {"default": [], "no_bf16": ["--no-bf16"], "remat": ["--remat"]}
+    argv = ["nbody_gnn_hpc_torch.train_model", "--data-dir", str(data),
+            "--epochs", "1", "--max-samples", str(BF16_CLI_SAMPLES)]
+    t0 = time.perf_counter()
+    outs = _concurrently([
+        (lambda name=name, flags=flags: _command(
+            argv + ["--model-dir", str(BF16_DIR / name)] + flags,
+            BF16_DIR / f"{name}.log")) for name, flags in runs.items()])
+    print(f"  train_model x 3 at once in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    vb = 6 * val_batches
+    want = {"default": {"fused_edge_fwd_bf16": 6 + vb,
+                        "fused_edge_bwd_bf16": 6},
+            "no_bf16": {"fused_edge_fwd": 6 + vb, "fused_edge_bwd": 6},
+            # remat runs each layer's forward again in the backward
+            "remat": {"fused_edge_fwd_bf16": 12 + vb,
+                      "fused_edge_bwd_bf16": 6}}
+    history = {}
+    for (name, flags), (out, wall) in zip(runs.items(), outs):
+        c = stage_launches(out)
+        launches = _add(launches, c)
+        model_cfg = json.loads((BF16_DIR / name / "config.json")
+                               .read_text())["model_config"]
+        history[name] = json.loads((BF16_DIR / name /
+                                    "training_history.json").read_text())
+        got = {k: v for k, v in c.items() if v}
+        print(f"  train_model {' '.join(flags) or '(defaults)'}: {wall:.1f} "
+              f"s; config.json dtype {model_cfg['dtype']}, remat "
+              f"{model_cfg['remat']}; first step's loss "
+              f"{history[name]['train_loss'][0]!r}, validation "
+              f"{history[name]['val_loss'][0]!r}; launches {got}", flush=True)
+        check(re.search(r"Device:\s+cuda\b", out) is not None,
+              f"train_model {name} did not run on cuda")
+        check((model_cfg["dtype"], model_cfg["remat"]) == (
+            "float32" if name == "no_bf16" else "bfloat16", name == "remat"),
+            f"train_model {name} wrote {model_cfg}")
+        check(got == want[name], f"train_model {name} launched {got}, "
+                                 f"expected {want[name]}")
+    # The flag reaches the model (config.json, the recomputing launches)
+    # and changes no loss.  The zero-initialised decoder_out zeroes every
+    # gradient upstream of it in a first step, so these losses do not read
+    # the recomputed backward: (b) holds remat's gradients to the kernel
+    # path's on the production checkpoint.
+    same = [history["remat"][key][0] == history["default"][key][0]
+            for key in ("train_loss", "val_loss")]
+    print(f"  --remat: first step's loss equal to the run without it: "
+          f"{same[0]}; validation loss after that step equal: {same[1]} "
+          f"(float32: {history['no_bf16']['val_loss'][0]!r})", flush=True)
+    check(all(same), "--remat changed the first step's loss or its "
+                     "validation loss")
+    summary["cli"] = {name: {"train_loss": h["train_loss"][0],
+                             "val_loss": h["val_loss"][0]}
+                      for name, h in history.items()}
+    print(json.dumps({"bf16": summary}), flush=True)
+    return rows, errs, launches, summary
 
 
 def main(argv=None) -> int:
@@ -4040,7 +4613,8 @@ def main(argv=None) -> int:
 
     # 2. Build
     t0 = time.perf_counter()
-    sources = ["fused_edge", "pairwise", "fused_edge_full", "probes"]
+    sources = ["fused_edge", "fused_edge_bf16", "pairwise", "fused_edge_full",
+               "probes"]
     built = build(sources)
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -4078,11 +4652,18 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    clock = [time.perf_counter()]
+
+    def took(phase):  # the phase that started at the last mark
+        now = time.perf_counter()
+        print(f"  phase {phase} took {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     # 3. Kernels against their plain versions
     print("[3] kernels vs plain versions on the card", flush=True)
     with open(CONFIG) as f:
         cfg = json.load(f)["model_config"]
-    model = model_from_config(cfg).to(dev).eval()
+    model = model_from_config(cfg, dtype_override="float32").to(dev).eval()
     norm_stats = load_into(model, load_checkpoint(MODEL))
     from nbody_gnn_hpc_torch.ops import accelerations_symmetric_mxu as mxu
 
@@ -4100,38 +4681,47 @@ def main(argv=None) -> int:
         mxu_by_path[name] = mxu_by_path.get(name, 0) + mxu.launches
         return out
 
+    took(3)
+
     # 4. Serving main path
     print("[4] serving the production checkpoint", flush=True)
     service, serve_fwd, traj20 = path("serving", phase_serving, dev_name)
+    took(4)
 
     # 5. Where the serving time goes
     print("[5] profile", flush=True)
     path("serving", phase_profile, service)
+    took(5)
 
     # 6. Training main path
     print("[6] training the production-width model", flush=True)
     train_fwd, train_bwd = path("training", phase_train, dev)
+    took(6)
 
     # 7. The simulator side, the third main path
     print("[7] the simulator side: datagen, large-N /simulate, evaluation",
           flush=True)
     sim, oracle, states, sim_masses = path("simulator", phase_simulator,
                                            service, dev)
+    took(7)
 
     # 8. Serving as it is deployed, the fourth main path
     print("[8] serving as deployed: fused_full behind the pool, the "
           "micro-batcher and the gate; quantization", flush=True)
     deployed = path("deployed", phase_deployed, dev_name, service, traj20)
+    took(8)
 
     # 9. The card's ceilings, the fifth main path
     print("[9] the card's ceilings: kernels 10 and 11, python -m "
           "nbody_gnn_hpc_torch.roofline in process", flush=True)
     probe_rows, probe_errs, ceilings = path("ceilings", phase_ceilings, dev)
+    took(9)
 
     # 10. The rollout fine-tune and checkpoint selection, the sixth path
     print("[10] rollout fine-tune and checkpoint selection", flush=True)
     finetune = path("finetune", phase_finetune, states, sim_masses, dev)
     del states
+    took(10)
 
     # 11. The one-command pipeline, the seventh main path: each stage is a
     # process whose counts start at 0 and which prints them last.
@@ -4139,6 +4729,7 @@ def main(argv=None) -> int:
           "store", flush=True)
     pipeline = phase_pipeline()
     mxu_by_path["pipeline"] = pipeline["pairwise_symmetric_mxu"]
+    took(11)
 
     # 12. Data parallel and the simulator surface (and the GNN above
     # N = 2,048): each drive's counts zeroed just before and read after,
@@ -4174,6 +4765,17 @@ def main(argv=None) -> int:
     commands = phase_commands()
     mxu_by_path["commands"] = commands.get("pairwise_symmetric_mxu", 0)
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+
+    # 15. bf16 training, the production recipe's precision: the bf16 forms
+    # of kernels 1 and 2 against their plain versions, a bf16 Trainer and
+    # the train_model command (counts zeroed just before each drive).
+    print("[15] bf16 training: the bf16 stream of kernels 1 and 2, Trainer "
+          "in bf16, train_model --no-bf16 / --remat", flush=True)
+    t15 = time.perf_counter()
+    bf16_rows, bf16_errs, bf16, bf16_summary = phase_bf16(dev, model,
+                                                          norm_stats)
+    mxu_by_path["bf16"] = bf16.get("pairwise_symmetric_mxu", 0)
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -4190,6 +4792,14 @@ def main(argv=None) -> int:
             ("fused_edge_bwd", "fused_edge",
              "nbody_gnn_hpc_tpu/ops/fused_edge.py:114 (and "
              "ops/fused_edge_batched.py:123)", None, rows, errs),
+            ("fused_edge_fwd_bf16", "fused_edge_bf16",
+             "nbody_gnn_hpc_tpu/ops/fused_edge.py:91 with cd = bfloat16 "
+             "(:184; and ops/fused_edge_batched.py:91)", None, bf16_rows,
+             bf16_errs),
+            ("fused_edge_bwd_bf16", "fused_edge_bf16",
+             "nbody_gnn_hpc_tpu/ops/fused_edge.py:114 with cd = bfloat16 "
+             "(:184; and ops/fused_edge_batched.py:123)", None, bf16_rows,
+             bf16_errs),
             ("pairwise_tiled", "pairwise",
              "nbody_gnn_hpc_tpu/ops/pairwise.py:41", f"N={LARGE_N}",
              force_rows, force_errs),
@@ -4234,6 +4844,7 @@ def main(argv=None) -> int:
                  "surrogate_large_n": surrogate.get(name, 0),
                  "checkpoint": checkpoint.get(name, 0),
                  "commands": commands.get(name, 0),
+                 "bf16": bf16.get(name, 0),
                  "oracle": oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
@@ -4246,7 +4857,9 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": shape, "by_shape": mine,
             **({"composed_ms": row["composed_ms"]}
-               if "composed_ms" in row else {})})
+               if "composed_ms" in row else {}),
+            **({"ms_float32": row["ms_float32"]}
+               if "ms_float32" in row else {})})
     # Kernels 3 and 5 are dispatched by no entry point: their launches are
     # this script's own comparisons.  The probes run on the ceilings path.
     # Every other kernel must have been launched by an entry point.
@@ -4278,6 +4891,10 @@ def main(argv=None) -> int:
         "fused_edge_fwd", "fused_edge_bwd", "pairwise_small",
         "pairwise_symmetric")) > 0, "the last commands launched no kernel "
                                     "1, 2, 4 or 6")
+    check(min(p.get(k, 0) for p in (pipeline, checkpoint, bf16)
+              for k in ("fused_edge_fwd_bf16", "fused_edge_bwd_bf16")) > 0,
+          "the pipeline's, train_model's or the bf16 path's training "
+          "launched no bf16 kernel 1 or 2")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

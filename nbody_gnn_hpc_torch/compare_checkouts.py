@@ -72,8 +72,9 @@ _EDGE = """
 from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
 from nbody_gnn_hpc_torch.models import model_from_config
 from nbody_gnn_hpc_torch.ops import fused_edge_backward, fused_edge_layer
-with open(cs.CONFIG) as f:
-    model = model_from_config(json.load(f)["model_config"]).to(dev).eval()
+with open(cs.CONFIG) as f:  # float32 in every checkout, whatever it reads
+    model = model_from_config({**json.load(f)["model_config"],
+                               "dtype": "float32"}).to(dev).eval()
 stats = load_into(model, load_checkpoint(cs.MODEL))
 seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
 with torch.inference_mode():

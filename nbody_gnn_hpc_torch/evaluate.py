@@ -158,7 +158,9 @@ def main(argv=None) -> int:
         model_config, k_neighbors = DEFAULT_MODEL_CONFIG, 40
 
     print("\nLoading model...")
-    predictor = Predictor(model_from_config(model_config), str(model_path),
+    predictor = Predictor(model_from_config(model_config,
+                                            dtype_override="float32"),
+                          str(model_path),
                           device=device, k_neighbors=k_neighbors)
     if args.quantize and not predictor.quantization:
         print(f"  (weight-only {args.quantize} quantization)")

@@ -52,7 +52,8 @@ def demo_model(checkpoint, tmpdir: str):
         cfg_path = Path(checkpoint).parent / "config.json"
         if cfg_path.exists():
             saved = json.loads(cfg_path.read_text())
-            return model_from_config(saved["model_config"]), checkpoint
+            return model_from_config(saved["model_config"],
+                                     dtype_override="float32"), checkpoint
         print(f"! no config.json beside {checkpoint}; assuming the "
               "production architecture (hidden 256, 6 layers)")
         return NBodyGNN(node_input_dim=7, hidden_dim=256, n_layers=6,

@@ -125,7 +125,8 @@ def main(argv=None) -> int:
     model_config = config["model_config"]
     k_neighbors = config.get("training_config", {}).get("k_neighbors", 40)
 
-    model = model_from_config(model_config).to(device)
+    model = model_from_config(model_config,
+                              dtype_override="float32").to(device)
     norm_stats = load_into(model, load_checkpoint(args.model_path))
     if norm_stats is None:
         print(f"{args.model_path} has no norm_stats: the unrolled objective "

@@ -34,6 +34,14 @@ A data-parallel rank that holds rows [start, start + B) of a batch of
 node-side mask is then drawn at the whole batch's shape and this rank's
 rows kept, and the edge stream counts graphs from ``start``, so the rank
 draws for its rows exactly what one device draws for the whole batch.
+
+``dtype`` is the products' compute dtype, as the JAX model's: with
+``torch.bfloat16`` every Dense but ``decoder_out`` casts its input, weight
+and bias to bf16 and returns bf16 (cuBLAS on the tensor cores), the edge
+stream takes bf16 projections (its bf16 form), and the parameters, the
+LayerNorm statistics, the residuals and the sums at the targets stay
+float32.  Inference rebuilds a model at float32 from the same parameters
+(``model_from_config(..., dtype_override="float32")``).
 """
 
 import math
@@ -42,6 +50,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nbody_gnn_hpc_torch.ops.edges import edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import fused_edge_layer, target_csr
@@ -53,6 +62,13 @@ SEED_BOUND = 2_147_483_647  # edge-stream seeds lie in [0, 2^31 - 1)
 # "fused": the edge stream as a kernel between PyTorch's projections and
 # node MLP; "fused_full": the whole layer as one kernel.
 EDGE_IMPLS = ("fused", "fused_full")
+# The compute dtypes, by the names config.json gives them.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Why a bf16 model cannot run through the whole-layer kernel (yet).
+FULL_LAYER_BF16_MISSING = (
+    "edge_impl='fused_full' has no bfloat16 form: kernel 7's bf16 stream "
+    "(nbody_gnn_hpc_tpu/ops/fused_edge_full.py, bf16_stream) is not ported "
+    "yet; train with --no-bf16 (dtype float32) or with edge_impl='fused'")
 
 
 class BatchRows(NamedTuple):
@@ -76,23 +92,35 @@ def draw_rows(sampler: Callable, shape, generator: Optional[torch.Generator],
     return whole[rows.start:rows.start + shape[0]]
 
 
-def _dropout_mask(x: torch.Tensor, p: float,
-                  generator: Optional[torch.Generator],
-                  rows: Optional[BatchRows] = None) -> torch.Tensor:
-    """Pre-scaled mask shaped as ``x`` from the draw :func:`_dropout` makes:
-    1/(1-p) with probability 1-p, else 0."""
-    keep = draw_rows(torch.rand, x.shape, generator, x.device, rows) >= p
-    return keep.to(x.dtype) / (1.0 - p)
-
-
 def _dropout(x: torch.Tensor, p: float, training: bool,
              generator: Optional[torch.Generator],
-             rows: Optional[BatchRows] = None) -> torch.Tensor:
-    """Flax ``nn.Dropout``: keep with probability 1-p, kept / (1-p)."""
+             rows: Optional[BatchRows] = None,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1-p, kept / (1-p);
+    ``keep``, where given, is the draw (:func:`_keep`), made earlier."""
     if not training or p <= 0:
         return x
-    keep = draw_rows(torch.rand, x.shape, generator, x.device, rows) >= p
+    if keep is None:
+        keep = _keep(x.shape, p, generator, x.device, rows)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def _keep(shape, p: float, generator: Optional[torch.Generator], device,
+          rows: Optional[BatchRows] = None) -> torch.Tensor:
+    """The bool keep mask :func:`_dropout` draws for ``shape``."""
+    return draw_rows(torch.rand, shape, generator, device, rows) >= p
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """Flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to
+    ``dtype``, the product rounded to ``dtype``, then the bias added in
+    ``dtype`` (a second rounding, where a fused bias would round once);
+    the float32 layer as it is."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -119,19 +147,23 @@ def _lecun_normal_(weight: torch.Tensor, generator=None) -> None:
 
 
 class _MLPBlock(nn.Module):
-    """Linear -> LayerNorm -> SiLU -> Dropout -> Linear."""
+    """Linear -> LayerNorm -> SiLU -> Dropout -> Linear; the products in
+    ``dtype``, the LayerNorm on their float32 cast, the result float32."""
 
-    def __init__(self, in_dim: int, hidden: int, out: int, dropout: float):
+    def __init__(self, in_dim: int, hidden: int, out: int, dropout: float,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.Dense_0 = nn.Linear(in_dim, hidden)
         self.LayerNorm_0 = LayerNorm(hidden)
         self.Dense_1 = nn.Linear(hidden, out)
         self.dropout = dropout
+        self.dtype = dtype
 
-    def forward(self, x, generator=None, rows=None):
-        x = F.silu(self.LayerNorm_0(self.Dense_0(x)))
-        x = _dropout(x, self.dropout, self.training, generator, rows)
-        return self.Dense_1(x)
+    def forward(self, x, generator=None, rows=None, keep=None):
+        x = F.silu(self.LayerNorm_0(
+            _dense(self.Dense_0, x, self.dtype).float()))
+        x = _dropout(x, self.dropout, self.training, generator, rows, keep)
+        return _dense(self.Dense_1, x, self.dtype).float()
 
 
 class ParticleInteractionLayer(nn.Module):
@@ -149,12 +181,14 @@ class ParticleInteractionLayer(nn.Module):
     full_layer = staticmethod(fused_full_layer)
 
     def __init__(self, node_features: int, hidden_dim: int, dropout: float,
-                 edge_dim: int = EDGE_DIM, edge_impl: str = "fused"):
+                 edge_dim: int = EDGE_DIM, edge_impl: str = "fused",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if edge_impl not in EDGE_IMPLS:
             raise ValueError(f"edge_impl must be one of {EDGE_IMPLS}, got "
                              f"{edge_impl!r}")
         self.edge_impl = edge_impl
+        self.dtype = dtype
         self.edge_proj_target = nn.Linear(node_features, hidden_dim)
         self.edge_proj_source = nn.Linear(node_features, hidden_dim,
                                           bias=False)
@@ -162,27 +196,49 @@ class ParticleInteractionLayer(nn.Module):
         self.edge_norm = LayerNorm(hidden_dim)
         self.edge_out = nn.Linear(hidden_dim, hidden_dim)
         self.node_mlp = _MLPBlock(node_features + hidden_dim, hidden_dim,
-                                  node_features, dropout)
+                                  node_features, dropout, dtype)
         self.dropout = dropout
 
-    def forward(self, h, edge_attr, edges, deg, generator=None, rows=None):
-        seed = None
-        if self.training and self.dropout > 0:
-            seed = torch.randint(0, SEED_BOUND, (1,), generator=generator,
-                                 device=h.device, dtype=torch.int32)
+    def draws(self, h, generator=None, rows=None):
+        """(seed, keep): the layer's random values in training mode, in the
+        order the layer uses them: the edge stream's int seed, then the
+        node MLP's keep mask; (None, None) in evaluation mode."""
+        if not (self.training and self.dropout > 0):
+            return None, None
+        seed = torch.randint(0, SEED_BOUND, (1,), generator=generator,
+                             device=h.device, dtype=torch.int32)
+        hidden = self.node_mlp.Dense_0.out_features
+        return seed, _keep(h.shape[:-1] + (hidden,), self.dropout, generator,
+                           h.device, rows)
+
+    def forward(self, h, edge_attr, edges, deg, generator=None, rows=None,
+                draws=None):
+        """The layer's new node features (float32), its products in
+        ``self.dtype``; ``draws`` are the layer's :meth:`draws`, made
+        earlier (else they are drawn here from ``generator``)."""
+        dtype = self.dtype
+        if self.edge_impl == "fused_full" and dtype != torch.float32:
+            raise NotImplementedError(FULL_LAYER_BF16_MISSING)
+        seed, keep = self.draws(h, generator, rows) if draws is None \
+            else draws
         if self.edge_impl == "fused_full":
-            return self._whole_layer(h, edge_attr, edges, seed, generator,
-                                     rows)
+            return self._whole_layer(h, edge_attr, edges, seed, keep)
         summed = self.edge_stream(
-            self.edge_proj_target(h), self.edge_proj_source(h), edge_attr,
+            _dense(self.edge_proj_target, h, dtype),
+            _dense(self.edge_proj_source, h, dtype), edge_attr,
             self.edge_proj_attr.weight.t().contiguous(),
             self.edge_norm.weight, self.edge_norm.bias, edges, seed,
             dropout_p=self.dropout, deterministic=not self.training)
         # Edge-output Dense pulled through the sum: the (E, H) messages
-        # never exist, sum_e (z_e W + b) = (sum_e z_e) W + deg * b.
-        agg = summed @ self.edge_out.weight.t() + deg.unsqueeze(-1) * \
-            self.edge_out.bias
-        return self.node_mlp(torch.cat([h, agg], dim=-1), generator, rows)
+        # never exist, sum_e (z_e W + b) = (sum_e z_e) W + deg * b; in bf16
+        # the product rounds, deg * b is added in float32.
+        w_out = self.edge_out.weight.t()
+        if dtype == torch.float32:
+            prod = summed @ w_out
+        else:
+            prod = (summed.to(dtype) @ w_out.to(dtype)).float()
+        agg = prod + deg.unsqueeze(-1) * self.edge_out.bias
+        return self.node_mlp(torch.cat([h, agg], dim=-1), keep=keep)
 
     def full_layer_params(self) -> dict:
         """The layer's tensors under the names ``full_layer`` takes."""
@@ -196,25 +252,44 @@ class ParticleInteractionLayer(nn.Module):
             g1=mlp.LayerNorm_0.weight, be1=mlp.LayerNorm_0.bias,
             w2=mlp.Dense_1.weight, b2=mlp.Dense_1.bias)
 
-    def _whole_layer(self, h, edge_attr, edges, seed, generator, rows):
+    def _whole_layer(self, h, edge_attr, edges, seed, keep):
         """The layer through ``full_layer``: the node MLP's dropout mask is
-        drawn here, after the edge seed, as ``node_mlp`` would draw it."""
-        node_mask = None if seed is None else _dropout_mask(
-            h, self.dropout, generator, rows)
+        the keep mask ``node_mlp`` would apply, pre-scaled."""
+        node_mask = None if seed is None else keep.to(h.dtype) / (
+            1.0 - self.dropout)
         return self.full_layer(h, edge_attr, self.full_layer_params(), edges,
                                seed, node_mask, dropout_p=self.dropout,
                                deterministic=not self.training)
 
 
 class NBodyGNN(nn.Module):
-    """GNN predicting the next state as current_state + delta."""
+    """GNN predicting the next state as current_state + delta.
+
+    ``dtype``: the products' compute dtype, ``torch.float32`` or
+    ``torch.bfloat16`` (or their names); the parameters are float32 either
+    way.  ``remat``: recompute each interaction layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    intermediates; the layer's random values are drawn before it, so the
+    recompute draws nothing and the results are those without remat.
+    The default is ``remat=False``, where the JAX class defaults to True:
+    the JAX CLI passes ``--remat`` (off unless given) and
+    ``models/config.json`` says false, and a recompute launches each
+    layer's forward kernel a second time in every step.
+    """
 
     def __init__(self, node_input_dim: int = 7, hidden_dim: int = 128,
                  n_layers: int = 3, output_dim: int = 6,
                  dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None,
-                 edge_impl: str = "fused"):
+                 edge_impl: str = "fused", dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
+        dtype = DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+        if dtype not in DTYPES.values():
+            raise ValueError(f"dtype must be one of {list(DTYPES)}, got "
+                             f"{dtype!r}")
+        self.dtype = dtype
+        self.remat = bool(remat)
         self.edge_impl = edge_impl
         self.node_input_dim = node_input_dim
         self.hidden_dim = hidden_dim
@@ -222,10 +297,10 @@ class NBodyGNN(nn.Module):
         self.output_dim = output_dim
         self.dropout = dropout
         self.node_encoder = _MLPBlock(node_input_dim, hidden_dim, hidden_dim,
-                                      dropout)
+                                      dropout, dtype)
         self.layers = nn.ModuleList(
             ParticleInteractionLayer(hidden_dim, hidden_dim, dropout,
-                                     edge_impl=edge_impl)
+                                     edge_impl=edge_impl, dtype=dtype)
             for _ in range(n_layers))
         self.norms = nn.ModuleList(LayerNorm(hidden_dim)
                                    for _ in range(n_layers))
@@ -280,25 +355,38 @@ class NBodyGNN(nn.Module):
         deg = edges.degree if x.dim() == 3 else edges.degree[0]
         h = self.node_encoder(x, generator, rows)
         for layer, norm in zip(self.layers, self.norms):
-            h = norm(h + layer(h, edge_attr, edges, deg, generator, rows))
-        d = F.silu(self.decoder_0(h))
+            draws = layer.draws(h, generator, rows)
+            if self.remat and torch.is_grad_enabled():
+                h_new = checkpoint(layer, h, edge_attr, edges, deg,
+                                   draws=draws, use_reentrant=False)
+            else:
+                h_new = layer(h, edge_attr, edges, deg, draws=draws)
+            h = norm(h + h_new)
+        # decoder_0 and decoder_1 in the compute dtype, SiLU in float32;
+        # decoder_out float32 (the delta is added at full precision).
+        d = F.silu(_dense(self.decoder_0, h, self.dtype).float())
         d = _dropout(d, self.dropout, self.training, generator, rows)
-        d = F.silu(self.decoder_1(d))
+        d = F.silu(_dense(self.decoder_1, d, self.dtype).float())
         return x[..., :6] + self.decoder_out(d)
 
 
-def model_from_config(config: dict) -> NBodyGNN:
+def model_from_config(config: dict,
+                      dtype_override: Optional[str] = None) -> NBodyGNN:
     """NBodyGNN from a persisted ``model_config`` dict (models/config.json).
 
-    ``edge_impl``: ``"fused_full"`` selects the whole-layer kernel;
-    ``"fused"``, the JAX package's ``"auto"`` and ``"xla"``, and a missing
-    key select the port's one edge stream; anything else raises.  The port
-    computes in float32 whatever ``dtype`` the config names (the serving
-    path of the JAX package rebuilds at float32 too); the JAX-only keys
-    ``dtype``, ``remat`` and ``gather_mode`` choose nothing here.
+    ``dtype`` ("float32" or "bfloat16", float32 where missing) and
+    ``remat`` are read as the JAX ``model_from_config`` reads them;
+    ``dtype_override`` replaces the dtype: inference entry points pass
+    "float32", as the JAX package's do (the parameters are float32 either
+    way, so the same checkpoint serves both).  ``edge_impl``:
+    ``"fused_full"`` selects the whole-layer kernel; ``"fused"``, the JAX
+    package's ``"auto"`` and ``"xla"``, and a missing key select the port's
+    one edge stream; anything else raises.  ``gather_mode`` (an XLA choice)
+    chooses nothing here.
     """
     cfg = {k: v for k, v in config.items()
            if k not in ("dtype", "remat", "edge_impl", "gather_mode")}
+    dtype = dtype_override or config.get("dtype", "float32")
     edge_impl = config.get("edge_impl", "fused")
     if edge_impl in ("auto", "xla"):
         edge_impl = "fused"
@@ -306,7 +394,8 @@ def model_from_config(config: dict) -> NBodyGNN:
         raise ValueError(f"model_config names edge_impl {edge_impl!r}; the "
                          f"port has {EDGE_IMPLS} (and reads 'auto' and "
                          f"'xla' as 'fused')")
-    return NBodyGNN(edge_impl=edge_impl, **cfg)
+    return NBodyGNN(edge_impl=edge_impl, dtype=dtype,
+                    remat=bool(config.get("remat", False)), **cfg)
 
 
 def count_parameters(model: nn.Module) -> int:

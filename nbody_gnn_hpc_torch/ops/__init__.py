@@ -32,9 +32,12 @@ LAUNCH_LINE = "Kernel launches: "
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each hand-written kernel in this process so far, by its
-    name in the kernel table (each wrapper counts its own)."""
+    name in the kernel table (each wrapper counts its own; the bf16 stream's
+    forms of kernels 1 and 2 apart from their float32 ones)."""
     return {"fused_edge_fwd": fused_edge_layer.launches,
             "fused_edge_bwd": fused_edge_backward.launches,
+            "fused_edge_fwd_bf16": fused_edge_layer.bf16_launches,
+            "fused_edge_bwd_bf16": fused_edge_backward.bf16_launches,
             "pairwise_tiled": accelerations_tiled.launches,
             "pairwise_small": accelerations_small.launches,
             "pairwise_symmetric": accelerations_symmetric.launches,

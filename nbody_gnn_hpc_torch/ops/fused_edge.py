@@ -14,7 +14,7 @@ CSR (:func:`target_csr`): edge ids stably sorted by target, their sources,
 and per-target offsets; the backward also walks a source-major CSR (its
 heavy pass, which forms ``d_s_proj``).  Both are index bookkeeping,
 computed once per forward and shared by every layer.  The kernels
-(``csrc/fused_edge.cu``) take every sum in a fixed order, so reruns are
+(``csrc/fused_edge.cuh``) take every sum in a fixed order, so reruns are
 bit-identical; its source note states the design and the H100 bounds.
 
 Dropout bits come from Philox4x32-10 keyed on the layer's int seed, one
@@ -30,6 +30,16 @@ to the kernels (``fused_edge_layer.launches`` and
 :func:`fused_edge_layer_reference` and :func:`fused_edge_backward_reference`.
 :func:`fused_edge_layer_plain` runs the plain versions on any device, to
 compare a kernel path with its plain path on the card.
+
+The bf16 stream (``_build(..., bf16_stream)`` of the JAX module, a bfloat16
+model's form): ``t_proj`` and ``s_proj`` both bfloat16.  The forward rounds
+each edge's activation to bf16 after dropout's scale and sums in float32
+(its output stays float32); the backward reads ``g_out`` at bf16
+precision, rounds dz to bf16 for the target sum only, and returns
+``d_t_proj`` and ``d_s_proj`` in bf16, the rest in float32 from the
+unrounded dz.  The kernels' bf16 form (``csrc/fused_edge_bf16.cu``) is
+counted apart, in ``fused_edge_layer.bf16_launches`` and
+``fused_edge_backward.bf16_launches``.
 """
 
 import ctypes
@@ -181,9 +191,26 @@ def _lift(t: torch.Tensor, batched: bool) -> torch.Tensor:
     return t if batched else t.unsqueeze(0)
 
 
+def _is_bf16(t_proj, s_proj) -> bool:
+    """Whether the stream is the bf16 one: ``t_proj`` and ``s_proj`` both
+    bfloat16.  A mixed pair raises."""
+    if t_proj.dtype != s_proj.dtype:
+        raise TypeError(f"t_proj and s_proj must have one dtype (both "
+                        f"float32, or both bfloat16 for the bf16 stream), "
+                        f"got {t_proj.dtype} and {s_proj.dtype}")
+    return t_proj.dtype == torch.bfloat16
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to bf16 precision (nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def _stream(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR):
-    """(B, E, H) pre-LN stream pieces: x-hat, y, sigmoid(y), rstd."""
-    z = gather_nodes(tp, edges.col) + gather_nodes(sp, edges.row) + ea @ w_e
+    """(B, E, H) pre-LN stream pieces: x-hat, y, sigmoid(y), rstd, in the
+    edge features' dtype (bf16 projections are widened exactly)."""
+    z = (gather_nodes(tp, edges.col).to(ea.dtype)
+         + gather_nodes(sp, edges.row).to(ea.dtype) + ea @ w_e)
     mu = z.mean(-1, keepdim=True)
     var = (z * z).mean(-1, keepdim=True) - mu * mu
     rstd = torch.rsqrt(var + EPS)
@@ -208,7 +235,10 @@ def fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e, gamma, beta,
     ``seed``: (1,) int32 tensor of the layer's dropout seed, or None (no
     dropout).  Sums with ``scatter_add_``, which on CUDA uses atomics: it
     agrees with the kernel to float32 reduction order, not bit for bit.
+    bf16 ``t_proj`` and ``s_proj`` give the bf16 stream: each activation is
+    rounded to bf16 after dropout, the sum and the result are float32.
     """
+    bf16 = _is_bf16(t_proj, s_proj)
     batched = t_proj.dim() == 3
     tp, sp, ea = (_lift(t, batched) for t in (t_proj, s_proj, edge_attr))
     _, y, sig, _ = _stream(tp, sp, ea, w_e, gamma, beta, edges)
@@ -216,7 +246,9 @@ def fused_edge_layer_reference(t_proj, s_proj, edge_attr, w_e, gamma, beta,
     factor = _drop_factor(seed, dropout_p, a.shape, edges.graph0)
     if factor is not None:
         a = a * factor
-    out = torch.zeros_like(tp).scatter_add_(
+    if bf16:
+        a = _round_bf16(a)
+    out = torch.zeros(tp.shape, dtype=a.dtype, device=a.device).scatter_add_(
         1, edges.col.unsqueeze(-1).expand_as(a), a)
     return out if batched else out[0]
 
@@ -230,11 +262,18 @@ def fused_edge_backward_reference(t_proj, s_proj, edge_attr, w_e, gamma,
 
     Returns (d_t_proj, d_s_proj, d_edge_attr, d_w_e, d_gamma, d_beta),
     shaped as the inputs; the parameter gradients are summed over the
-    batch.
+    batch.  The bf16 stream (bf16 ``t_proj`` and ``s_proj``) reads
+    ``g_out`` at bf16 precision, sums dz rounded to bf16 into d_t_proj and
+    the float32 dz into d_s_proj (both returned in bf16), and forms the
+    other four from the float32 dz, as the JAX ``_bwd_kernel`` with
+    ``cd = bfloat16``.
     """
+    bf16 = _is_bf16(t_proj, s_proj)
     batched = t_proj.dim() == 3
     tp, sp, ea, go = (_lift(t, batched)
                       for t in (t_proj, s_proj, edge_attr, g_out))
+    if bf16:
+        go = _round_bf16(go)
     h = tp.shape[-1]
     xhat, y, sig, rstd = _stream(tp, sp, ea, w_e, gamma, beta, edges)
     d_act = gather_nodes(go, edges.col)                        # (B, E, H)
@@ -249,8 +288,13 @@ def fused_edge_backward_reference(t_proj, s_proj, edge_attr, w_e, gamma,
     m2 = (d_xhat * xhat).mean(-1, keepdim=True)
     d_z = rstd * (d_xhat - m1 - xhat * m2)                     # (B, E, H)
     index = lambda ix: ix.unsqueeze(-1).expand(-1, -1, h)  # noqa: E731
-    d_tp = torch.zeros_like(tp).scatter_add_(1, index(edges.col), d_z)
-    d_sp = torch.zeros_like(sp).scatter_add_(1, index(edges.row), d_z)
+    zeros = lambda: torch.zeros(tp.shape, dtype=d_z.dtype,  # noqa: E731
+                                device=d_z.device)
+    d_tp = zeros().scatter_add_(1, index(edges.col),
+                                _round_bf16(d_z) if bf16 else d_z)
+    d_sp = zeros().scatter_add_(1, index(edges.row), d_z)
+    if bf16:
+        d_tp, d_sp = d_tp.to(torch.bfloat16), d_sp.to(torch.bfloat16)
     d_ea = d_z @ w_e.t()
     d_we = torch.einsum("bed,beh->dh", ea, d_z)
     if not batched:
@@ -271,8 +315,9 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed, extra=()):
-    """Check the (B, N, H) operands the kernels take; returns (b, n, e, d,
-    h)."""
+    """Check the (B, N, H) operands the kernels take (``t_proj`` and
+    ``s_proj`` both float32 or both bfloat16, the rest float32 and int32);
+    returns (b, n, e, d, h)."""
     b, n, h = tp.shape
     e, d = ea.shape[1], ea.shape[2]
     dev = tp.device
@@ -281,7 +326,9 @@ def _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed, extra=()):
         raise ValueError(f"kernel takes H a multiple of 32 up to "
                          f"{MAX_HIDDEN}, D <= {MAX_EDGE_DIM}, B <= 65535; "
                          f"got H={h}, D={d}, B={b}")
-    checks = [("t_proj", tp, f32, (b, n, h)), ("s_proj", sp, f32, (b, n, h)),
+    stream = torch.bfloat16 if _is_bf16(tp, sp) else f32
+    checks = [("t_proj", tp, stream, (b, n, h)),
+              ("s_proj", sp, stream, (b, n, h)),
               ("edge_attr", ea, f32, (b, e, d)), ("w_e", w_e, f32, (d, h)),
               ("gamma", gamma, f32, (h,)), ("beta", beta, f32, (h,)),
               ("perm", edges.perm, i32, (b, e)),
@@ -387,8 +434,10 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
     from nbody_gnn_hpc_torch.ops.cuda_build import load_library
 
     b, n, e, d, h = _check_operands(tp, sp, ea, w_e, gamma, beta, edges, seed)
+    bf16 = tp.dtype == torch.bfloat16
     col = _node_index("col", edges.col, b, e, tp.device)
-    fn = load_library("fused_edge").nbody_fused_edge_fwd
+    fn = (load_library("fused_edge_bf16").nbody_fused_edge_fwd_bf16 if bf16
+          else load_library("fused_edge").nbody_fused_edge_fwd)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong,
                                              ctypes.c_void_p, ctypes.c_uint,
                                              ctypes.c_float, ctypes.c_uint]
@@ -397,7 +446,7 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
     fn.restype = ctypes.c_int
     chunk, warps = fwd_schedule(b, e, sm_count(tp.device.index))
     blocks = max(1, -(-e // chunk))
-    out = torch.empty_like(tp)
+    out = torch.empty(tp.shape, dtype=torch.float32, device=tp.device)
     part = torch.empty((b, blocks, 2, h), dtype=torch.float32,
                        device=tp.device)
     seed_ptr, thr, scale = _dropout_args(seed, p)
@@ -413,7 +462,10 @@ def _launch_fwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, seed,
     if rc != 0:
         raise RuntimeError(f"fused edge forward kernel launch failed: CUDA "
                            f"error {rc}")
-    fused_edge_layer.launches += 1
+    if bf16:
+        fused_edge_layer.bf16_launches += 1
+    else:
+        fused_edge_layer.launches += 1
     return out
 
 
@@ -435,9 +487,11 @@ def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
                ("sperm", sources.perm, i32, (b, e)),
                ("sdst", sources.dst, i32, (b, e)),
                ("soffsets", sources.offsets, i32, (b, n + 1))])
+    bf16 = tp.dtype == torch.bfloat16
     col = _node_index("col", edges.col, b, e, tp.device)
     row = _node_index("row", edges.row, b, e, tp.device)
-    fn = load_library("fused_edge").nbody_fused_edge_bwd
+    fn = (load_library("fused_edge_bf16").nbody_fused_edge_bwd_bf16 if bf16
+          else load_library("fused_edge").nbody_fused_edge_bwd)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 2
@@ -476,7 +530,10 @@ def _launch_bwd(tp, sp, ea, w_e, gamma, beta, edges: TargetCSR, g_out, seed,
     if rc != 0:
         raise RuntimeError(f"fused edge backward kernel launch failed: CUDA "
                            f"error {rc}")
-    fused_edge_backward.launches += 1
+    if bf16:
+        fused_edge_backward.bf16_launches += 1
+    else:
+        fused_edge_backward.launches += 1
     return d_tp, d_sp, d_ea, d_params[:d], d_params[d], d_params[d + 1]
 
 
@@ -521,7 +578,8 @@ def fused_edge_backward(t_proj, s_proj, edge_attr, w_e, gamma, beta,
 class _EdgeStream(torch.autograd.Function):
     """Forward: kernel 1 (CUDA) or the plain version (CPU, or ``plain``).
     Backward: kernel 2 or its plain version.  Saves only the inputs, the
-    CSR and the seed, as the JAX custom VJP does."""
+    CSR and the seed, as the JAX custom VJP does.  d_t_proj and d_s_proj
+    come back in the projections' dtype."""
 
     @staticmethod
     def forward(ctx, t_proj, s_proj, edge_attr, w_e, gamma, beta, edges,
@@ -563,8 +621,9 @@ def fused_edge_layer(t_proj: torch.Tensor, s_proj: torch.Tensor,
     """Fused edge stream: (N, H) projections -> (N, H) target sums.
 
     Args:
-        t_proj:    (N, H) or (B, N, H) target-node projection (bias in).
-        s_proj:    same shape, source-node projection.
+        t_proj:    (N, H) or (B, N, H) target-node projection (bias in):
+                   float32, or bfloat16 for the bf16 stream.
+        s_proj:    same shape and dtype, source-node projection.
         edge_attr: (E, D) or (B, E, D) edge features, D <= 8.
         w_e:       (D, H) edge-feature projection.
         gamma/beta:(H,) LayerNorm scale / bias.
@@ -576,8 +635,9 @@ def fused_edge_layer(t_proj: torch.Tensor, s_proj: torch.Tensor,
 
     Differentiable in every tensor argument.  CUDA tensors go to the
     kernels (``launches`` counts each forward launch,
-    ``fused_edge_backward.launches`` each backward); CPU tensors go to the
-    plain versions.
+    ``fused_edge_backward.launches`` each backward; ``bf16_launches`` on
+    each, those of the bf16 stream); CPU tensors go to the plain versions.
+    The result is float32 in both streams.
     """
     if t_proj.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_edge_layer runs on cuda or cpu tensors, "
@@ -600,3 +660,5 @@ def fused_edge_layer_plain(t_proj, s_proj, edge_attr, w_e, gamma, beta,
 
 fused_edge_layer.launches = 0
 fused_edge_backward.launches = 0
+fused_edge_layer.bf16_launches = 0
+fused_edge_backward.bf16_launches = 0

@@ -80,7 +80,8 @@ def main(argv=None) -> int:
     with open(args.config_path) as f:
         config = json.load(f)
     k_neighbors = config.get("training_config", {}).get("k_neighbors", 40)
-    model = model_from_config(config["model_config"])
+    model = model_from_config(config["model_config"],
+                              dtype_override="float32")
 
     candidates = discover_checkpoints(args.models_dir)
     if not candidates:

@@ -73,7 +73,9 @@ def build_service(model_path: str, config_path: str, device=None,
         k_neighbors = cfg.get("training_config", {}).get("k_neighbors", 40)
     else:
         model_config, k_neighbors = DEFAULT_MODEL_CONFIG, 40
-    return RolloutService(model_from_config(model_config), model_path,
+    return RolloutService(model_from_config(model_config,
+                                            dtype_override="float32"),
+                          model_path,
                           k_neighbors=k_neighbors, device=device,
                           quantize=quantize)
 

@@ -5,10 +5,16 @@
     torchrun --nproc-per-node 4 -m nbody_gnn_hpc_torch.train_model \
         --data-parallel ...                        # one rank a GPU
 
-The same flags as the JAX CLI (minus its TPU-only ones), the same config
-override pattern, ``config.json`` written to the model directory for
-evaluation and serving, and the val set normalised with the train set's
-statistics (reference ``train_model.py:94-100``).  Reads the windowed
+The same flags as the JAX CLI, the same config override pattern,
+``config.json`` written to the model directory for evaluation and serving,
+and the val set normalised with the train set's statistics (reference
+``train_model.py:94-100``).  On the GPU the model trains as the JAX CLI
+trains on its accelerator: bf16 products (the tensor cores) and the bf16
+edge stream, float32 parameters, ``"dtype": "bfloat16"`` in
+``config.json``; ``--no-bf16`` trains in float32, as does ``--device cpu``.
+Evaluation and serving rebuild the model at float32 from the same
+checkpoint.  ``--remat`` recomputes each interaction layer in the backward
+pass.  Reads the windowed
 ``train_dataset.h5`` / ``val_dataset.h5`` or, where a ``--no-windows``
 datagen left only ``dataset_manifest.json``, the trajectory files it names.
 
@@ -84,6 +90,11 @@ def build_parser():
                              "training --epochs MORE epochs; 'auto' picks "
                              "the checkpoint with the highest epoch and "
                              "trains the REMAINING epochs up to --epochs")
+    parser.add_argument("--no-bf16", action="store_true",
+                        help="Train matmuls in float32 instead of bfloat16")
+    parser.add_argument("--remat", action="store_true",
+                        help="Rematerialize interaction layers in backward "
+                             "(lower memory, ~35%% slower)")
     parser.add_argument("--edge-impl", choices=("fused", "fused_full"),
                         default="fused",
                         help="how an interaction layer runs: the edge "
@@ -134,7 +145,9 @@ def _train(args, device=None) -> int:
     from nbody_gnn_hpc_torch.config import TrainingConfig
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.io.model_io import latest_checkpoint
-    from nbody_gnn_hpc_torch.models import count_parameters, model_from_config
+    from nbody_gnn_hpc_torch.models import (FULL_LAYER_BF16_MISSING,
+                                            count_parameters,
+                                            model_from_config)
     from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.train import (MANIFEST_NAME, GNNDataset, Trainer,
                                            datasets_from_manifest)
@@ -159,6 +172,13 @@ def _train(args, device=None) -> int:
         if dist.get_rank() != 0:  # the log is rank 0's
             def say(*_, **__):
                 return None
+    # bf16 products on the card (the JAX CLI's on its accelerator), float32
+    # off it or when asked.
+    dtype = ("float32" if args.no_bf16 or device.type != "cuda"
+             else "bfloat16")
+    if args.edge_impl == "fused_full" and dtype != "float32":
+        print(f"Error: {FULL_LAYER_BF16_MISSING}")
+        return 2
     data_dir = Path(args.data_dir)
     model_dir = Path(args.model_dir)
     train_path = data_dir / "train_dataset.h5"
@@ -184,6 +204,8 @@ def _train(args, device=None) -> int:
                      ("Dropout", config.dropout),
                      ("Weight Decay", config.weight_decay),
                      ("Noise Std", config.noise_std),
+                     ("Compute Dtype", dtype),
+                     ("Remat", args.remat),
                      ("Physics Loss", args.physics_loss)):
         say(f"  {label + ':':<16} {v}")
     say("=" * 60)
@@ -211,14 +233,16 @@ def _train(args, device=None) -> int:
         train_dataset.targets = train_dataset.targets[:args.max_samples]
         train_dataset.n_samples = args.max_samples
 
-    # The JAX CLI's schema; the port trains and serves in float32.
+    # The JAX CLI's schema: training runs in ``dtype`` (parameters float32
+    # either way); inference rebuilds the model at float32.
     model_config = {
         "node_input_dim": 7,
         "hidden_dim": config.hidden_dim,
         "n_layers": config.n_layers,
         "output_dim": 6,
         "dropout": config.dropout,
-        "dtype": "float32",
+        "dtype": dtype,
+        "remat": args.remat,
         "edge_impl": args.edge_impl,
     }
     say(f"\n  Train samples: {len(train_dataset)}")

@@ -157,6 +157,157 @@ def test_wrapper_rejects_bad_operands(cuda):
         fused_edge_layer(*bad)
 
 
+# The bf16 stream (kernels 1 and 2 with bf16 t_proj / s_proj) against its
+# plain bf16 version.  Where a float32 difference of the two (the kernel's
+# approximate sigmoid, the sum order) moves a value across a bf16 rounding
+# boundary, the result moves by that value's bf16 step, 2^-8 of it: the
+# largest error may reach BF16_MAX_OF_SCALE of the result's scale, and at
+# most BF16_SHARE of the elements may lie beyond the float32 bound (1e-4 of
+# scale).  A stream that rounded nothing, or rounded elsewhere, puts most
+# elements beyond it.
+BF16_MAX_OF_SCALE, BF16_SHARE = 2.0 ** -7, 1e-2
+
+
+def _assert_bf16_close(got, want, name=""):
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item() + 1e-6
+    err = (got - want).abs()
+    share = (err > 1e-4 * scale).float().mean().item()
+    assert err.max().item() <= BF16_MAX_OF_SCALE * scale, (name, scale)
+    assert share <= BF16_SHARE, (name, share)
+
+
+def _bf16(args):
+    return (args[0].bfloat16(), args[1].bfloat16()) + tuple(args[2:])
+
+
+@pytest.mark.parametrize("b,n,k,h,p", [
+    (1, 200, 40, 256, 0.0), (8, 200, 40, 256, 0.0), (10, 200, 40, 256, 0.0),
+    (1, 200, 40, 256, 0.1), (24, 200, 40, 256, 0.1), (2, 37, 5, 32, 0.1),
+    (3, 50, 7, 96, 0.0)])
+def test_bf16_kernel_matches_plain_version(cuda, b, n, k, h, p):
+    """Kernel 1's bf16 form (the production shapes of serving, evaluation
+    and B=24 training, and odd ones): against the plain bf16 version,
+    counted as a bf16 launch and not as a float32 one."""
+    args = _bf16(_inputs(b, n, k, h, cuda, seed=5 * n + h + b))
+    seed = _seed(cuda) if p else None
+    before = (fused_edge_layer.launches, fused_edge_layer.bf16_launches)
+    got = fused_edge_layer(*args, seed, dropout_p=p, deterministic=not p)
+    torch.cuda.synchronize()
+    assert (fused_edge_layer.launches, fused_edge_layer.bf16_launches) == (
+        before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    _assert_bf16_close(got, fused_edge_layer_reference(*args, seed, p))
+    again = fused_edge_layer(*args, seed, dropout_p=p, deterministic=not p)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,p,d_ea", [(1, 0.1, False), (24, 0.1, False),
+                                      (8, 0.0, True), (3, 0.25, True)])
+def test_bf16_backward_kernel_matches_plain_version(cuda, b, p, d_ea):
+    """Kernel 2's bf16 form (batch folded): d_t_proj and d_s_proj in bf16
+    within the bf16 bound, the float32 four within GRAD_RTOL (they come
+    from the unrounded dz of the same bf16 inputs); a bf16 launch."""
+    args = _bf16(_inputs(b, 200, 40, 256, cuda, seed=40 + b))
+    g_out = torch.randn(args[0].shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(b))
+    seed = _seed(cuda, 99) if p else None
+    before = (fused_edge_backward.launches,
+              fused_edge_backward.bf16_launches)
+    got = fused_edge_backward(*args, g_out, seed, p, need_d_edge_attr=d_ea)
+    torch.cuda.synchronize()
+    assert (fused_edge_backward.launches,
+            fused_edge_backward.bf16_launches) == (before[0], before[1] + 1)
+    want = fused_edge_backward_reference(*args, g_out, seed, p)
+    assert [g.dtype for g in got[:2]] == [torch.bfloat16] * 2
+    for name, g, w in zip(NAMES[:2], got[:2], want[:2]):
+        _assert_bf16_close(g, w, name)
+    rest = [(n, g, w) for n, g, w in zip(NAMES[2:], got[2:], want[2:])
+            if g is not None]
+    assert len(rest) == (4 if d_ea else 3)
+    _assert_grads_close([g for _, g, _ in rest], [w for _, _, w in rest])
+    again = fused_edge_backward(*args, g_out, seed, p, need_d_edge_attr=d_ea)
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_bf16_kernels_round_the_float32_kernels_terms(cuda, p):
+    """With one edge into and out of each node, both forms on the card are
+    exactly related: kernel 1's bf16 result is its float32 result rounded
+    to bf16; with a g_out that bf16 holds exactly, kernel 2's d_t_proj and
+    d_s_proj are the float32 kernel's rounded to bf16 and the other four
+    equal the float32 kernel's.  So the bf16 form rounds where the TPU
+    kernel does, and both forms draw the same dropout mask."""
+    b, n, h = 3, 200, 256
+    rng = np.random.RandomState(7)
+    ei = torch.from_numpy(np.stack([np.stack(
+        [rng.permutation(n), np.arange(n)]) for _ in range(b)])).to(cuda)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa
+    tp = t(rng.randn(b, n, h)).bfloat16().float()
+    sp = t(rng.randn(b, n, h)).bfloat16().float()
+    rest = (t(rng.randn(b, n, 5)), t(rng.randn(5, h) * 0.3),
+            t(1 + 0.1 * rng.randn(h)), t(0.1 * rng.randn(h)),
+            target_csr(ei, n, sources=True))
+    seed = _seed(cuda, 5) if p else None
+    kw = dict(dropout_p=p, deterministic=not p)
+    f32 = fused_edge_layer(tp, sp, *rest, seed, **kw)
+    got = fused_edge_layer(tp.bfloat16(), sp.bfloat16(), *rest, seed, **kw)
+    assert torch.equal(got, f32.bfloat16().float())
+    g_out = t(rng.randn(b, n, h)).bfloat16().float()
+    g32 = fused_edge_backward(tp, sp, *rest, g_out, seed, p)
+    g16 = fused_edge_backward(tp.bfloat16(), sp.bfloat16(), *rest, g_out,
+                              seed, p)
+    for name, x, y in zip(NAMES[:2], g16[:2], g32[:2]):
+        assert torch.equal(x, y.bfloat16()), name
+    for name, x, y in zip(NAMES[2:], g16[2:], g32[2:]):
+        assert torch.equal(x, y), name
+
+
+def test_bf16_model_on_the_card_runs_the_bf16_kernels(cuda):
+    """A bf16 NBodyGNN at the production width trains through the bf16
+    forms only (6 forward and 6 backward launches a step, no float32
+    ones); its loss and gradients agree with its plain-version path on
+    the card (same seeds and masks): the loss within 1e-3 relative, each
+    parameter's gradient within 5e-2 of its scale (bf16 steps carried
+    through six layers)."""
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.ops import fused_edge_layer_plain
+
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(4, 200, 7).astype(np.float32)).to(cuda)
+    ei = knn_edge_index(x[..., :3], 40)
+    runs = []
+    for plain in (False, True):
+        model = NBodyGNN(hidden_dim=256, n_layers=6, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+        with torch.no_grad():
+            model.decoder_out.weight.fill_(0.01)
+        if plain:
+            for layer in model.layers:
+                layer.edge_stream = fused_edge_layer_plain
+        counts = (fused_edge_layer.launches, fused_edge_backward.launches,
+                  fused_edge_layer.bf16_launches,
+                  fused_edge_backward.bf16_launches)
+        gen = torch.Generator(cuda).manual_seed(3)
+        loss = model.train()(x, ei, generator=gen).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        moved = [a - c for a, c in zip(
+            (fused_edge_layer.launches, fused_edge_backward.launches,
+             fused_edge_layer.bf16_launches,
+             fused_edge_backward.bf16_launches), counts)]
+        assert moved == ([0, 0, 0, 0] if plain else [0, 0, 6, 6])
+        runs.append((loss.item(), {n: q.grad for n, q in
+                                   model.named_parameters()}))
+    (l0, g0), (l1, g1) = runs
+    assert abs(l0 - l1) <= 1e-3 * abs(l1)
+    for name in g0:
+        assert g0[name].dtype == torch.float32
+        scale = g1[name].abs().max().item() + 1e-12
+        assert (g0[name] - g1[name]).abs().max().item() <= 5e-2 * scale, name
+
+
 # Kernel 1 splits the CSR into equal runs of edges, whatever their targets:
 # graphs whose in-degrees are far from even.
 

@@ -156,7 +156,7 @@ def test_production_checkpoint_full_width_matches_jax():
     with open(CONFIG) as f:
         cfg = json.load(f)["model_config"]
     ckpt = load_checkpoint(CKPT)
-    model = model_from_config(cfg).eval()
+    model = model_from_config(cfg, dtype_override="float32").eval()
     stats = load_into(model, ckpt)
     assert set(stats) == {"state_mean", "state_std"}
     assert count_parameters(model) == 2_550_150

@@ -95,9 +95,13 @@ def worlds(problem, jax_params):
 @pytest.fixture(scope="module")
 def world1(problem):
     """The single-device step of each edge impl, noise and dropout on."""
-    return {e: ranks.dp_steps(problem, None, "gspmd", e, dropout=0.1,
-                              noise_std=0.003, n_steps=2)
-            for e in ("fused", "fused_full")}
+    return {**{e: ranks.dp_steps(problem, None, "gspmd", e, dropout=0.1,
+                                 noise_std=0.003, n_steps=2)
+               for e in ("fused", "fused_full")},
+            **{f"bf16 split {w}": ranks.dp_steps(
+                problem, None, "gspmd", "fused", dropout=0.1,
+                noise_std=0.003, n_steps=2, dtype=torch.bfloat16, split=w)
+               for w in (2, 4)}}
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +174,32 @@ def test_gspmd_with_noise_and_dropout_equals_one_rank(worlds, world1, world,
     losses, params = worlds[world][0]["gspmd"][edge_impl]
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
     _params_close(params, want_params)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_bf16_dp_step_reduces_float32_gradients(worlds, world1, world):
+    """A bf16 model (bf16 products, float32 parameters) through the
+    ``gspmd`` step: what each step all-reduces, and every gradient at that
+    point, is float32 (clipping and AdamW then read float32); the ranks
+    stay replicated bit for bit; two steps with noise and dropout agree,
+    within the float32 model's tolerance, with one device taking the same
+    parts of each batch.  (Not with one device's whole batch: a bf16
+    Dense's weight gradient is rounded to bf16 per part, as in the JAX
+    model, and AdamW's first step turns such a rounding into the sign of an
+    update.)"""
+    seen = [r["bf16_reduced"] for r in worlds[world]]
+    assert all(len(s) == 2 and s == [(torch.float32, {torch.float32})] * 2
+               for s in seen), seen
+    losses, params = worlds[world][0]["gspmd_bf16"]
+    assert all(p.dtype == torch.float32 for p in params.values())
+    for other in worlds[world][1:]:
+        assert other["gspmd_bf16"][0] == losses
+        _params_close(other["gspmd_bf16"][1], params, rtol=0, atol=0)
+    want_losses, want_params = world1[f"bf16 split {world}"]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    _params_close(params, want_params)
+    # ... and is not the float32 model's.
+    assert losses != world1["fused"][0]
 
 
 def test_shard_map_draws_its_own_bits(worlds, world1):

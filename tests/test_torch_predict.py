@@ -137,7 +137,7 @@ def test_production_checkpoint_rollout_matches_jax():
     jax_pred = JaxPredictor(jax_from_config(cfg, dtype_override="float32"),
                             model_path="models/best_rollout_model.pt",
                             k_neighbors=40)
-    port = Predictor(model_from_config(cfg),
+    port = Predictor(model_from_config(cfg, dtype_override="float32"),
                      model_path="models/best_rollout_model.pt",
                      device="cpu", k_neighbors=40)
     want = jax_pred.predict_rollout_batch(pos[None], vel[None], masses, 5)

@@ -11,6 +11,7 @@ import torch
 
 from nbody_gnn_hpc_torch.io.model_io import params_from_jax
 from nbody_gnn_hpc_torch.models import NBodyGNN
+from nbody_gnn_hpc_torch.models.gnn import BatchRows
 from nbody_gnn_hpc_torch.parallel import (make_dp_train_step,
                                           make_hybrid_mesh, make_mesh,
                                           simulate_ensemble)
@@ -24,14 +25,49 @@ def _state(model):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+def split_step(base, parts: int):
+    """A train step as ``parts`` ``gspmd`` ranks take it, in one process:
+    each part's loss and gradient from the generator state the step starts
+    with, divided by ``parts`` and added in rank order, then the update."""
+
+    def step(states, targets, gen):
+        b = states.shape[0]
+        per = b // parts
+        start = gen.get_state()
+        flat = None
+        for r in range(parts):
+            gen.set_state(start)
+            for p in base.params:
+                p.grad = None
+            loss, _ = base.compute_loss(states[r * per:(r + 1) * per],
+                                        targets[r * per:(r + 1) * per], gen,
+                                        rows=BatchRows(r * per, b))
+            loss.backward()
+            part = torch.cat([p.grad.reshape(-1) for p in base.params]
+                             + [loss.detach().reshape(1)]) / parts
+            flat = part if flat is None else flat + part
+        offset = 0
+        for p in base.params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        base.update()
+        return flat[-1].clone()
+
+    return step
+
+
 def dp_steps(problem, mesh, impl, edge_impl, jax_params=None, dropout=0.0,
-             noise_std=0.0, n_steps=1, generator_seed=5):
+             noise_std=0.0, n_steps=1, generator_seed=5,
+             dtype=torch.float32, seen=None, split=0):
     """(losses, parameters) after ``n_steps`` DP steps over ``mesh`` (a
-    ``make_mesh``-style mesh, or None for the single-device step) on
-    ``problem``'s batches: weights from ``jax_params`` where given, else
-    the port's seeded initialisation with a non-zero ``decoder_out``."""
+    ``make_mesh``-style mesh, or None for the single-device step, or with
+    ``split`` > 0 :func:`split_step`) on ``problem``'s batches: weights
+    from ``jax_params`` where given, else the port's seeded initialisation
+    with a non-zero ``decoder_out``; the model computing in ``dtype``.
+    ``seen``, a list, gets what each DP step all-reduces: (the flat
+    buffer's dtype, the set of the parameters' gradient dtypes then)."""
     model = NBodyGNN(hidden_dim=problem["hidden"], n_layers=problem["layers"],
-                     dropout=dropout, edge_impl=edge_impl,
+                     dropout=dropout, edge_impl=edge_impl, dtype=dtype,
                      generator=torch.Generator().manual_seed(0))
     if jax_params is not None:
         model.load_state_dict(params_from_jax(jax_params))
@@ -46,8 +82,19 @@ def dp_steps(problem, mesh, impl, edge_impl, jax_params=None, dropout=0.0,
                   masses=torch.from_numpy(problem["masses"]))
     if mesh is None:
         step = make_train_step(*args, **kwargs)
+        if split:
+            step = split_step(step, split)
     else:
         step = make_dp_train_step(*args, mesh=mesh, impl=impl, **kwargs)
+        if seen is not None:
+            reduce_mean = step.reduce_mean
+
+            def recorded(flat):
+                seen.append((flat.dtype,
+                             {p.grad.dtype for p in step.base.params}))
+                return reduce_mean(flat)
+
+            step.reduce_mean = recorded
     gen = torch.Generator().manual_seed(generator_seed)
     losses = []
     for i in range(n_steps):
@@ -68,15 +115,21 @@ def ensemble(mesh, n_sims):
 
 def world_checks(rank, device, problem, jax_params=None):
     """The checks every world size runs: the ``gspmd`` step with noise and
-    dropout on (two steps, both edge impls), the sharded ensemble of 9
-    systems; on 4 ranks the (dcn, data) hybrid mesh; with ``jax_params``
-    one step from those weights with noise and dropout off, both impls,
-    both edge impls (under ``"jax"``)."""
+    dropout on (two steps, both edge impls; and a bf16 model, with what
+    its steps all-reduced under ``"bf16_reduced"``), the sharded ensemble
+    of 9 systems; on 4 ranks the (dcn, data) hybrid mesh; with
+    ``jax_params`` one step from those weights with noise and dropout off,
+    both impls, both edge impls (under ``"jax"``)."""
     del rank, device
     mesh = make_mesh()
+    seen = []
     out = {"gspmd": {e: dp_steps(problem, mesh, "gspmd", e, dropout=0.1,
                                  noise_std=0.003, n_steps=2)
                      for e in ("fused", "fused_full")},
+           "gspmd_bf16": dp_steps(problem, mesh, "gspmd", "fused",
+                                  dropout=0.1, noise_std=0.003, n_steps=2,
+                                  dtype=torch.bfloat16, seen=seen),
+           "bf16_reduced": seen,
            "shard_map_noisy": dp_steps(problem, mesh, "shard_map", "fused",
                                        dropout=0.1, noise_std=0.003),
            "ensemble": ensemble(mesh, 9)}
