@@ -283,14 +283,34 @@ Phases (any failure exits non-zero and prints no result line):
    and launch the bf16 forms, ``--no-bf16`` writes float32 and launches
    the float32 ones, ``--remat`` launches kernel 1 once more a layer (the
    recompute), and its first step's loss and the validation loss after
-   that step equal the default run's.  A JSON
+   that step equal the default run's.  (d) Kernel 7's bf16 form
+   (``edge_impl="fused_full"`` in a bf16 model: every product on bf16
+   operands with a float32 result, rounded where the TPU kernel rounds):
+   (d1) against its plain bf16 version on the checkpoint's layer-0
+   operands with wt and ws in bf16, inference at B=1 and 8, training at
+   B=24 and the odd shape N=13, k=4 in both forms, within 2^-6 of scale
+   (h_new is rounded twice) with at most 20 % of the elements beyond 1e-4
+   of scale (a flipped rounding moves a whole row of the output a little),
+   the float32 kernel
+   on the same bf16 weights refused by that rule, the
+   cooperative and ordinary-launch forms bit-equal, exact launch counts
+   (``fused_full_fwd_bf16``), reruns bit for bit, timed beside the float32
+   form; (d2) one layer's gradients at B=24 in training form against the
+   reference backward on the card within 2^-7 of each one's scale, d_wt
+   and d_ws bf16-exact; (d3) ``Trainer`` with a bf16 ``fused_full`` model at the
+   production configuration for an epoch (exact launches), its fixed-batch
+   loss falling, its step wall and busy share in turns with (b)'s bf16
+   ``fused`` step, its checkpoint served at float32 through kernel 7 for 5
+   steps against ``device="cpu"``; (d4) ``train_model --edge-impl
+   fused_full`` at its defaults as a fourth process beside (c)'s, writing
+   ``"dtype": "bfloat16"`` and ``"edge_impl": "fused_full"``.  A JSON
    line ``{"bf16": ...}`` gives the step walls, busy shares and losses.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
 
-The kernels line's ``launches_by_path`` has ``bf16`` (phase 15's Trainer
-and its three processes).
+The kernels line's ``launches_by_path`` has ``bf16`` (phase 15's two
+Trainers and its four processes).
 
 ``--full-finetune`` runs phases 1 and 2, simulates the datagen states and
 fine-tunes ``models/best_model.pt`` with the production curriculum
@@ -322,7 +342,8 @@ from pathlib import Path
 import numpy as np
 
 try:  # the port's published peaks and device timer
-    from nbody_gnn_hpc_torch.roofline import (PEAK_BYTES_PER_S, PEAK_F32_PER_S,
+    from nbody_gnn_hpc_torch.roofline import (PEAK_BF16_PER_S,
+                                              PEAK_BYTES_PER_S, PEAK_F32_PER_S,
                                               PEAK_RSQRT_PER_S, cuda_time_ms,
                                               kernel_times_ms)
 except ImportError as e:
@@ -2996,6 +3017,7 @@ def _zero_counts() -> None:
         fn.launches = 0
     ops.fused_edge_layer.bf16_launches = 0
     ops.fused_edge_backward.bf16_launches = 0
+    ops.fused_full_layer.bf16_launches = 0
 
 
 def _add(total: dict, more: dict) -> dict:
@@ -4230,6 +4252,23 @@ BF16_DIR = Path("build/chip_smoke_bf16")  # git-ignored
 # d_gamma, d_beta, from the unrounded dz of the same bf16 inputs) keep
 # GRAD_RTOL.
 BF16_MAX_OF_SCALE, BF16_SHARE = 2.0 ** -7, 1e-2
+# Kernel 7's bf16 form against its plain bf16 version.  h_new is rounded
+# twice, bf16(bf16(a W2^T) + bf16(b2)): where the product lies in a binade
+# above h_new's (b2 of the other sign), a step of the first rounding is two
+# of h_new's, so the largest error may reach BF16_FULL_MAX_OF_SCALE (8.1e-3
+# of scale measured on the checkpoint's operands at B=24).  And one bf16
+# step in t, s, a stream term or z1 moves every channel of its row of h_new
+# a little (each output reads the whole row of a), so more elements lie
+# beyond 1e-4 of scale than in kernels 1 and 2: 0.04-0.08 % on the
+# checkpoint's operands, 0.8-1.0 % on random ones at N=200 and 2.7-3.4 % at
+# N=13 (a row is 7.7 % of the elements there); at most BF16_FULL_SHARE.
+# The float32 kernel on the same bf16 weights puts 85-95 % beyond and must
+# be refused (H100).  Its gradients against the reference backward: within
+# BF16_MAX_OF_SCALE of each one's scale (one bf16 step of its largest
+# element; d_wt and d_ws are bf16; 5.2e-3 measured); float32 sums of bf16
+# terms over the batch put up to half of a gradient's elements beyond 1e-4
+# of scale, so no share is held there.
+BF16_FULL_MAX_OF_SCALE, BF16_FULL_SHARE = 2.0 ** -6, 0.2
 # The bf16 model, kernel path against plain path on the production
 # checkpoint: those bf16 steps carried through six layers, 7.0e-3 and
 # 2.3e-2 of scale on two batches; the float32 model of the same weights
@@ -4379,6 +4418,315 @@ def phase_bf16_kernels(model, norm_stats, dev):
     return rows, errs
 
 
+def full_layer_bf16_bound_ms(h, ea, p, edges, node_mask,
+                             dropout: bool) -> tuple:
+    """Least H100 time for one whole-layer forward in the bf16 form:
+    ``full_layer_bound_ms``'s bytes (wt and ws at their 2 bytes), and its
+    operations with the six products, 2*N*H*(5H + Ho) a graph, at the bf16
+    tensor-core peak (their operands are bf16) beside the stream's and the
+    node side's float32 work at the float32 peak: the two times add."""
+    b, n, hdim = h.shape
+    e, d = ea.shape[1], ea.shape[2]
+    ho = p["w2"].shape[0]
+    n_bytes = (4 * (h.numel() + ea.numel() + edges.perm.numel()
+                    + edges.src.numel() + edges.offsets.numel()
+                    + (0 if node_mask is None else node_mask.numel())
+                    + b * n * ho + b * n * hdim)
+               + sum(t.numel() * t.element_size() for t in p.values()))
+    products = 2 * b * n * hdim * (5 * hdim + ho)
+    rest = (13 + 2 * d + int(dropout)) * b * e * hdim + 11 * b * n * hdim
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (products / PEAK_BF16_PER_S + rest / PEAK_F32_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def _bf16_weights(p):
+    """A layer's parameters in the bf16 form: wt and ws bfloat16."""
+    return dict(p, wt=p["wt"].bfloat16(), ws=p["ws"].bfloat16())
+
+
+def phase_full_bf16_kernels(model, norm_stats, dev):
+    """(d1) Kernel 7's bf16 form against its plain bf16 version on the
+    production checkpoint's layer-0 operands (wt and ws in bf16): inference
+    at B=1 and 8, training (dropout 0.1, the same Philox mask and node mask)
+    at B=24, the odd shape (B=1, N=13, k=4) in both forms; the cooperative
+    and the ordinary-launch form bit-equal; the bf16 rule of kernels 1 and
+    2 with BF16_FULL_MAX_OF_SCALE and BF16_FULL_SHARE, the float32 kernel
+    on the same bf16 weights refused by it; exact launch
+    counts of both forms; a rerun bit for bit; CUDA-event times of both
+    forms on the same operands.  Called under inference_mode.  Returns the
+    timed rows and the largest absolute error."""
+    import torch
+
+    from nbody_gnn_hpc_torch.ops import (fused_edge_full, fused_full_layer,
+                                         fused_full_layer_reference)
+    from nbody_gnn_hpc_torch.ops.fused_edge_full import PHASES
+
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    rows, worst = [], 0.0
+
+    def counts():
+        return (fused_full_layer.launches, fused_full_layer.bf16_launches)
+
+    def within(got, want):
+        _, rel, share = bf16_errors(got, want)
+        return rel <= BF16_FULL_MAX_OF_SCALE and share <= BF16_FULL_SHARE
+
+    for b, n, k, training in ((1, N, K, False), (8, N, K, False),
+                              (24, N, K, True), (1, 13, 4, False),
+                              (1, 13, 4, True)):
+        h, ea, p, edges = full_layer_inputs(model, norm_stats, b, n, k, dev)
+        p16 = _bf16_weights(p)
+        rounded = dict(p, wt=p16["wt"].float(), ws=p16["ws"].float())
+        mask = (torch.rand(h.shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(b))
+                >= DROPOUT_P).float() / (1 - DROPOUT_P)
+        sd, mk, rate = ((seed, mask, DROPOUT_P) if training
+                        else (None, None, 0.0))
+        form = "training" if training else "inference"
+
+        def run(params=p16):
+            return fused_full_layer(h, ea, params, edges, sd, mk,
+                                    dropout_p=rate,
+                                    deterministic=not training)
+
+        before = counts()
+        got = run()
+        torch.cuda.synchronize()
+        moved = tuple(x - y for x, y in zip(counts(), before))
+        want, _ = fused_full_layer_reference(h, ea, p16, edges, sd, mk, rate)
+        again = torch.equal(got, run())
+        fused_edge_full.COOPERATIVE = False
+        try:
+            before = counts()
+            phased = run()
+            phased_moved = tuple(x - y for x, y in zip(counts(), before))
+        finally:
+            fused_edge_full.COOPERATIVE = True
+        control = run(rounded)
+        err, rel, share = bf16_errors(got, want)
+        _, c_rel, c_share = bf16_errors(control, want)
+        ok = within(got, want)
+        worst = max(worst, err)
+        print(f"  fused_full_fwd_bf16 {form} B={b} N={n} k={k}: max abs err "
+              f"{err:.3e}, {rel:.3e} of scale, {100 * share:.3f} % beyond "
+              f"1e-4 of scale (tolerance {BF16_FULL_MAX_OF_SCALE:g} of "
+              f"scale, {100 * BF16_FULL_SHARE:g} %) -> "
+              f"{'ok' if ok else 'MISMATCH'}; "
+              f"launches {moved} (float32, bf16); ordinary-launch form "
+              f"{phased_moved} bit-equal: {torch.equal(got, phased)}; rerun "
+              f"bit-identical: {again}; control, the float32 kernel on the "
+              f"same bf16 weights: {c_rel:.3e} of scale, "
+              f"{100 * c_share:.3f} % beyond -> "
+              f"{'refused' if not within(control, want) else 'PASSED'}",
+              flush=True)
+        check(got.dtype == torch.float32, "kernel 7's bf16 form is not "
+                                          "float32 out")
+        check(ok, f"fused_full_fwd_bf16 disagrees with its plain bf16 "
+                  f"version ({form} B={b} N={n})")
+        check(not within(control, want), "the bf16 rule does not tell "
+                                         "kernel 7's bf16 form from its "
+                                         "float32 one")
+        check(moved == (0, 1) and phased_moved == (0, PHASES),
+              "kernel 7's bf16 form did not count one cooperative bf16 "
+              "launch (six ordinary ones) and no float32 one")
+        check(torch.equal(got, phased), "the ordinary-launch form of "
+                                        "kernel 7's bf16 form differs")
+        check(again, "fused_full_fwd_bf16 reruns are not bit-identical")
+        if n != N:
+            continue
+        ms, ms32 = cuda_time_ms(run), cuda_time_ms(lambda: run(p))
+        plain_ms = cuda_time_ms(
+            lambda: fused_full_layer_reference(h, ea, p16, edges, sd, mk,
+                                               rate),
+            5 if b == 24 else 20, inner=10)
+        bound = full_layer_bf16_bound_ms(h, ea, p16, edges, mk, training)
+        bound32 = full_layer_bound_ms(h, ea, p, edges, mk, training)
+        rows.append({"kernel": "fused_full_fwd_bf16", "form": form, "B": b,
+                     "N": n, "k": k, "ms": ms, "ms_float32": ms32,
+                     "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "bound_ms_float32": bound32[0]})
+        print(f"    bf16 form {ms:.5f} ms (its two widening casts of wt and "
+              f"ws included), float32 form {ms32:.5f} ms (same call, same "
+              f"operands), plain bf16 "
+              f"{plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}; "
+              f"the float32 form's {bound32[0]:.6f}); library_ms null",
+              flush=True)
+    return rows, worst
+
+
+def full_bf16_layer_gradients(model, norm_stats, dev) -> float:
+    """(d2) One layer's gradients in the bf16 form at B=24 in training form
+    (dropout and node mask): the custom backward on the card (kernel 7's
+    and kernel 2's bf16 forms, one launch each) against the reference
+    backward on the card (``fused_full_layer_backward_reference``: the
+    plain forward's summed, kernel 2's plain bf16 version), every gradient
+    within BF16_MAX_OF_SCALE of its scale; d_wt and d_ws bf16 and
+    bf16-exact.  Returns the largest error relative to a gradient's
+    scale."""
+    import torch
+
+    from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
+                                         fused_full_layer,
+                                         fused_full_layer_backward_reference)
+    from nbody_gnn_hpc_torch.ops.fused_edge_full import PARAM_KEYS
+
+    h, ea, p, edges = full_layer_inputs(model, norm_stats, 24, N, K, dev)
+    p16 = _bf16_weights(p)
+    gen = torch.Generator(dev).manual_seed(24)
+    mask = (torch.rand(h.shape, device=dev, generator=gen)
+            >= DROPOUT_P).float() / (1 - DROPOUT_P)
+    g_out = torch.randn(h.shape, device=dev, generator=gen)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    leaves = [h.clone().requires_grad_(), ea.clone().requires_grad_()]
+    params = {key: t.clone().requires_grad_() for key, t in p16.items()}
+
+    def counts():
+        return (fused_full_layer.launches, fused_full_layer.bf16_launches,
+                fused_edge_backward.launches,
+                fused_edge_backward.bf16_launches)
+
+    before = counts()
+    out = fused_full_layer(leaves[0], leaves[1], params, edges, seed, mask,
+                           dropout_p=DROPOUT_P, deterministic=False)
+    out.backward(g_out)
+    torch.cuda.synchronize()
+    moved = tuple(x - y for x, y in zip(counts(), before))
+    got = [t.grad for t in leaves + [params[key] for key in PARAM_KEYS]]
+    want = fused_full_layer_backward_reference(h, ea, p16, edges, g_out,
+                                               seed, mask, DROPOUT_P)
+    worst, shares = 0.0, 0.0
+    for name, g, w in zip(("h", "edge_attr") + PARAM_KEYS, got, want):
+        _, rel, share = bf16_errors(g, w)
+        worst, shares = max(worst, rel), max(shares, share)
+        dtype = torch.bfloat16 if name in ("wt", "ws") else torch.float32
+        check(g.dtype == w.dtype == dtype, f"kernel 7's bf16 backward gave "
+                                           f"d_{name} in {g.dtype}")
+    exact = all(torch.equal(g.float(), g.float().bfloat16().float())
+                for g in (params["wt"].grad, params["ws"].grad))
+    print(f"  fused_full bf16 layer gradients (h, edge_attr, 14 parameters; "
+          f"B=24, dropout and node mask on) vs the reference backward: max "
+          f"error / gradient scale {worst:.3e} (tolerance "
+          f"{BF16_MAX_OF_SCALE:g}), at most {100 * shares:.2f} % of a "
+          f"gradient's elements beyond 1e-4 of scale; d_wt, d_ws "
+          f"bf16-exact: {exact}; "
+          f"launches {moved} (kernel 7 float32, bf16; kernel 2 float32, "
+          f"bf16)", flush=True)
+    check(worst <= BF16_MAX_OF_SCALE, "kernel 7's bf16 backward disagrees "
+                                      "with the reference backward")
+    check(exact, "d_wt or d_ws is not bf16-exact")
+    check(moved == (0, 1, 0, 1), "kernel 7's bf16 layer did not run kernel "
+                                 "7's and kernel 2's bf16 forms once each")
+    return worst
+
+
+def train_full_bf16(dev, cfg, width, train, val, val_batches, batch,
+                    fused_step) -> dict:
+    """(d3) ``Trainer`` with a bf16 ``NBodyGNN(edge_impl="fused_full")`` at
+    the production configuration for an epoch, counts zeroed just before
+    and read just after (kernel 7's and kernel 2's bf16 forms, 6 a step and
+    kernel 7's 6 a validation batch; no float32 form, no kernel 1); losses
+    finite, parameters float32; on one batch its step wall in turns with
+    (b)'s bf16 ``fused`` step and a profiled window each, its loss falling;
+    its checkpoint served at float32 through ``build_service`` for 5 steps
+    against ``device="cpu"``.  Returns a summary with the launches."""
+    import torch
+
+    from nbody_gnn_hpc_torch.models import NBodyGNN
+    from nbody_gnn_hpc_torch.serve import build_service
+    from nbody_gnn_hpc_torch.train import Trainer
+
+    model_dir = BF16_DIR / "trainer_fused_full"
+    trainer = Trainer(
+        NBodyGNN(dtype=torch.bfloat16, edge_impl="fused_full", **width),
+        train, val, model_dir=str(model_dir), device=dev,
+        learning_rate=cfg.learning_rate, batch_size=cfg.batch_size,
+        weight_decay=cfg.weight_decay, noise_std=cfg.noise_std, n_epochs=1,
+        seed=7)
+    # main-path run starts here
+    _zero_counts()
+    history = trainer.train(n_epochs=1, save_every=10)
+    launches = _counts()
+    # main-path run ends here
+    steps = trainer.steps_per_epoch
+    want = {"fused_full_fwd_bf16": 6 * (steps + val_batches),
+            "fused_edge_bwd_bf16": 6 * steps}
+    got = {k: v for k, v in launches.items() if v}
+    print(f"  Trainer, bf16 model, edge_impl fused_full, 1 epoch: {steps} "
+          f"steps at B={cfg.batch_size} + {val_batches} validation batches; "
+          f"step losses {['%.4f' % x for x in trainer.step_losses]}, "
+          f"validation {['%.4f' % x for x in history['val_loss']]}; "
+          f"launches {got} (expected {want})", flush=True)
+    check(got == want, "the bf16 fused_full training path's launch counts")
+    check(bool(np.isfinite(trainer.step_losses + history["val_loss"]).all()),
+          "a bf16 fused_full training loss is not finite")
+    check(trainer.model.dtype == torch.bfloat16
+          and all(p.dtype == torch.float32
+                  for p in trainer.model.parameters()),
+          "the bf16 fused_full model's parameters are not float32")
+
+    s, t = batch
+    steppers = {"fused": fused_step, "fused_full": trainer._step}
+    with torch.no_grad():
+        before = trainer._step.compute_loss(s, t, deterministic=True)[0].item()
+    walls = {name: [] for name in steppers}
+    gen = torch.Generator(dev).manual_seed(6)
+    for turn in range(2 * BF16_FIXED_STEPS):
+        name = ("fused", "fused_full")[turn // 2 % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steppers[name](s, t, gen)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    with torch.no_grad():
+        after = trainer._step.compute_loss(s, t, deterministic=True)[0].item()
+    summary = {"step_ms": {}, "busy_share": {}, "launches": launches}
+    for name, w in walls.items():
+        summary["step_ms"][name] = float(np.median(w[2:]) * 1e3)
+        print(f"  train step wall, bf16 {name} (B={cfg.batch_size}, "
+              f"synchronised, in turns of two, after 2 warm-up): median "
+              f"{summary['step_ms'][name]:.2f} ms, min "
+              f"{min(w[2:]) * 1e3:.2f} ms, max {max(w[2:]) * 1e3:.2f} ms",
+              flush=True)
+        window = {}
+        profile_window(f"3 train steps, bf16 {name}", lambda: [
+            steppers[name](s, t, gen) for _ in range(3)], steps=3,
+            out=window)
+        summary["busy_share"][name] = window.get("busy_share")
+    print(f"  fixed batch, bf16 fused_full loss with dropout and noise off: "
+          f"{before:.6f} before, {after:.6f} after {BF16_FIXED_STEPS} "
+          f"steps on it", flush=True)
+    check(after < before, "bf16 fused_full steps on one batch did not lower "
+                          "its loss")
+
+    # Its checkpoint served at float32 (through kernel 7's float32 form).
+    with open(model_dir / "config.json", "w") as f:
+        json.dump({"model_type": "gnn", "model_config": {
+            **trainer._model_config, "dtype": "bfloat16", "remat": False},
+            "training_config": cfg.to_dict()}, f, indent=2)
+    served = build_service(str(model_dir / "best_model.pt"),
+                           str(model_dir / "config.json"))
+    ref = build_service(str(model_dir / "best_model.pt"),
+                        str(model_dir / "config.json"), device="cpu")
+    check(served.predictor.model.dtype == ref.predictor.model.dtype
+          == torch.float32 and served.predictor.model.edge_impl
+          == "fused_full", "the bf16 fused_full checkpoint was not served "
+                           "at float32 through kernel 7")
+    pos, vel, masses = eval_states(1)
+    out = served.rollout(pos[0], vel[0], masses, 5)
+    diff, ok = close_to(out["positions"], ref.rollout(
+        pos[0], vel[0], masses, 5)["positions"], 1e-4)
+    print(f"  served the bf16 fused_full best_model.pt at float32: 5 steps, "
+          f"max abs diff from device='cpu' {diff:.3e} (1e-4 of scale)",
+          flush=True)
+    check(ok and np.isfinite(out["positions"]).all(),
+          "the bf16 fused_full checkpoint's rollout disagrees with the CPU "
+          "run")
+    return summary
+
+
 def phase_bf16(dev, model, norm_stats) -> tuple:
     """Phase 15, bf16 training: (a) the kernels' bf16 form
     (``phase_bf16_kernels``); (b) ``Trainer`` with the production
@@ -4390,7 +4738,10 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
     ``model_gradients_agree``), and the saved checkpoint served
     at float32 (``build_service``) for 5 steps against ``device="cpu"``;
     (c) ``python -m nbody_gnn_hpc_torch.train_model`` as three processes at
-    once, at its defaults (bf16), with ``--no-bf16`` and with ``--remat``.
+    once, at its defaults (bf16), with ``--no-bf16`` and with ``--remat``;
+    (d) kernel 7's bf16 form: (d1) ``phase_full_bf16_kernels``, (d2)
+    ``full_bf16_layer_gradients``, (d3) ``train_full_bf16``, (d4)
+    ``train_model --edge-impl fused_full`` as a fourth process beside (c)'s.
     Returns (timed rows, errors, this path's launches, a summary)."""
     import torch
 
@@ -4404,6 +4755,12 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
 
     with torch.inference_mode():
         rows, errs = phase_bf16_kernels(model, norm_stats, dev)
+        # (d1) kernel 7's bf16 form
+        full_rows, errs["fused_full_fwd_bf16"] = phase_full_bf16_kernels(
+            model, norm_stats, dev)
+    rows += full_rows
+    # (d2) one layer's gradients in kernel 7's bf16 form
+    full_grad_rel = full_bf16_layer_gradients(model, norm_stats, dev)
 
     # (b) Trainer in bf16 at the production configuration.
     cfg = TrainingConfig()
@@ -4518,9 +4875,17 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
     check(ok and np.isfinite(out["positions"]).all(),
           "the bf16-trained checkpoint's rollout disagrees with the CPU run")
 
+    # (d3) Trainer with edge_impl="fused_full" in bf16 (kernel 7's bf16
+    # form) at the production configuration, on (b)'s data.
+    summary["fused_full"] = train_full_bf16(
+        dev, cfg, width, train, val, val_batches, (s, t), trainer._step)
+    launches = _add(launches, summary["fused_full"].pop("launches"))
+
     # (c) The command, three processes at once: defaults, --no-bf16 and
-    # --remat, one step of B=24 each, then validation.
-    runs = {"default": [], "no_bf16": ["--no-bf16"], "remat": ["--remat"]}
+    # --remat, one step of B=24 each, then validation; (d4) at once with
+    # them, --edge-impl fused_full at its defaults (bf16).
+    runs = {"default": [], "no_bf16": ["--no-bf16"], "remat": ["--remat"],
+            "fused_full": ["--edge-impl", "fused_full"]}
     argv = ["nbody_gnn_hpc_torch.train_model", "--data-dir", str(data),
             "--epochs", "1", "--max-samples", str(BF16_CLI_SAMPLES)]
     t0 = time.perf_counter()
@@ -4528,7 +4893,8 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
         (lambda name=name, flags=flags: _command(
             argv + ["--model-dir", str(BF16_DIR / name)] + flags,
             BF16_DIR / f"{name}.log")) for name, flags in runs.items()])
-    print(f"  train_model x 3 at once in {time.perf_counter() - t0:.1f} s",
+    print(f"  train_model x {len(runs)} at once in "
+          f"{time.perf_counter() - t0:.1f} s",
           flush=True)
     vb = 6 * val_batches
     want = {"default": {"fused_edge_fwd_bf16": 6 + vb,
@@ -4536,7 +4902,9 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
             "no_bf16": {"fused_edge_fwd": 6 + vb, "fused_edge_bwd": 6},
             # remat runs each layer's forward again in the backward
             "remat": {"fused_edge_fwd_bf16": 12 + vb,
-                      "fused_edge_bwd_bf16": 6}}
+                      "fused_edge_bwd_bf16": 6},
+            "fused_full": {"fused_full_fwd_bf16": 6 + vb,
+                           "fused_edge_bwd_bf16": 6}}
     history = {}
     for (name, flags), (out, wall) in zip(runs.items(), outs):
         c = stage_launches(out)
@@ -4553,8 +4921,10 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
               f"{history[name]['val_loss'][0]!r}; launches {got}", flush=True)
         check(re.search(r"Device:\s+cuda\b", out) is not None,
               f"train_model {name} did not run on cuda")
-        check((model_cfg["dtype"], model_cfg["remat"]) == (
-            "float32" if name == "no_bf16" else "bfloat16", name == "remat"),
+        check((model_cfg["dtype"], model_cfg["remat"],
+               model_cfg["edge_impl"]) == (
+            "float32" if name == "no_bf16" else "bfloat16", name == "remat",
+            "fused_full" if name == "fused_full" else "fused"),
             f"train_model {name} wrote {model_cfg}")
         check(got == want[name], f"train_model {name} launched {got}, "
                                  f"expected {want[name]}")
@@ -4570,9 +4940,13 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
           f"(float32: {history['no_bf16']['val_loss'][0]!r})", flush=True)
     check(all(same), "--remat changed the first step's loss or its "
                      "validation loss")
+    check(all(np.isfinite(history["fused_full"][key][0])
+              for key in ("train_loss", "val_loss")),
+          "train_model --edge-impl fused_full gave a loss that is not finite")
     summary["cli"] = {name: {"train_loss": h["train_loss"][0],
                              "val_loss": h["val_loss"][0]}
                       for name, h in history.items()}
+    summary["full_grad_rel"] = full_grad_rel
     print(json.dumps({"bf16": summary}), flush=True)
     return rows, errs, launches, summary
 
@@ -4614,7 +4988,7 @@ def main(argv=None) -> int:
     # 2. Build
     t0 = time.perf_counter()
     sources = ["fused_edge", "fused_edge_bf16", "pairwise", "fused_edge_full",
-               "probes"]
+               "fused_edge_full_bf16", "probes"]
     built = build(sources)
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -4767,10 +5141,12 @@ def main(argv=None) -> int:
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
     # 15. bf16 training, the production recipe's precision: the bf16 forms
-    # of kernels 1 and 2 against their plain versions, a bf16 Trainer and
-    # the train_model command (counts zeroed just before each drive).
-    print("[15] bf16 training: the bf16 stream of kernels 1 and 2, Trainer "
-          "in bf16, train_model --no-bf16 / --remat", flush=True)
+    # of kernels 1, 2 and 7 against their plain versions, bf16 Trainers
+    # and the train_model command (counts zeroed just before each drive).
+    print("[15] bf16 training: the bf16 stream of kernels 1 and 2, kernel "
+          "7's bf16 form, Trainer in bf16 (fused and fused_full), "
+          "train_model --no-bf16 / --remat / --edge-impl fused_full",
+          flush=True)
     t15 = time.perf_counter()
     bf16_rows, bf16_errs, bf16, bf16_summary = phase_bf16(dev, model,
                                                           norm_stats)
@@ -4813,6 +5189,9 @@ def main(argv=None) -> int:
             ("fused_full_fwd", "fused_edge_full",
              "nbody_gnn_hpc_tpu/ops/fused_edge_full.py:78", "deployed",
              full_rows, {"fused_full_fwd": full_err}),
+            ("fused_full_fwd_bf16", "fused_edge_full_bf16",
+             "nbody_gnn_hpc_tpu/ops/fused_edge_full.py:78 with cd = "
+             "bfloat16 (:158)", None, bf16_rows, bf16_errs),
             ("pairwise_symmetric_mxu", "pairwise",
              "nbody_gnn_hpc_tpu/ops/pairwise.py:291", f"N={LARGE_N}",
              force_rows, force_errs),
@@ -4821,7 +5200,7 @@ def main(argv=None) -> int:
             ("probe_rsqrt", "probes", "benchmarks/roofline.py:214",
              probe_rows[1]["shape"], probe_rows, probe_errs)):
         mine = [r for r in kernel_rows if r["kernel"] == name]
-        if shape is None:  # the edge kernels: the training form at B=24
+        if shape is None:  # the bf16 and edge kernels: training at B=24
             row = next(r for r in mine
                        if r["form"] == "training" and r["B"] == 24)
             shape = "training form, B=24 N=200 k=40 H=256"
@@ -4895,6 +5274,8 @@ def main(argv=None) -> int:
               for k in ("fused_edge_fwd_bf16", "fused_edge_bwd_bf16")) > 0,
           "the pipeline's, train_model's or the bf16 path's training "
           "launched no bf16 kernel 1 or 2")
+    check(bf16.get("fused_full_fwd_bf16", 0) > 0, "the bf16 path launched "
+                                                  "no bf16 kernel 7")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

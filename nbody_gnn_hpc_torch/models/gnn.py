@@ -40,7 +40,11 @@ draws for its rows exactly what one device draws for the whole batch.
 and bias to bf16 and returns bf16 (cuBLAS on the tensor cores), the edge
 stream takes bf16 projections (its bf16 form), and the parameters, the
 LayerNorm statistics, the residuals and the sums at the targets stay
-float32.  Inference rebuilds a model at float32 from the same parameters
+float32.  With ``edge_impl="fused_full"`` a bf16 layer is kernel 7's bf16
+form, as the JAX model's: ``edge_proj_target`` and ``edge_proj_source``
+go in cast to bf16 (so their gradients are rounded to bf16 at that cast,
+where JAX rounds them) and the kernel rounds every product operand itself.
+Inference rebuilds a model at float32 from the same parameters
 (``model_from_config(..., dtype_override="float32")``).
 """
 
@@ -64,11 +68,6 @@ SEED_BOUND = 2_147_483_647  # edge-stream seeds lie in [0, 2^31 - 1)
 EDGE_IMPLS = ("fused", "fused_full")
 # The compute dtypes, by the names config.json gives them.
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# Why a bf16 model cannot run through the whole-layer kernel (yet).
-FULL_LAYER_BF16_MISSING = (
-    "edge_impl='fused_full' has no bfloat16 form: kernel 7's bf16 stream "
-    "(nbody_gnn_hpc_tpu/ops/fused_edge_full.py, bf16_stream) is not ported "
-    "yet; train with --no-bf16 (dtype float32) or with edge_impl='fused'")
 
 
 class BatchRows(NamedTuple):
@@ -217,8 +216,6 @@ class ParticleInteractionLayer(nn.Module):
         ``self.dtype``; ``draws`` are the layer's :meth:`draws`, made
         earlier (else they are drawn here from ``generator``)."""
         dtype = self.dtype
-        if self.edge_impl == "fused_full" and dtype != torch.float32:
-            raise NotImplementedError(FULL_LAYER_BF16_MISSING)
         seed, keep = self.draws(h, generator, rows) if draws is None \
             else draws
         if self.edge_impl == "fused_full":
@@ -254,11 +251,17 @@ class ParticleInteractionLayer(nn.Module):
 
     def _whole_layer(self, h, edge_attr, edges, seed, keep):
         """The layer through ``full_layer``: the node MLP's dropout mask is
-        the keep mask ``node_mlp`` would apply, pre-scaled."""
+        the keep mask ``node_mlp`` would apply, pre-scaled.  A bf16 layer
+        passes Wt and Ws cast to bf16 (the kernel's bf16 form), the rest
+        float32."""
         node_mask = None if seed is None else keep.to(h.dtype) / (
             1.0 - self.dropout)
-        return self.full_layer(h, edge_attr, self.full_layer_params(), edges,
-                               seed, node_mask, dropout_p=self.dropout,
+        params = self.full_layer_params()
+        if self.dtype != torch.float32:
+            params["wt"] = params["wt"].to(self.dtype)
+            params["ws"] = params["ws"].to(self.dtype)
+        return self.full_layer(h, edge_attr, params, edges, seed, node_mask,
+                               dropout_p=self.dropout,
                                deterministic=not self.training)
 
 

@@ -10,7 +10,8 @@ from nbody_gnn_hpc_torch.ops.fused_edge import (
     fused_edge_backward_reference, fused_edge_layer, fused_edge_layer_plain,
     fused_edge_layer_reference, source_csr, target_csr)
 from nbody_gnn_hpc_torch.ops.fused_edge_full import (
-    fused_full_layer, fused_full_layer_plain, fused_full_layer_reference)
+    fused_full_layer, fused_full_layer_backward_reference,
+    fused_full_layer_plain, fused_full_layer_reference)
 from nbody_gnn_hpc_torch.ops.knn import (KNN_BLOCK, KNN_DENSE_MAX,
                                          edge_index_for,
                                          fully_connected_edge_index,
@@ -32,8 +33,8 @@ LAUNCH_LINE = "Kernel launches: "
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each hand-written kernel in this process so far, by its
-    name in the kernel table (each wrapper counts its own; the bf16 stream's
-    forms of kernels 1 and 2 apart from their float32 ones)."""
+    name in the kernel table (each wrapper counts its own; the bf16 forms
+    of kernels 1, 2 and 7 apart from their float32 ones)."""
     return {"fused_edge_fwd": fused_edge_layer.launches,
             "fused_edge_bwd": fused_edge_backward.launches,
             "fused_edge_fwd_bf16": fused_edge_layer.bf16_launches,
@@ -42,6 +43,7 @@ def launch_counts() -> Dict[str, int]:
             "pairwise_small": accelerations_small.launches,
             "pairwise_symmetric": accelerations_symmetric.launches,
             "fused_full_fwd": fused_full_layer.launches,
+            "fused_full_fwd_bf16": fused_full_layer.bf16_launches,
             "pairwise_symmetric_mxu": accelerations_symmetric_mxu.launches,
             "probe_fma": fma_probe.launches,
             "probe_rsqrt": rsqrt_probe.launches}
@@ -76,7 +78,8 @@ __all__ = ["LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N",
            "fused_edge_backward", "fused_edge_backward_reference",
            "fused_edge_layer", "fused_edge_layer_plain",
            "fused_edge_layer_reference", "fused_full_layer",
-           "fused_full_layer_plain", "fused_full_layer_reference",
+           "fused_full_layer_backward_reference", "fused_full_layer_plain",
+           "fused_full_layer_reference",
            "is_row_regular", "knn_edge_index", "launch_counts",
            "launch_line", "mma_schedule", "read_launch_line",
            "rsqrt_probe", "rsqrt_probe_reference", "small_schedule",

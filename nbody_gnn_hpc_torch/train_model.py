@@ -10,8 +10,9 @@ The same flags as the JAX CLI, the same config override pattern,
 and the val set normalised with the train set's statistics (reference
 ``train_model.py:94-100``).  On the GPU the model trains as the JAX CLI
 trains on its accelerator: bf16 products (the tensor cores) and the bf16
-edge stream, float32 parameters, ``"dtype": "bfloat16"`` in
-``config.json``; ``--no-bf16`` trains in float32, as does ``--device cpu``.
+edge stream (with ``--edge-impl fused_full``, the whole-layer kernel's bf16
+form), float32 parameters, ``"dtype": "bfloat16"`` in ``config.json``;
+``--no-bf16`` trains in float32, as does ``--device cpu``.
 Evaluation and serving rebuild the model at float32 from the same
 checkpoint.  ``--remat`` recomputes each interaction layer in the backward
 pass.  Reads the windowed
@@ -145,8 +146,7 @@ def _train(args, device=None) -> int:
     from nbody_gnn_hpc_torch.config import TrainingConfig
     from nbody_gnn_hpc_torch.device import resolve_device
     from nbody_gnn_hpc_torch.io.model_io import latest_checkpoint
-    from nbody_gnn_hpc_torch.models import (FULL_LAYER_BF16_MISSING,
-                                            count_parameters,
+    from nbody_gnn_hpc_torch.models import (count_parameters,
                                             model_from_config)
     from nbody_gnn_hpc_torch.ops import launch_line
     from nbody_gnn_hpc_torch.train import (MANIFEST_NAME, GNNDataset, Trainer,
@@ -176,9 +176,6 @@ def _train(args, device=None) -> int:
     # off it or when asked.
     dtype = ("float32" if args.no_bf16 or device.type != "cuda"
              else "bfloat16")
-    if args.edge_impl == "fused_full" and dtype != "float32":
-        print(f"Error: {FULL_LAYER_BF16_MISSING}")
-        return 2
     data_dir = Path(args.data_dir)
     model_dir = Path(args.model_dir)
     train_path = data_dir / "train_dataset.h5"

@@ -22,8 +22,7 @@ from jax.experimental import pallas as pl
 import nbody_gnn_hpc_tpu.ops.fused_edge as jfused
 from nbody_gnn_hpc_torch.io import (load_checkpoint, load_into,
                                     params_from_jax)
-from nbody_gnn_hpc_torch.models import (FULL_LAYER_BF16_MISSING, NBodyGNN,
-                                        model_from_config)
+from nbody_gnn_hpc_torch.models import NBodyGNN, model_from_config
 from nbody_gnn_hpc_torch.ops import (fused_edge_backward,
                                      fused_edge_backward_reference,
                                      fused_edge_layer,
@@ -330,24 +329,6 @@ def test_bf16_model_keeps_float32_parameters_and_differs_from_float32():
                    for p in model.parameters())
     diff = (outs["bfloat16"] - outs["float32"]).abs().max().item()
     assert 0 < diff <= 1e-2 * outs["float32"].abs().max().item()
-
-
-def test_fused_full_in_bf16_refuses_at_the_first_forward():
-    """Kernel 7's bf16 form is not ported: a bf16 model through
-    edge_impl="fused_full" builds, then raises at its first forward, naming
-    the missing form and --no-bf16 (it never computes in float32
-    instead)."""
-    cfg = dict(KW, dtype="bfloat16", remat=False, edge_impl="fused_full")
-    model = model_from_config(cfg)
-    assert model.dtype == torch.bfloat16 and model.edge_impl == "fused_full"
-    x = torch.zeros(N, 7)
-    ei = torch.tensor(np.asarray(jknn.knn_edge_index(
-        jnp.asarray(np.random.RandomState(39).randn(N, 3)), K))).long()
-    with pytest.raises(NotImplementedError, match="kernel 7") as err:
-        model(x, ei)
-    assert "--no-bf16" in str(err.value)
-    assert str(err.value) == FULL_LAYER_BF16_MISSING
-    model_from_config(cfg, dtype_override="float32")(x, ei)  # float32 runs
 
 
 def test_model_from_config_reads_dtype_and_remat():

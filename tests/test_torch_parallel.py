@@ -101,6 +101,10 @@ def world1(problem):
             **{f"bf16 split {w}": ranks.dp_steps(
                 problem, None, "gspmd", "fused", dropout=0.1,
                 noise_std=0.003, n_steps=2, dtype=torch.bfloat16, split=w)
+               for w in (2, 4)},
+            **{f"bf16 fused_full split {w}": ranks.dp_steps(
+                problem, None, "gspmd", "fused_full", dropout=0.1,
+                noise_std=0.003, n_steps=2, dtype=torch.bfloat16, split=w)
                for w in (2, 4)}}
 
 
@@ -200,6 +204,27 @@ def test_bf16_dp_step_reduces_float32_gradients(worlds, world1, world):
     _params_close(params, want_params)
     # ... and is not the float32 model's.
     assert losses != world1["fused"][0]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_bf16_fused_full_dp_step_reduces_float32_gradients(worlds, world1,
+                                                           world):
+    """The same for a bf16 model through kernel 7's bf16 form
+    (``edge_impl="fused_full"``): float32 all-reduced gradients, ranks
+    replicated bit for bit, two noisy dropout steps equal to one device
+    taking the same parts of each batch, and not the float32 model's."""
+    seen = [r["bf16_full_reduced"] for r in worlds[world]]
+    assert all(len(s) == 2 and s == [(torch.float32, {torch.float32})] * 2
+               for s in seen), seen
+    losses, params = worlds[world][0]["gspmd_bf16_full"]
+    assert all(p.dtype == torch.float32 for p in params.values())
+    for other in worlds[world][1:]:
+        assert other["gspmd_bf16_full"][0] == losses
+        _params_close(other["gspmd_bf16_full"][1], params, rtol=0, atol=0)
+    want_losses, want_params = world1[f"bf16 fused_full split {world}"]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    _params_close(params, want_params)
+    assert losses != world1["fused_full"][0]
 
 
 def test_shard_map_draws_its_own_bits(worlds, world1):

@@ -115,14 +115,15 @@ def ensemble(mesh, n_sims):
 
 def world_checks(rank, device, problem, jax_params=None):
     """The checks every world size runs: the ``gspmd`` step with noise and
-    dropout on (two steps, both edge impls; and a bf16 model, with what
-    its steps all-reduced under ``"bf16_reduced"``), the sharded ensemble
+    dropout on (two steps, both edge impls; and a bf16 model of each edge
+    impl, with what its steps all-reduced under ``"bf16_reduced"`` and
+    ``"bf16_full_reduced"``), the sharded ensemble
     of 9 systems; on 4 ranks the (dcn, data) hybrid mesh; with
     ``jax_params`` one step from those weights with noise and dropout off,
     both impls, both edge impls (under ``"jax"``)."""
     del rank, device
     mesh = make_mesh()
-    seen = []
+    seen, seen_full = [], []
     out = {"gspmd": {e: dp_steps(problem, mesh, "gspmd", e, dropout=0.1,
                                  noise_std=0.003, n_steps=2)
                      for e in ("fused", "fused_full")},
@@ -130,6 +131,11 @@ def world_checks(rank, device, problem, jax_params=None):
                                   dropout=0.1, noise_std=0.003, n_steps=2,
                                   dtype=torch.bfloat16, seen=seen),
            "bf16_reduced": seen,
+           "gspmd_bf16_full": dp_steps(problem, mesh, "gspmd", "fused_full",
+                                       dropout=0.1, noise_std=0.003,
+                                       n_steps=2, dtype=torch.bfloat16,
+                                       seen=seen_full),
+           "bf16_full_reduced": seen_full,
            "shard_map_noisy": dp_steps(problem, mesh, "shard_map", "fused",
                                        dropout=0.1, noise_std=0.003),
            "ensemble": ensemble(mesh, 9)}
