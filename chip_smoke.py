@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
    device is a failure.
 2. Build every CUDA kernel of the paths from ``nbody_gnn_hpc_torch/csrc``
    (one nvcc per source, all started together); print each kernel's
-   registers, spills, static shared memory and SASS instruction count.
+   registers, spills, static shared memory, SASS instruction count and
+   tensor-core (HMMA, HGMMA) instructions; kernel 7's bf16 form must hold
+   some, its float32 form none.
 3. Each kernel against its plain PyTorch version on the card, on the
    production checkpoint's layer-0 operands with evaluation-protocol states
    (box 10, seeds 9999+i, masses from seed 42): the edge forward (kernel 1)
@@ -284,8 +286,8 @@ Phases (any failure exits non-zero and prints no result line):
    the float32 ones, ``--remat`` launches kernel 1 once more a layer (the
    recompute), and its first step's loss and the validation loss after
    that step equal the default run's.  (d) Kernel 7's bf16 form
-   (``edge_impl="fused_full"`` in a bf16 model: every product on bf16
-   operands with a float32 result, rounded where the TPU kernel rounds):
+   (``edge_impl="fused_full"`` in a bf16 model: every product on the bf16
+   tensor cores with a float32 sum, rounded where the TPU kernel rounds):
    (d1) against its plain bf16 version on the checkpoint's layer-0
    operands with wt and ws in bf16, inference at B=1 and 8, training at
    B=24 and the odd shape N=13, k=4 in both forms, within 2^-6 of scale
@@ -510,10 +512,11 @@ def ptxas_report(log: str) -> list:
 
 
 def sass_counts(lib: Path) -> dict:
-    """{kernel: SASS instructions, NOPs aside} of each function in a built
-    library, by ``cuobjdump -sass`` (empty where the tool is missing):
-    static counts, so the body of a loop the compiler unrolled counts once
-    an iteration and that of a loop it kept, once."""
+    """{kernel: (SASS instructions, NOPs aside; tensor-core instructions,
+    HMMA and HGMMA)} of each function in a built library, by ``cuobjdump
+    -sass`` (empty where the tool is missing): static counts, so the body
+    of a loop the compiler unrolled counts once an iteration and that of a
+    loop it kept, once."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not (Path(tool).exists() and lib.exists()):
         return {}
@@ -523,10 +526,11 @@ def sass_counts(lib: Path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = _kernel_name(line.split("Function :")[1].strip())
-            counts[name] = 0
+            counts[name] = [0, 0]
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
-            counts[name] += 1
-    return counts
+            counts[name][0] += 1
+            counts[name][1] += bool(re.search(r"\bH(G)?MMA\.", line))
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def fail(msg: str) -> None:
@@ -4548,12 +4552,10 @@ def phase_full_bf16_kernels(model, norm_stats, dev):
                      "plain_ms": plain_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "bound_ms_float32": bound32[0]})
-        print(f"    bf16 form {ms:.5f} ms (its two widening casts of wt and "
-              f"ws included), float32 form {ms32:.5f} ms (same call, same "
-              f"operands), plain bf16 "
-              f"{plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}; "
-              f"the float32 form's {bound32[0]:.6f}); library_ms null",
-              flush=True)
+        print(f"    bf16 form {ms:.5f} ms, float32 form {ms32:.5f} ms "
+              f"(same call, same operands), plain bf16 {plain_ms:.5f} ms, "
+              f"bound {bound[0]:.6f} ms ({bound[1]}; the float32 form's "
+              f"{bound32[0]:.6f}); library_ms null", flush=True)
     return rows, worst
 
 
@@ -4992,12 +4994,23 @@ def main(argv=None) -> int:
     built = build(sources)
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tensor_core = {}
     for name in sources:
         sass = sass_counts(library_path(name))
         for entry, report in ptxas_report(build_log(name)):
-            print(f"    {name}: {entry}: {report}, "
-                  f"{sass.get(entry, 'unknown')} SASS instructions",
+            count, tc = sass.get(entry, ("unknown", "unknown"))
+            print(f"    {name}: {entry}: {report}, {count} SASS "
+                  f"instructions, {tc} tensor-core (HMMA, HGMMA)",
                   flush=True)
+            if name.startswith("fused_edge_full"):
+                tensor_core[entry] = tc
+    # Kernel 7's products: the bf16 form's on the bf16 tensor cores, the
+    # float32 form's on none (float32 FMAs).
+    check(bool(tensor_core) and all(
+        isinstance(tc, int) and (tc > 0) == entry.endswith(",bf16>")
+        for entry, tc in tensor_core.items()),
+        f"kernel 7's SASS: the bf16 form must hold tensor-core instructions "
+        f"and the float32 form none ({tensor_core})")
     dev = torch.device("cuda")
     if args.large_n:
         print("[14] the large-N pipeline: largen_pipeline --trajectory-format "

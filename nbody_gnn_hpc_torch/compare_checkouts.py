@@ -1,8 +1,9 @@
-"""Time the edge-stream kernels (kernels 1 and 2) and the direct-force
-kernels (kernels 3, 4, 5 and 6) of two checkouts on one card.
+"""Time the edge-stream kernels (kernels 1 and 2), the direct-force
+kernels (kernels 3, 4, 5 and 6) and the whole-layer kernel (kernel 7) of
+two checkouts on one card.
 
     python -m nbody_gnn_hpc_torch.compare_checkouts --other DIR \
-        [--kernels edge|force|all]
+        [--kernels edge|force|full|all]
 
 DIR is another checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory).  Each turn is
@@ -33,6 +34,20 @@ its centring included) on the evaluation-protocol systems
 (``chip_smoke.protocol_system``) of N=10,000 and 2,085 (``LARGE_N``,
 ``ODD_N``); kernels 6 and 5 with the device time of each of their
 launches.
+
+``full`` (``csrc/fused_edge_full.cu`` and ``fused_edge_full_bf16.cu``):
+``fused_full_layer`` (kernel 7) in its bf16 form (wt and ws bf16) on the
+production checkpoint's layer-0 operands (``chip_smoke.full_layer_inputs``),
+N=200, k=40, inference at B=1 and 8, training (dropout 0.1, the node mask
+of ``chip_smoke``) at B=24: the call, each launch by torch.profiler (the
+kernel alone), each phase alone through the ordinary-launch form
+(``PHASE_ALONE``; each phase reads the scratch the whole-layer call before
+it wrote, where the caching allocator hands the same blocks back); the
+float32 form's call and the SHA-256 of its h_new and summed (the bytes of
+both), which two checkouts that share the float32 form's design give
+alike; and the composed bf16 layer (the bf16 model's ``fused`` layer 0:
+bf16 cuBLAS projections, kernel 1's bf16 form, the node side in PyTorch)
+on the same operands, two calls a timing so the host keeps up.
 """
 
 import argparse
@@ -48,6 +63,7 @@ from nbody_gnn_hpc_torch.roofline import kernel_times_ms
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("inference", 1), ("inference", 8), ("inference", 10),
           ("training", 1), ("training", 24))
+FULL_SHAPES = (("inference", 1), ("inference", 8), ("training", 24))
 BWD_SHAPES = (("training", 1), ("training", 24), ("fine-tune", 8))
 ENSEMBLES = (300, 100, 1)  # kernel 4's systems of N=200
 
@@ -62,8 +78,9 @@ import chip_smoke as cs
 from nbody_gnn_hpc_torch.ops.cuda_build import build, library_path
 from nbody_gnn_hpc_torch.roofline import cuda_time_ms
 regs, rows = [], []
+built = build(SOURCES)
 for src in SOURCES:
-    log = build([src]).get(src, {}).get("log") or build_log(src)
+    log = built.get(src, {}).get("log") or build_log(src)
     regs += [f"{src} {name}: {report}"
              for name, report in cs.ptxas_report(log)]
 dev = torch.device("cuda")
@@ -133,15 +150,69 @@ with torch.inference_mode():
         rows.append({"kernel": 5, "form": f"N={n}", "ms": cuda_time_ms(fn),
                      "passes": kernel_times_ms(fn)})
 """
-GROUPS = {"edge": ("fused_edge", _EDGE), "force": ("pairwise", _FORCE)}
+_FULL = """
+import copy
+import hashlib
+from nbody_gnn_hpc_torch.io import load_checkpoint, load_into
+from nbody_gnn_hpc_torch.models import model_from_config
+from nbody_gnn_hpc_torch.ops import fused_edge_full as ff
+with open(cs.CONFIG) as f:
+    model = model_from_config({**json.load(f)["model_config"],
+                               "dtype": "float32"}).to(dev).eval()
+stats = load_into(model, load_checkpoint(cs.MODEL))
+seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
+layer16 = copy.deepcopy(model.layers[0])  # the composed bf16 layer
+layer16.dtype = layer16.node_mlp.dtype = torch.bfloat16
+layer16.edge_impl = "fused"
+gen = torch.Generator(dev)
+with torch.inference_mode():
+    for form, b in FULL_SHAPES:
+        h, ea, p, edges = cs.full_layer_inputs(model, stats, b, cs.N, cs.K,
+                                               dev)
+        p16 = dict(p, wt=p["wt"].bfloat16(), ws=p["ws"].bfloat16())
+        mask = (torch.rand(h.shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(b))
+                >= cs.DROPOUT_P).float() / (1 - cs.DROPOUT_P)
+        sd, mk, rate = ((seed, mask, cs.DROPOUT_P) if form == "training"
+                        else (None, None, 0.0))
+        run = lambda q: ff.fused_full_layer(h, ea, q, edges, sd, mk,
+                                            dropout_p=rate,
+                                            deterministic=sd is None)
+        fn = lambda: run(p16)
+        fn()
+        torch.cuda.synchronize()
+        phase_ms = []
+        for alone in range(1, ff.PHASES + 1):
+            ff.PHASE_ALONE = alone
+            try:
+                phase_ms.append(cuda_time_ms(fn))
+            finally:
+                ff.PHASE_ALONE = None
+        out, summed = ff._launch(h, ea, p, edges, sd, mk, rate)
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()
+                                + summed.cpu().numpy().tobytes()).hexdigest()
+        layer16.train(form == "training")
+        composed_ms = cuda_time_ms(
+            lambda: layer16(h, ea, edges, edges.degree, gen), inner=2)
+        layer16.eval()
+        rows.append({"kernel": 7, "form": f"bf16 {form} B={b}",
+                     "ms": cuda_time_ms(fn), "passes": kernel_times_ms(fn),
+                     "phase_ms": phase_ms,
+                     "float32_ms": cuda_time_ms(lambda: run(p)),
+                     "float32_sha256": digest,
+                     "composed_bf16_ms": composed_ms})
+"""
+GROUPS = {"edge": (("fused_edge",), _EDGE),
+          "force": (("pairwise",), _FORCE),
+          "full": (("fused_edge_full", "fused_edge_full_bf16"), _FULL)}
 
 
 def run_turn(checkout: Path, groups) -> dict:
     """One turn of the kernel ``groups`` in ``checkout``'s root; its JSON
     line."""
     code = (f"SHAPES = {SHAPES!r}\nBWD_SHAPES = {BWD_SHAPES!r}\n"
-            f"ENSEMBLES = {ENSEMBLES!r}\n"
-            f"SOURCES = {[GROUPS[g][0] for g in groups]!r}\n"
+            f"ENSEMBLES = {ENSEMBLES!r}\nFULL_SHAPES = {FULL_SHAPES!r}\n"
+            f"SOURCES = {[s for g in groups for s in GROUPS[g][0]]!r}\n"
             + inspect.getsource(build_log)
             + inspect.getsource(kernel_times_ms) + _HEAD
             + "".join(GROUPS[g][1] for g in groups)
@@ -158,9 +229,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="root of the other checkout")
-    ap.add_argument("--kernels", choices=("edge", "force", "all"),
+    ap.add_argument("--kernels", choices=("edge", "force", "full", "all"),
                     default="all", help="kernels 1 and 2 (edge), 3, 4, 5 and 6 "
-                    "(force), or both")
+                    "(force), 7 (full), or all three")
     args = ap.parse_args(argv)
     groups = tuple(GROUPS) if args.kernels == "all" else (args.kernels,)
     turns = []
@@ -171,6 +242,10 @@ def main(argv=None) -> int:
         times = ", ".join(
             f"kernel {r['kernel']} {r['form']} {r['ms']:.5f}"
             + "".join(f" ({k} {t:.5f})" for k, t in r.get("passes", {}).items())
+            + (f" phases {' '.join(f'{t:.5f}' for t in r['phase_ms'])}"
+               f" float32 {r['float32_ms']:.5f} sha256 "
+               f"{r['float32_sha256'][:16]} composed bf16 "
+               f"{r['composed_bf16_ms']:.5f}" if "phase_ms" in r else "")
             for r in result["rows"])
         print(f"{name}: {times} ms", flush=True)
     for name in ("other", "this"):

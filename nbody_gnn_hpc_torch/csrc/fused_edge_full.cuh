@@ -43,26 +43,26 @@
 // shape and the device alone, and an item's arithmetic does not depend on
 // the block that runs it, so both forms give the same bits.
 //
-// Products. The design before this one (8-row tiles, the whole node side of
-// a tile in one block, two phases) took 162 us at B=1 on an H100 against a
-// 3 us bound and lost to the composed PyTorch layer: 25 to 50 busy SMs, each
-// staging weights with loads nothing overlapped and streaming all of them
-// again for every 8 rows. Here a product item is one output tile over the
-// rows of all graphs at once (rows of a batch are rows of one matrix): 16 x
-// 16 ("Narrow": 416 items in P1 and 208 in P3, P4, P6 at B=1) or, where
-// there are at least as many such items as resident blocks, 32 x 32 ("Mid":
-// B=8 and B=24), which reads half the L2 bytes per operation. An item owns
-// its outputs, so no atomics. Its operand rows and its weight slice go
-// through shared memory in chunks of 128 (Narrow) or 64 (Mid) channels, in
-// a ring of three stages filled with 16-byte cp.async.cg copies; a block's
-// items are one pipeline of (item, chunk) steps, so the next chunks, also
-// those of the next item, are in flight while the FMAs run. A thread holds
-// a 4 x 4 block of outputs (with 2 x 2 blocks, four 16-byte shared-memory
-// reads per 16 FMAs bound the products), and the depth of a chunk is split
-// 16 (Narrow) or 4 (Mid) ways between groups of threads, whose partial sums
-// are added in a fixed order. Rows of a staged chunk are
+// Products of the float32 form. The design before this one (8-row tiles, the
+// whole node side of a tile in one block, two phases) took 162 us at B=1 on
+// an H100 against a 3 us bound and lost to the composed PyTorch layer: 25 to
+// 50 busy SMs, each staging weights with loads nothing overlapped and
+// streaming all of them again for every 8 rows. Here a product item is one
+// output tile over the rows of all graphs at once (rows of a batch are rows
+// of one matrix): 16 x 16 ("Narrow": 416 items in P1 and 208 in P3, P4, P6
+// at B=1) or, where there are at least as many such items as resident
+// blocks, 32 x 32 ("Mid": B=8 and B=24), which reads half the L2 bytes per
+// operation. An item owns its outputs, so no atomics. Its operand rows and
+// its weight slice go through shared memory in chunks of 128 (Narrow) or 64
+// (Mid) channels, in a ring of three stages filled with 16-byte cp.async.cg
+// copies; a block's items are one pipeline of (item, chunk) steps, so the
+// next chunks, also those of the next item, are in flight while the FMAs
+// run. A thread holds a 4 x 4 block of outputs (with 2 x 2 blocks, four
+// 16-byte shared-memory reads per 16 FMAs bound the products), and the depth
+// of a chunk is split 16 (Narrow) or 4 (Mid) ways between groups of threads,
+// whose partial sums are added in a fixed order. Rows of a staged chunk are
 // padded (132 or 68 floats) so eight neighbouring rows fall in distinct
-// banks.
+// banks. Float32 FMAs only (TF32 does not hold the tests' 1e-5).
 //
 // LayerNorm (P5) is a phase of its own, not a step of P6's items: one warp
 // computes a row's statistics once, in one order, and every column item of
@@ -77,33 +77,52 @@
 // than three blocks an SM allow and measured slower. We^T sits in shared
 // memory in a per-lane layout read 16 bytes at a time.
 //
-// No float atomics; every sum is taken in a fixed order, so reruns are
-// bit-identical. Float32 FMA only (TF32 does not hold the tests' 1e-5).
+// No float atomics; every sum is taken in a fixed order (a tensor-core
+// product's too), so reruns are bit-identical.
 //
 // The bf16 form (CD = __nv_bfloat16): the TPU kernel with cd = bfloat16,
-// every product on bf16 operands with a float32 result, rounded where that
-// kernel rounds. A product of two bf16 values is exact in float32, so the
-// float32 FMAs over operands rounded to bf16 compute what the TPU's
-// bf16 x bf16 -> f32 products do, up to summation order: each thread rounds
-// the 16-byte segments it staged, in shared memory, once they land (four
-// segments a step, against 128-256 FMAs), so no FMA reads an unrounded
-// operand. The results: t = bf16(bf16(sum) + bf16(bt)) and s = bf16(sum),
-// kept as float32 holding bf16 values (so P2 reads them as it reads the
-// float32 form's); P2 rounds each edge's term to bf16 after dropout's
-// scale, summed stays float32 (kernel 1's bf16 form); agg = sum + deg bout
-// unrounded; z1 = bf16(bf16(sum) + bf16(b1)); P5 in float32; h_new =
-// bf16(bf16(sum) + bf16(b2)), as float32.
+// every product on bf16 operands with a float32 sum, rounded where that
+// kernel rounds: t = bf16(bf16(sum) + bf16(bt)) and s = bf16(sum), kept as
+// float32 holding bf16 values (so P2 reads them as it reads the float32
+// form's); P2 rounds each edge's term to bf16 after dropout's scale, summed
+// stays float32 (kernel 1's bf16 form); agg = sum + deg bout unrounded;
+// z1 = bf16(bf16(sum) + bf16(b1)); P5 in float32; h_new = bf16(bf16(sum) +
+// bf16(b2)), as float32. Its four products run on the bf16 tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 -> float32), as the TPU kernel's run on
+// its matrix unit:
+//   - Operands are bf16 in memory and in shared memory, copied with
+//     cp.async and read with ldmatrix; each phase that writes an operand a
+//     later product reads writes it in bf16 beside (or instead of) its
+//     float32 result: P1 the bf16 rows of h (the items of column slice 0,
+//     from the rows they staged) for P4, P2 bf16(summed) for P3, P3
+//     bf16(agg) (the only form P4 reads), P5 bf16(a) for P6. wt and ws
+//     arrive in bf16; P1's blocks convert Wout, W1 and W2 once a launch
+//     into bf16 scratch, after their products and before the first grid
+//     barrier. h (float32, the layer's input) is the one operand converted
+//     while staging: P1 loads its rows into registers when it starts a
+//     chunk's copies and converts and stores them after the current
+//     step's products, so the loads overlap the tensor cores.
+//   - An item is a 64 x 64 output tile (Tc: eight warps of 16 x 32, each
+//     summing every channel of its share in order, 64-channel chunks), in
+//     every product and at every row count; rows and outputs past the
+//     matrix are masked. The form runs only in training (a bf16 model's
+//     inference rebuilds it at float32), where B N is thousands of rows.
+//     Staged rows are padded by 16 bytes, so the eight rows an ldmatrix
+//     phase reads fall in distinct banks; the stage ring holds bf16, half
+//     the float32 form's bytes a channel.
 //
 // Bound on an H100 at the serving shape (B=1, N=200, k=40, E=8000, H=Ho=256,
 // D=5): 2*N*H*(5H+Ho) = 157 MFLOP of products plus the stream's 23*E*H =
 // 47 MFLOP, 3.0 us at 67 TFLOP/s float32 outside the tensor cores; against
 // 2.5 MB (h, h_new, summed, edge_attr, the CSR and 1.5 MB of weights), 0.75
-// us at 3.35 TB/s. Bound by operations. What the design pays beyond it
-// (measured on an H100 80GB HBM3 at 700 W, each phase as its own launch):
-// at B=1 the stream (~15 us: chains of ~5 dependent edges) and five grid
-// barriers; at B=24 (training) the stream, ~160 us at ~1 ns an edge, and the
-// products, ~200 us at ~18 TFLOP/s. Times on the card are in PERF.md
-// (chip_smoke.py phase 3).
+// us at 3.35 TB/s. Bound by operations. The bf16 form's products at the
+// bf16 tensor-core rate (989 TFLOP/s) leave the stream's float32 work: 0.87
+// us at B=1, 21.6 us at B=24 training. What the float32 design pays beyond
+// its bound (measured on an H100 80GB HBM3 at 700 W, each phase as its own
+// launch): at B=1 the stream (~15 us: chains of ~5 dependent edges) and five
+// grid barriers; at B=24 (training) the stream, ~160 us at ~1 ns an edge,
+// and the products, ~200 us at ~18 TFLOP/s. Times on the card are in
+// PERF.md (chip_smoke.py phases 3 and 15).
 
 #pragma once
 
@@ -152,22 +171,48 @@ constexpr int kRedFloats = Narrow::kKS * Narrow::TM * Narrow::CN >
                                    Mid::kKS * Mid::TM * Mid::CN
                                ? Narrow::kKS * Narrow::TM * Narrow::CN
                                : Mid::kKS * Mid::TM * Mid::CN;
-static_assert(kRingFloats >= kWarps * kMaxH + 32 * (kMaxD * kMaxH / 32 + 4),
+
+using bf16 = __nv_bfloat16;
+
+// The bf16 form's product item: a 64 x 64 output tile on the tensor cores,
+// a warp of the block's 4 x 2 grid a 16 x 32 share (four m16n8k16 products
+// a 16-channel step), through staged chunks of 64 channels. Every row and
+// output past the matrix is masked, so it serves any row count.
+struct Tc {
+  static constexpr int kWM = 4, kWN = 2, kNT = 4, kKC = 64;
+  static constexpr int TM = 16 * kWM, CN = 8 * kNT * kWN;  // rows, outputs
+  static constexpr int LDK = kKC + 8;  // bf16: rows 16 bytes off in banks
+  static constexpr int kStage = (TM + CN) * LDK;       // bf16
+  static constexpr int kSegs = (TM + CN) * (kKC / 8);  // 16-byte copies
+  static constexpr int kASegs = TM * (kKC / 8) / kThreads;  // float32 A
+  static_assert(kWM * kWN == kWarps, "a warp per 16 x 8NT share");
+  static_assert(kNT % 2 == 0 && kKC % 16 == 0, "ldmatrix.x4 B, k16 steps");
+  static_assert(TM * (kKC / 8) % kThreads == 0, "A segments a thread");
+};
+
+// Shared memory of each form, in floats: the ring (staged chunks; P2's
+// shares and We^T) and, behind it, the partial sums of a depth-split item
+// (the float32 form's; the bf16 form's items sum in one warp).
+template <class CD>
+struct Smem {
+  static constexpr int kRing = kRingFloats, kRed = kRedFloats;
+};
+template <>
+struct Smem<bf16> {
+  static constexpr int kRing = kStages * Tc::kStage / 2, kRed = 0;
+};
+static_assert(Smem<float>::kRing >= kWarps * kMaxH +
+                                        32 * (kMaxD * kMaxH / 32 + 4) &&
+                  Smem<bf16>::kRing >= kWarps * kMaxH +
+                                           32 * (kMaxD * kMaxH / 32 + 4),
               "P2 shares and We^T fit in the ring");
 
-// The compute dtype CD: float, or __nv_bfloat16 for the bf16 form, whose
-// operands and results are rounded to bf16 (nearest even) and kept in
-// float32.
+// The compute dtype CD: float, or __nv_bfloat16 for the bf16 form.
 template <class CD>
 constexpr bool kBf16 = !std::is_same<CD, float>::value;
 
-template <class CD>
-__device__ __forceinline__ float round_cd(float v) {
-  if constexpr (kBf16<CD>) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 struct LayerArgs {
@@ -177,9 +222,9 @@ struct LayerArgs {
   const int* perm;         // (b, e) edge ids sorted by target
   const int* src;          // (b, e) source of each sorted edge
   const int* offsets;      // (b, n + 1)
-  const float* wt;         // (H, H)   edge_proj_target.weight
+  const float* wt;         // (H, H)   edge_proj_target.weight (float32 form)
   const float* bt;         // (H,)
-  const float* ws;         // (H, H)   edge_proj_source.weight
+  const float* ws;         // (H, H)   edge_proj_source.weight (float32 form)
   const float* we;         // (H, d)   edge_proj_attr.weight
   const float* ge;         // (H,)     edge_norm
   const float* be;         // (H,)
@@ -200,17 +245,29 @@ struct LayerArgs {
   // L2-only loads, never through the read-only cache)
   float* tp;               // (b, n, H)   P1 -> P2
   float* sp;               // (b, n, H)   P1 -> P2
-  float* agg;              // (b, n, H)   P3 -> P4
-  float* z1;               // (b, n, H)   P4 -> P5, a in place -> P6
+  float* agg;              // (b, n, H)   P3 -> P4 (float32 form)
+  float* z1;               // (b, n, H)   P4 -> P5 (float32 form: a in
+                           //             place -> P6)
   // outputs
   float* h_new;            // (b, n, Ho)
   float* summed;           // (b, n, H)   P2 -> P3
   int b, n, e, d, ho;
   int split;               // warps a target in P2: 1, 2, 4 or 8
-  int mid[4];              // P1, P3, P4, P6 use Mid (else Narrow) tiles
+  int mid[4];              // float32 form: P1, P3, P4, P6 use Mid tiles
+  // the bf16 form: wt and ws in bf16, and the bf16 operands the phases
+  // hand on
+  const bf16* wt16;        // (H, H)
+  const bf16* ws16;        // (H, H)
+  bf16* hb;                // (b, n, H)   bf16(h): P1 -> P4
+  bf16* sb;                // (b, n, H)   bf16(summed): P2 -> P3
+  bf16* aggb;              // (b, n, H)   bf16(agg): P3 -> P4
+  bf16* ab;                // (b, n, H)   bf16(a): P5 -> P6
+  bf16* wout16;            // (H, H)      P1 (converted) -> P3
+  bf16* w1_16;             // (H, 2H)     P1 -> P4
+  bf16* w2_16;             // (Ho, H)     P1 -> P6
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   // 16 bytes global -> shared through L2 only; zeros where !valid.
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -278,43 +335,17 @@ __device__ __forceinline__ void stage_chunk(const Product& o, int r0, int c0,
   }
 }
 
-// The bf16 form: the thread rounds the segments of chunk kc that it staged
-// (stage_chunk's), once they have landed, before the block's barrier.
-template <class T>
-__device__ __forceinline__ void round_chunk(const Product& o, int kc,
-                                            float* st) {
-  for (int s = threadIdx.x; s < T::kSegs; s += kThreads) {
-    const int row = s / (T::kKC / 4), seg = s % (T::kKC / 4);
-    if (kc * T::kKC + seg * 4 >= o.K) continue;
-    float4* v = reinterpret_cast<float4*>(st + row * T::LDK + seg * 4);
-    float4 x = *v;
-    x.x = round_cd<__nv_bfloat16>(x.x);
-    x.y = round_cd<__nv_bfloat16>(x.y);
-    x.z = round_cd<__nv_bfloat16>(x.z);
-    x.w = round_cd<__nv_bfloat16>(x.w);
-    *v = x;
-  }
-}
-
-// An output of a product. The bf16 form rounds where the TPU kernel does:
-// the second matrix's output (s) to bf16, a biased output to bf16(bf16(sum)
-// + bf16(bias)); the in-degree-scaled bias of P3 is added unrounded.
-template <class CD>
+// An output of a float32 product.
 __device__ __forceinline__ void product_store(const Product& o, int row,
                                               int col, float sum) {
   if (col >= o.n_lo) {
-    o.out_hi[static_cast<long long>(row) * o.ldo + col - o.n_lo] =
-        round_cd<CD>(sum);
+    o.out_hi[static_cast<long long>(row) * o.ldo + col - o.n_lo] = sum;
     return;
   }
   float v = o.bias != nullptr ? o.bias[col] : 0.f;
   if (o.offsets != nullptr) {
     const int* off = o.offsets + (row / o.n) * (o.n + 1) + row % o.n;
     v *= static_cast<float>(off[1] - off[0]);
-  } else if constexpr (kBf16<CD>) {
-    o.out[static_cast<long long>(row) * o.ldo + col] =
-        round_cd<CD>(round_cd<CD>(sum) + round_cd<CD>(v));
-    return;
   }
   o.out[static_cast<long long>(row) * o.ldo + col] = v + sum;
 }
@@ -323,7 +354,7 @@ __device__ __forceinline__ void product_store(const Product& o, int row,
 // one pipeline of (item, chunk) steps, so the chunks of the next item are
 // in flight while this item's last chunks and epilogue run. Every thread of
 // the block calls it; it ends on a barrier after which the ring is free.
-template <class T, class CD>
+template <class T>
 __device__ void product_phase(const Product& o, float* ring, float* red) {
   constexpr int R = T::kR, G = T::G, LDK = T::LDK;
   const int t = threadIdx.x;
@@ -353,9 +384,6 @@ __device__ void product_phase(const Product& o, float* ring, float* red) {
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();  // this step's chunk has landed (mine)
     const int kc = step % nk;
-    if constexpr (kBf16<CD>) {
-      round_chunk<T>(o, kc, ring + (step % kStages) * T::kStage);
-    }
     __syncthreads();               // ... everyone's; the last one is consumed
     if (step + kStages - 1 < steps) stage(step + kStages - 1);
     cp_async_commit();
@@ -405,7 +433,7 @@ __device__ void product_phase(const Product& o, float* ring, float* red) {
           float v = red[idx];
 #pragma unroll
           for (int s = 1; s < T::kKS; ++s) v += red[s * kTile + idx];
-          product_store<CD>(o, row, col, v);
+          product_store(o, row, col, v);
         }
       }
     } else {
@@ -415,7 +443,7 @@ __device__ void product_phase(const Product& o, float* ring, float* red) {
         for (int j = 0; j < R; ++j) {
           const int row = r0 + gy + G * i, col = c0 + gx + G * j;
           if (row < o.rows && col < o.n_out) {
-            product_store<CD>(o, row, col, acc[i][j]);
+            product_store(o, row, col, acc[i][j]);
           }
         }
       }
@@ -435,13 +463,300 @@ __host__ __device__ inline int product_items(bool mid, int rows, int n_out) {
   return ((rows + tm - 1) / tm) * ((n_out + cn - 1) / cn);
 }
 
-template <class CD>
 __device__ __forceinline__ void products(bool mid, const Product& o,
                                          float* ring, float* red) {
   if (mid) {
-    product_phase<Mid, CD>(o, ring, red);
+    product_phase<Mid>(o, ring, red);
   } else {
-    product_phase<Narrow, CD>(o, ring, red);
+    product_phase<Narrow>(o, ring, red);
+  }
+}
+
+// One product of the bf16 form over the rows of all graphs at once, as
+// Product, on the tensor cores: bf16 operands, float32 sums, the outputs
+// rounded where the TPU kernel rounds them (tc_store). A's channel k < ka
+// comes from a0, k >= ka from a1, both bf16 and of row stride lda; or, with
+// a float32 A (P1's h), every channel from a0, converted while staging, and
+// the items of column slice 0 write the bf16 rows they staged to a_copy
+// (stride lda). out is bf16 where out16 (P3's agg), else float32.
+struct TcProduct {
+  const void* a0;
+  const bf16* a1;
+  int ka, lda;
+  const bf16* w;         // (n_lo, ldw)
+  const bf16* w_hi;      // (n_out - n_lo, ldw)
+  int ldw, n_lo, n_out, K;
+  const float* bias;     // (n_lo,)
+  const int* offsets;    // (b, n + 1) CSR offsets (P3) or null
+  int n;                 // rows of a graph
+  void* out;             // (rows, ldo)
+  float* out_hi;         // (rows, ldo)
+  bool out16;
+  int ldo, rows;
+  bf16* a_copy;          // float32 A: its bf16 rows, or null
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// c += a b: a 16 x 16 bf16 A fragment, a 16 x 8 bf16 B fragment (b0, b1),
+// a 16 x 8 float32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Row `row`'s factor of P3's bias: its in-degree (1 for the other
+// products).
+__device__ __forceinline__ float tc_row_scale(const TcProduct& o, int row) {
+  if (o.offsets == nullptr || row >= o.rows) return 1.f;
+  const int* off = o.offsets + (row / o.n) * (o.n + 1) + row % o.n;
+  return static_cast<float>(off[1] - off[0]);
+}
+
+// Outputs (row, col) and (row, col + 1) of a bf16 product, col even: the
+// second matrix's output (s) bf16(sum), a biased output bf16(bf16(sum) +
+// bf16(bias)), P3's sum + deg bout unrounded (stored in bf16: P4 reads
+// nothing else of it). One 8-byte (4-byte in bf16) store where both lie in
+// one output and its rows have an even stride.
+__device__ __forceinline__ void tc_store(const TcProduct& o, int row, int col,
+                                         float v0, float v1, float deg) {
+  if (row >= o.rows || col >= o.n_out) return;
+  const long long at = static_cast<long long>(row) * o.ldo;
+  const bool pair = col + 1 < o.n_out && (o.ldo & 1) == 0;
+  if (col >= o.n_lo) {
+    float* out = o.out_hi + at + col - o.n_lo;
+    v0 = round_bf16(v0);
+    v1 = round_bf16(v1);
+    if (pair) {
+      *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+    } else {
+      out[0] = v0;
+      if (col + 1 < o.n_out) out[1] = v1;
+    }
+    return;
+  }
+  const float b0 = o.bias[col], b1 = col + 1 < o.n_out ? o.bias[col + 1] : 0.f;
+  if (o.offsets != nullptr) {
+    v0 += b0 * deg;
+    v1 += b1 * deg;
+  } else {
+    v0 = round_bf16(round_bf16(v0) + round_bf16(b0));
+    v1 = round_bf16(round_bf16(v1) + round_bf16(b1));
+  }
+  if (o.out16) {
+    bf16* out = static_cast<bf16*>(o.out) + at + col;
+    if (pair) {
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(v0, v1);
+    } else {
+      out[0] = __float2bfloat16_rn(v0);
+      if (col + 1 < o.n_out) out[1] = __float2bfloat16_rn(v1);
+    }
+  } else {
+    float* out = static_cast<float*>(o.out) + at + col;
+    if (pair) {
+      *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+    } else {
+      out[0] = v0;
+      if (col + 1 < o.n_out) out[1] = v1;
+    }
+  }
+}
+
+// One bf16 product phase, product_phase's pipeline on the tensor cores: the
+// block's items (blockIdx.x, + gridDim.x, ...) are one pipeline of (item,
+// chunk) steps through a ring of kStages bf16 stages. A float32 A (AF) is
+// loaded into registers when its step's copies start and converted and
+// stored after the current step's products. Warp (wm, wn) sums rows
+// 16 wm .. + 16 and outputs 8 NT wn .. + 8 NT of the tile over every
+// channel, in channel order. Every thread of the block calls it; it ends on
+// a barrier after which the ring is free.
+template <bool AF>
+__device__ void tc_product_phase(const TcProduct& o, bf16* ring) {
+  constexpr int TM = Tc::TM, CN = Tc::CN, KC = Tc::kKC, LDK = Tc::LDK;
+  constexpr int NT = Tc::kNT;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int slices = (o.n_out + CN - 1) / CN;
+  const int items = ((o.rows + TM - 1) / TM) * slices;
+  const int nk = (o.K + KC - 1) / KC;
+  const int mine = items > static_cast<int>(blockIdx.x)
+      ? (items - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const int steps = mine * nk;
+  float4 pre[AF ? 2 * Tc::kASegs : 1];  // AF: the next A segments, float32
+  auto start = [&](int step) {  // the copies of step's chunk
+    const int item = blockIdx.x + (step / nk) * gridDim.x, kc = step % nk;
+    const int r0 = (item / slices) * TM, c0 = (item % slices) * CN;
+    bf16* st = ring + (step % kStages) * Tc::kStage;
+    for (int s = (AF ? TM * (KC / 8) : 0) + t; s < Tc::kSegs; s += kThreads) {
+      const int row = s / (KC / 8), seg = s % (KC / 8);
+      const int k = kc * KC + seg * 8;
+      if (k >= o.K) continue;
+      const bf16* src;
+      bool ok;
+      if (row < TM) {
+        const int r = r0 + row;
+        ok = r < o.rows;
+        const long long off = static_cast<long long>(ok ? r : 0) * o.lda;
+        src = k < o.ka ? static_cast<const bf16*>(o.a0) + off + k
+                       : o.a1 + off + (k - o.ka);
+      } else {
+        int c = c0 + row - TM;
+        ok = c < o.n_out;
+        const bf16* w = o.w;
+        if (c >= o.n_lo) {
+          w = o.w_hi;
+          c -= o.n_lo;
+        }
+        src = w + static_cast<long long>(ok ? c : 0) * o.ldw + k;
+      }
+      cp_async16(st + row * LDK + seg * 8, src, ok);
+    }
+    if constexpr (AF) {
+#pragma unroll
+      for (int i = 0; i < Tc::kASegs; ++i) {
+        const int s = t + i * kThreads;
+        const int r = r0 + s / (KC / 8), k = kc * KC + (s % (KC / 8)) * 8;
+        if (r < o.rows && k < o.K) {
+          const float4* src = reinterpret_cast<const float4*>(
+              static_cast<const float*>(o.a0) +
+              static_cast<long long>(r) * o.lda + k);
+          pre[2 * i] = __ldg(src);
+          pre[2 * i + 1] = __ldg(src + 1);
+        } else {
+          pre[2 * i] = pre[2 * i + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+  };
+  auto land = [&](int step) {  // AF: convert and store step's A segments
+    if constexpr (AF) {
+      const int item = blockIdx.x + (step / nk) * gridDim.x, kc = step % nk;
+      const int r0 = (item / slices) * TM, c0 = (item % slices) * CN;
+      bf16* st = ring + (step % kStages) * Tc::kStage;
+#pragma unroll
+      for (int i = 0; i < Tc::kASegs; ++i) {
+        const int s = t + i * kThreads;
+        const int row = s / (KC / 8), seg = s % (KC / 8);
+        const float4 x = pre[2 * i], y = pre[2 * i + 1];
+        const uint4 v = make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                                   pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+        *reinterpret_cast<uint4*>(st + row * LDK + seg * 8) = v;
+        const int r = r0 + row, k = kc * KC + seg * 8;
+        if (c0 == 0 && o.a_copy != nullptr && r < o.rows && k < o.K) {
+          *reinterpret_cast<uint4*>(
+              o.a_copy + static_cast<long long>(r) * o.lda + k) = v;
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) {
+      start(s);
+      land(s);
+    }
+    cp_async_commit();
+  }
+  const int wm = warp / Tc::kWN, wn = warp % Tc::kWN;
+  // ldmatrix rows of this lane: A's (16 x 16 a step), and W's (two n8
+  // blocks, both 8-channel halves, a step).
+  const int a_row = 16 * wm + (lane & 15), a_col = (lane >> 4) * 8;
+  const int b_row = TM + wn * 8 * NT + (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();  // this step's chunk has landed (mine)
+    __syncthreads();               // ... everyone's; the last one is consumed
+    const bool ahead = step + kStages - 1 < steps;
+    if (ahead) start(step + kStages - 1);
+    cp_async_commit();
+    const int kc = step % nk;
+    const bf16* st = ring + (step % kStages) * Tc::kStage;
+    const int valid = o.K - kc * KC;  // a last chunk may be part full
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      if (kk < valid) {  // uniform in the block
+        uint32_t a[4];
+        ldmatrix_x4(a, st + a_row * LDK + kk + a_col);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t w[4];
+          ldmatrix_x4(w, st + (b_row + 16 * np) * LDK + kk + b_col);
+          mma_bf16(acc[2 * np], a, w[0], w[1]);
+          mma_bf16(acc[2 * np + 1], a, w[2], w[3]);
+        }
+      }
+    }
+    if (ahead) land(step + kStages - 1);
+    if (kc != nk - 1) continue;
+    // Epilogue of the item: its outputs, then fresh accumulators. Lane
+    // (4 q + u) holds rows q, q + 8 and columns 2u, 2u + 1 of each n8 block.
+    const int item = blockIdx.x + (step / nk) * gridDim.x;
+    const int r0 = (item / slices) * TM + 16 * wm + (lane >> 2);
+    const int c0 = (item % slices) * CN + wn * 8 * NT + 2 * (lane & 3);
+    const float deg[2] = {tc_row_scale(o, r0), tc_row_scale(o, r0 + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tc_store(o, r0 + 8 * h, c0 + 8 * j, acc[j][2 * h], acc[j][2 * h + 1],
+                 deg[h]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain
+  __syncthreads();
+}
+
+__host__ __device__ inline int tc_items(int rows, int n_out) {
+  return ((rows + Tc::TM - 1) / Tc::TM) * ((n_out + Tc::CN - 1) / Tc::CN);
+}
+
+// The bf16 form's weights that arrive in float32 (Wout, W1, W2), converted
+// once a launch into bf16 scratch by every block of P1.
+__device__ void weights_to_bf16(const LayerArgs& p, int hdim) {
+  const long long n1 = static_cast<long long>(hdim) * hdim / 4;
+  const long long n2 = 3 * n1, n3 = n2 + static_cast<long long>(p.ho) * hdim / 4;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n3; i += static_cast<long long>(gridDim.x) * kThreads) {
+    const float* src = p.wout;
+    bf16* dst = p.wout16;
+    long long j = i;
+    if (i >= n2) {
+      src = p.w2;
+      dst = p.w2_16;
+      j = i - n2;
+    } else if (i >= n1) {
+      src = p.w1;
+      dst = p.w1_16;
+      j = i - n1;
+    }
+    const float4 v = reinterpret_cast<const float4*>(src)[j];
+    *reinterpret_cast<uint2*>(dst + 4 * j) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 }
 
@@ -511,7 +826,7 @@ __device__ __forceinline__ void stream_target(const LayerArgs& p,
     for (int j = 0; j < CPL; ++j) {
       const float y = fmaf(fmaf(z[j], rstd, shift), g[j], bt[j]);
       if constexpr (kBf16<CD>) {
-        acc[j] += round_cd<CD>(__fdividef(y, 1.f + __expf(-y)) * f[j]);
+        acc[j] += round_bf16(__fdividef(y, 1.f + __expf(-y)) * f[j]);
       } else {
         acc[j] += __fdividef(y, 1.f + __expf(-y)) * f[j];
       }
@@ -519,9 +834,10 @@ __device__ __forceinline__ void stream_target(const LayerArgs& p,
   }
 }
 
-// a = silu(LayerNorm(z1) g1 + be1) * node_mask over z1 in place, a warp
-// per row of all graphs: every product item of P6 reads the same a.
-template <int CPL>
+// a = silu(LayerNorm(z1) g1 + be1) * node_mask over z1 in place (the bf16
+// form: bf16(a) into ab), a warp per row of all graphs: every product item
+// of P6 reads the same a.
+template <int CPL, class CD>
 __device__ __forceinline__ void activation_row(const LayerArgs& p,
                                                long long row, int lane) {
   constexpr int H = CPL * 32;
@@ -543,7 +859,11 @@ __device__ __forceinline__ void activation_row(const LayerArgs& p,
     const float y = (z[j] - mu) * rstd * p.g1[ch] + p.be1[ch];
     float a = y / (1.f + expf(-y));
     if (p.node_mask != nullptr) a *= p.node_mask[row * H + ch];
-    zr[ch] = a;
+    if constexpr (kBf16<CD>) {
+      p.ab[row * H + ch] = __float2bfloat16_rn(a);
+    } else {
+      zr[ch] = a;
+    }
   }
 }
 
@@ -551,16 +871,19 @@ struct Counts {
   int items[kPhases];  // blocks' work items of each phase
 };
 
-__host__ __device__ inline Counts counts(const LayerArgs& p, int hdim) {
+template <class CD>
+Counts counts(const LayerArgs& p, int hdim) {
   Counts c;
   const int rows = p.b * p.n;
-  c.items[0] = product_items(p.mid[0], rows, 2 * hdim);
+  const int outs[4] = {2 * hdim, hdim, hdim, p.ho};
+  const int at[4] = {0, 2, 3, 5};  // the product phases
+  for (int i = 0; i < 4; ++i) {
+    c.items[at[i]] = kBf16<CD> ? tc_items(rows, outs[i])
+                               : product_items(p.mid[i], rows, outs[i]);
+  }
   const int per_block = kWarps / p.split;
   c.items[1] = (rows + per_block - 1) / per_block;
-  c.items[2] = product_items(p.mid[1], rows, hdim);
-  c.items[3] = product_items(p.mid[2], rows, hdim);
   c.items[4] = (rows + kWarps - 1) / kWarps;
-  c.items[5] = product_items(p.mid[3], rows, p.ho);
   return c;
 }
 
@@ -571,16 +894,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_full_fwd_kernel(const LayerArgs p, const int phase) {
   constexpr int H = CPL * 32;
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;               // staged chunks; P2: shares and We^T
-  float* red = ring + kRingFloats;  // partial sums of a Narrow item
+  float* ring = smem;  // staged chunks; P2: shares and We^T
+  float* red = ring + Smem<CD>::kRing;  // float32 form: a split item's sums
+  bf16* ring16 = reinterpret_cast<bf16*>(ring);  // the bf16 form's stages
   const int n = p.n, rows = p.b * n;
   const bool all = phase == 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   if (all || phase == 1) {  // P1: [t, s] = h [Wt; Ws]^T + [bt, 0]
-    const Product o{p.h, p.h, H, H, p.wt, p.ws, H, H, 2 * H, H, p.bt, nullptr,
-                    n, p.tp, p.sp, H, rows};
-    products<CD>(p.mid[0], o, ring, red);
+    if constexpr (kBf16<CD>) {
+      const TcProduct o{p.h, nullptr, H, H, p.wt16, p.ws16, H, H, 2 * H, H,
+                        p.bt, nullptr, n, p.tp, p.sp, false, H, rows, p.hb};
+      tc_product_phase<true>(o, ring16);
+      weights_to_bf16(p, H);
+    } else {
+      const Product o{p.h, p.h, H, H, p.wt, p.ws, H, H, 2 * H, H, p.bt,
+                      nullptr, n, p.tp, p.sp, H, rows};
+      products(p.mid[0], o, ring, red);
+    }
   }
   if (all) cg::this_grid().sync();
 
@@ -635,41 +966,72 @@ fused_full_fwd_kernel(const LayerArgs p, const int phase) {
         float* out = p.summed + static_cast<long long>(tg) * H;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) out[lane + 32 * j] = acc[j];
+        if constexpr (kBf16<CD>) {
+          bf16* out16 = p.sb + static_cast<long long>(tg) * H;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            out16[lane + 32 * j] = __float2bfloat16_rn(acc[j]);
+          }
+        }
       }
     }
   }
   if (all) cg::this_grid().sync();
 
   if (all || phase == 3) {  // P3: agg = summed Wout^T + deg (x) bout
-    const Product o{p.summed, p.summed, H, H, p.wout, p.wout, H, H, H, H,
-                    p.bout, p.offsets, n, p.agg, p.agg, H, rows};
-    products<CD>(p.mid[1], o, ring, red);
+    if constexpr (kBf16<CD>) {
+      const TcProduct o{p.sb, p.sb, H, H, p.wout16, p.wout16, H, H, H, H,
+                        p.bout, p.offsets, n, p.aggb, nullptr, true, H, rows,
+                        nullptr};
+      tc_product_phase<false>(o, ring16);
+    } else {
+      const Product o{p.summed, p.summed, H, H, p.wout, p.wout, H, H, H, H,
+                      p.bout, p.offsets, n, p.agg, p.agg, H, rows};
+      products(p.mid[1], o, ring, red);
+    }
   }
   if (all) cg::this_grid().sync();
 
   if (all || phase == 4) {  // P4: z1 = [h, agg] W1^T + b1
-    const Product o{p.h, p.agg, H, H, p.w1, p.w1, 2 * H, H, H, 2 * H, p.b1,
-                    nullptr, n, p.z1, p.z1, H, rows};
-    products<CD>(p.mid[2], o, ring, red);
+    if constexpr (kBf16<CD>) {
+      const TcProduct o{p.hb, p.aggb, H, H, p.w1_16, p.w1_16, 2 * H, H, H,
+                        2 * H, p.b1, nullptr, n, p.z1, nullptr, false, H,
+                        rows, nullptr};
+      tc_product_phase<false>(o, ring16);
+    } else {
+      const Product o{p.h, p.agg, H, H, p.w1, p.w1, 2 * H, H, H, 2 * H, p.b1,
+                      nullptr, n, p.z1, p.z1, H, rows};
+      products(p.mid[2], o, ring, red);
+    }
   }
   if (all) cg::this_grid().sync();
 
   if (all || phase == 5) {  // P5: a = silu(LN(z1) g1 + be1) * mask
     for (long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
          row < rows; row += static_cast<long long>(gridDim.x) * kWarps) {
-      activation_row<CPL>(p, row, lane);
+      activation_row<CPL, CD>(p, row, lane);
     }
   }
   if (all) cg::this_grid().sync();
 
   if (all || phase == 6) {  // P6: h_new = a W2^T + b2
-    const Product o{p.z1, p.z1, H, H, p.w2, p.w2, H, p.ho, p.ho, H, p.b2,
-                    nullptr, n, p.h_new, p.h_new, p.ho, rows};
-    products<CD>(p.mid[3], o, ring, red);
+    if constexpr (kBf16<CD>) {
+      const TcProduct o{p.ab, p.ab, H, H, p.w2_16, p.w2_16, H, p.ho, p.ho, H,
+                        p.b2, nullptr, n, p.h_new, nullptr, false, p.ho, rows,
+                        nullptr};
+      tc_product_phase<false>(o, ring16);
+    } else {
+      const Product o{p.z1, p.z1, H, H, p.w2, p.w2, H, p.ho, p.ho, H, p.b2,
+                      nullptr, n, p.h_new, p.h_new, p.ho, rows};
+      products(p.mid[3], o, ring, red);
+    }
   }
 }
 
-size_t smem_bytes() { return sizeof(float) * (kRingFloats + kRedFloats); }
+template <class CD>
+size_t smem_bytes() {
+  return sizeof(float) * (Smem<CD>::kRing + Smem<CD>::kRed);
+}
 
 constexpr int kMaxDevices = 64;
 
@@ -677,7 +1039,7 @@ template <int CPL, class CD>
 cudaError_t launch(const LayerArgs& p, int cooperative, cudaStream_t stream,
                    int* launches) {
   auto kernel = fused_full_fwd_kernel<CPL, CD>;
-  const size_t smem = smem_bytes();
+  const size_t smem = smem_bytes<CD>();
   // Per device, found at the first launch there: the resident grid
   // (resident blocks per SM x SMs), and whether it takes a cooperative
   // launch. Racing first launches write the same values.
@@ -706,8 +1068,9 @@ cudaError_t launch(const LayerArgs& p, int cooperative, cudaStream_t stream,
   }
   // The schedule is a function of the shape and the device only, so both
   // forms compute every item the same way. P2: as many warps a target as
-  // the resident grid has for every target, up to a block. Products: Mid
-  // tiles where they fill the resident grid at least once, else Narrow.
+  // the resident grid has for every target, up to a block. The float32
+  // form's products: Mid tiles where they fill the resident grid at least
+  // once, else Narrow; the bf16 form's are Tc tiles.
   LayerArgs q = p;
   const int blocks = resident[device];
   const long long warps = static_cast<long long>(blocks) * kWarps;
@@ -722,10 +1085,10 @@ cudaError_t launch(const LayerArgs& p, int cooperative, cudaStream_t stream,
   }
   const int hdim = CPL * 32;
   const int outs[4] = {2 * hdim, hdim, hdim, p.ho};
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 4 && !kBf16<CD>; ++i) {
     q.mid[i] = product_items(true, p.b * p.n, outs[i]) >= blocks;
   }
-  const Counts cnt = counts(q, hdim);
+  const Counts cnt = counts<CD>(q, hdim);
   if (cooperative > 0 && coop[device]) {
     int most = 0;
     for (int i = 0; i < kPhases; ++i) most = cnt.items[i] > most ? cnt.items[i] : most;
@@ -753,25 +1116,28 @@ bool aligned16(const void* ptr) {
 
 // The C entry points' body (fused_edge_full.cu, fused_edge_full_bf16.cu).
 // Shapes as in LayerArgs above; all tensors contiguous float32 (indices
-// int32) on the current device, in both forms; `w1` is the whole (h, 2h)
-// matrix. `h` and the five weight matrices must be 16-byte aligned (they
-// are read with 16-byte asynchronous copies). `node_mask` and `seed` may be
-// null; `graph0` is the batch index of graph 0 for the edge dropout's
-// counter (0 unless the batch is a data-parallel rank's rows). `tp`, `sp`,
-// `agg` and `z1` are (b, n, h) scratch, 16-byte aligned. With `cooperative`
-// > 0 and a device that supports it the layer is one cooperative launch,
-// else six ordinary launches (one a phase); `cooperative` = -k launches
-// phase k alone (to time the phases: the outputs are then incomplete).
-// `*launches` receives how many. Launches on `stream` and returns the CUDA
-// error code (0 on success).
+// int32) on the current device, but for the bf16 form's `wt` and `ws`
+// (bf16); `w1` is the whole (h, 2h) matrix. `h` and the five weight
+// matrices must be 16-byte aligned (they are read 16 bytes at a time).
+// `node_mask` and `seed` may be null; `graph0` is the batch index of graph
+// 0 for the edge dropout's counter (0 unless the batch is a data-parallel
+// rank's rows). `tp`, `sp` and `z1` are (b, n, h) float32 scratch, 16-byte
+// aligned; `agg` is (b, n, h) float32 scratch in the float32 form and, in
+// the bf16 form, bf16 scratch of 4 b n h + h (3 h + ho) elements (the bf16
+// operands of LayerArgs, in its order), 16-byte aligned. With
+// `cooperative` > 0 and a device that supports it the layer is one
+// cooperative launch, else six ordinary launches (one a phase);
+// `cooperative` = -k launches phase k alone (to time the phases: the
+// outputs are then incomplete). `*launches` receives how many. Launches on
+// `stream` and returns the CUDA error code (0 on success).
 template <class CD>
 int run(const float* h, const float* ea, const int* perm, const int* src,
-        const int* offsets, const float* wt, const float* bt, const float* ws,
+        const int* offsets, const void* wt, const float* bt, const void* ws,
         const float* we, const float* ge, const float* be, const float* wout,
         const float* bout, const float* w1, const float* b1, const float* g1,
         const float* be1, const float* w2, const float* b2,
         const float* node_mask, const int* seed, unsigned int thr,
-        float scale, unsigned int graph0, float* tp, float* sp, float* agg,
+        float scale, unsigned int graph0, float* tp, float* sp, void* agg,
         float* z1, float* h_new, float* summed, int b, int n, int e, int d,
         int hdim, int ho, int cooperative, int* launches, void* stream) {
   *launches = 0;
@@ -785,10 +1151,56 @@ int run(const float* h, const float* ea, const int* perm, const int* src,
   for (const void* ptr : copied) {
     if (!aligned16(ptr)) return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const LayerArgs p{h, ea, perm, src, offsets, wt, bt, ws, we, ge, be, wout,
-                    bout, w1, b1, g1, be1, w2, b2, node_mask, seed, thr,
-                    scale, graph0, tp, sp, agg, z1, h_new, summed, b, n, e,
-                    d, ho, 1, {0, 0, 0, 0}};
+  LayerArgs p{};
+  p.h = h;
+  p.ea = ea;
+  p.perm = perm;
+  p.src = src;
+  p.offsets = offsets;
+  p.bt = bt;
+  p.we = we;
+  p.ge = ge;
+  p.be = be;
+  p.wout = wout;
+  p.bout = bout;
+  p.w1 = w1;
+  p.b1 = b1;
+  p.g1 = g1;
+  p.be1 = be1;
+  p.w2 = w2;
+  p.b2 = b2;
+  p.node_mask = node_mask;
+  p.seed = seed;
+  p.thr = thr;
+  p.scale = scale;
+  p.graph0 = graph0;
+  p.tp = tp;
+  p.sp = sp;
+  p.z1 = z1;
+  p.h_new = h_new;
+  p.summed = summed;
+  p.b = b;
+  p.n = n;
+  p.e = e;
+  p.d = d;
+  p.ho = ho;
+  p.split = 1;
+  if (kBf16<CD>) {
+    const long long plane = static_cast<long long>(b) * n * hdim;
+    p.wt16 = static_cast<const bf16*>(wt);
+    p.ws16 = static_cast<const bf16*>(ws);
+    p.hb = static_cast<bf16*>(agg);
+    p.sb = p.hb + plane;
+    p.aggb = p.sb + plane;
+    p.ab = p.aggb + plane;
+    p.wout16 = p.ab + plane;
+    p.w1_16 = p.wout16 + static_cast<long long>(hdim) * hdim;
+    p.w2_16 = p.w1_16 + 2LL * hdim * hdim;
+  } else {
+    p.wt = static_cast<const float*>(wt);
+    p.ws = static_cast<const float*>(ws);
+    p.agg = static_cast<float*>(agg);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (hdim / 32) {

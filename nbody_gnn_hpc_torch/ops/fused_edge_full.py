@@ -49,11 +49,12 @@ to bf16 and keeps a float32 result, rounded where the TPU kernel rounds::
 (agg is where it differs from the composed bf16 layer, whose
 ``_AggregatedDense`` rounds the product).  On CUDA tensors it is
 ``csrc/fused_edge_full_bf16.cu``, counted apart in
-``fused_full_layer.bf16_launches``.  Its backward is the JAX custom VJP's,
-op for op: products of bf16-rounded operands with float32 results, the
-stream's backward through kernel 2's bf16 form, and d_wt and d_ws returned
-in bf16 (the cotangent of the model's cast of the float32 parameters);
-the other gradients float32.
+``fused_full_layer.bf16_launches``: its products on the bf16 tensor cores,
+wt and ws read in bf16 as the caller passes them.  Its backward is the JAX
+custom VJP's, op for op: products of bf16-rounded operands with float32
+results, the stream's backward through kernel 2's bf16 form, and d_wt and
+d_ws returned in bf16 (the cotangent of the model's cast of the float32
+parameters); the other gradients float32.
 """
 
 import ctypes
@@ -178,7 +179,7 @@ def fused_full_layer_reference(h, edge_attr, params, edges: TargetCSR,
                          node_mask, bf16), summed
 
 
-# The weight matrices the kernel stages with 16-byte asynchronous copies.
+# The weight matrices the kernel reads 16 bytes at a time.
 _COPIED = ("wt", "ws", "wout", "w1", "w2")
 
 
@@ -189,8 +190,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
     """Check the (B, N, H) operands and launch ``nbody_fused_full_fwd``,
-    or ``nbody_fused_full_fwd_bf16`` where ``wt`` and ``ws`` are bfloat16;
-    returns (h_new, summed)."""
+    or ``nbody_fused_full_fwd_bf16`` where ``wt`` and ``ws`` are bfloat16
+    (handed to it as they are, in bf16, with its bf16 scratch); returns
+    (h_new, summed)."""
     from nbody_gnn_hpc_torch.ops.cuda_build import load_library
 
     b, n, hdim = h.shape
@@ -232,12 +234,15 @@ def _launch(h, ea, p, edges: TargetCSR, seed, node_mask, dropout_p: float):
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    # The kernel reads these with 16-byte copies; a view may start anywhere.
-    # The bf16 form takes wt and ws widened to float32 (exactly), as the
-    # TPU kernel does; it rounds every product operand itself.
+    # The kernel reads these 16 bytes at a time; a view may start anywhere.
     h = _aligned(h)
-    p = {k: _aligned(v.float()) if k in _COPIED else v for k, v in p.items()}
-    tp, sp, agg, z1, summed = (torch.empty_like(h) for _ in range(5))
+    p = {k: _aligned(v) if k in _COPIED else v for k, v in p.items()}
+    tp, sp, z1, summed = (torch.empty_like(h) for _ in range(4))
+    if bf16:  # hb, sb, agg, a (b, n, H) and Wout, W1, W2 in bf16
+        agg = torch.empty(4 * b * n * hdim + hdim * (3 * hdim + ho),
+                          dtype=torch.bfloat16, device=dev)
+    else:
+        agg = torch.empty_like(h)
     h_new = torch.empty((b, n, ho), dtype=f32, device=dev)
     seed_ptr, thr, scale = _dropout_args(seed, dropout_p)
     launched = ctypes.c_int(0)

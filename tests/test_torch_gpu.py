@@ -922,28 +922,36 @@ def _bf16_full(p):
     return dict(p, wt=p["wt"].bfloat16(), ws=p["ws"].bfloat16())
 
 
-def _full_case(b, n, k, training, cuda, seed):
-    hh, ea, p, edges, mask = _full_inputs(b, n, k, 256, cuda, seed=seed)
+def _full_case(b, n, k, training, cuda, seed, h=256, ho=None):
+    hh, ea, p, edges, mask = _full_inputs(b, n, k, h, cuda, seed=seed, ho=ho)
     seed, mask, rate = ((_seed(cuda), mask, 0.1) if training
                         else (None, None, 0.0))
     return hh, ea, p, edges, seed, mask, rate
 
 
+# The bf16 form's shapes: B=1, 8 and 24 at N=200 (200 and 1,600 rows are
+# not multiples of its 64-row tiles), 13 rows (not a multiple of 16), and
+# H=96 with Ho=64 at 4,800 rows (P1's 64-wide tiles straddle t and s, and
+# its last 64-channel chunk is half full).
+BF16_FULL_SHAPES = [(1, 200, 40, 256, None), (8, 200, 40, 256, None),
+                    (24, 200, 40, 256, None), (1, 13, 4, 256, None),
+                    (48, 100, 8, 96, 64)]
+
+
 @pytest.mark.parametrize("training", [False, True])
-@pytest.mark.parametrize("b,n,k", [(1, 200, 40), (8, 200, 40),
-                                   (24, 200, 40), (1, 13, 4)])
-def test_whole_layer_bf16_kernel_matches_plain_version(cuda, b, n, k,
+@pytest.mark.parametrize("b,n,k,h,ho", BF16_FULL_SHAPES)
+def test_whole_layer_bf16_kernel_matches_plain_version(cuda, b, n, k, h, ho,
                                                        training):
-    """Kernel 7's bf16 form (wt and ws bf16) at the serving, micro-batched
-    and B=24 training shapes and an odd one: within BF16_FULL_MAX_OF_SCALE
-    and BF16_FULL_SHARE of its plain bf16 version, one bf16 launch and no
+    """Kernel 7's bf16 form (wt and ws bf16; its products on the bf16
+    tensor cores) at the shapes of BF16_FULL_SHAPES: within BF16_FULL_MAX_OF_SCALE and
+    BF16_FULL_SHARE of its plain bf16 version, one bf16 launch and no
     float32 one, reruns bit-identical; the float32 kernel on the same bf16
     weights is refused by that rule."""
     from nbody_gnn_hpc_torch.ops import (fused_full_layer,
                                          fused_full_layer_reference)
 
-    hh, ea, p, edges, seed, mask, rate = _full_case(b, n, k, training, cuda,
-                                                    seed=n + b)
+    hh, ea, p, edges, seed, mask, rate = _full_case(
+        b, n, k, training, cuda, seed=n + b, h=h, ho=ho)
     p16 = _bf16_full(p)
     kw = dict(dropout_p=rate, deterministic=not training)
     with torch.inference_mode():
@@ -954,7 +962,7 @@ def test_whole_layer_bf16_kernel_matches_plain_version(cuda, b, n, k,
             == (before[0], before[1] + 1)
         want, _ = fused_full_layer_reference(hh, ea, p16, edges, seed, mask,
                                              rate)
-        assert got.dtype == torch.float32 and got.shape == (b, n, 256)
+        assert got.dtype == torch.float32 and got.shape == (b, n, ho or h)
         _assert_bf16_close(got, want, "h_new", BF16_FULL_MAX_OF_SCALE,
                            BF16_FULL_SHARE)
         assert torch.equal(got, fused_full_layer(hh, ea, p16, edges, seed,
@@ -967,28 +975,72 @@ def test_whole_layer_bf16_kernel_matches_plain_version(cuda, b, n, k,
                            BF16_FULL_MAX_OF_SCALE, BF16_FULL_SHARE)
 
 
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("b,n,k,h,ho", BF16_FULL_SHAPES)
 def test_whole_layer_bf16_ordinary_launch_form_equals_cooperative(
-        cuda, monkeypatch):
+        cuda, monkeypatch, b, n, k, h, ho, training):
     """The bf16 form's six ordinary launches give the cooperative launch's
-    bits, in both forms of the layer, at B=8 and at an odd shape."""
+    bits (h_new and summed), in both forms of the layer, at every shape of
+    BF16_FULL_SHAPES."""
     from nbody_gnn_hpc_torch.ops import fused_edge_full as ff
 
-    for b, n, k, training in ((8, 200, 40, False), (8, 200, 40, True),
-                              (1, 13, 4, True)):
-        hh, ea, p, edges, seed, mask, rate = _full_case(b, n, k, training,
-                                                        cuda, seed=b + n)
-        p16 = _bf16_full(p)
-        with torch.inference_mode():
-            monkeypatch.setattr(ff, "COOPERATIVE", True)
-            one = ff.fused_full_layer(hh, ea, p16, edges, seed, mask,
-                                      dropout_p=rate, deterministic=not rate)
-            monkeypatch.setattr(ff, "COOPERATIVE", False)
-            before = ff.fused_full_layer.bf16_launches
-            phased = ff.fused_full_layer(hh, ea, p16, edges, seed, mask,
-                                         dropout_p=rate,
-                                         deterministic=not rate)
-            assert ff.fused_full_layer.bf16_launches == before + ff.PHASES
-        assert torch.equal(one, phased), (b, n, training)
+    hh, ea, p, edges, seed, mask, rate = _full_case(
+        b, n, k, training, cuda, seed=b + n, h=h, ho=ho)
+    p16 = _bf16_full(p)
+    with torch.inference_mode():
+        monkeypatch.setattr(ff, "COOPERATIVE", True)
+        one = ff._launch(hh, ea, p16, edges, seed, mask, rate)
+        monkeypatch.setattr(ff, "COOPERATIVE", False)
+        before = ff.fused_full_layer.bf16_launches
+        phased = ff._launch(hh, ea, p16, edges, seed, mask, rate)
+        assert ff.fused_full_layer.bf16_launches == before + ff.PHASES
+    assert all(torch.equal(x, y) for x, y in zip(one, phased)), \
+        (b, n, training)
+
+
+def test_whole_layer_bf16_wrapper_passes_wt_ws_in_bf16(cuda, monkeypatch):
+    """The bf16 form hands the caller's bf16 wt and ws to the kernel as
+    they are (their own storage: no float32 copy is made), in one bf16
+    launch."""
+    from nbody_gnn_hpc_torch.ops import cuda_build
+    from nbody_gnn_hpc_torch.ops import fused_edge_full as ff
+
+    calls = []
+
+    class Spy:
+        def __init__(self, fn):
+            object.__setattr__(self, "fn", fn)
+
+        def __setattr__(self, key, value):  # argtypes, restype
+            setattr(self.fn, key, value)
+
+        def __call__(self, *args):
+            calls.append(args)
+            return self.fn(*args)
+
+    class Lib:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return Spy(getattr(self.lib, name))
+
+    real = cuda_build.load_library
+    monkeypatch.setattr(cuda_build, "load_library",
+                        lambda name: Lib(real(name)))
+    hh, ea, p, edges, seed, mask, rate = _full_case(24, 200, 40, True, cuda,
+                                                    seed=24)
+    p16 = _bf16_full(p)
+    with torch.inference_mode():
+        before = ff.fused_full_layer.bf16_launches
+        ff.fused_full_layer(hh, ea, p16, edges, seed, mask, dropout_p=rate,
+                            deterministic=False)
+        torch.cuda.synchronize()
+    assert ff.fused_full_layer.bf16_launches == before + 1
+    (args,) = calls
+    keys = ff.PARAM_KEYS
+    assert args[5 + keys.index("wt")] == p16["wt"].data_ptr()
+    assert args[5 + keys.index("ws")] == p16["ws"].data_ptr()
 
 
 def _full_digest(out, summed) -> str:
