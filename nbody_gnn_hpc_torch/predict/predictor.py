@@ -24,6 +24,7 @@ from nbody_gnn_hpc_torch.io.model_io import params_from_jax, params_to_jax
 from nbody_gnn_hpc_torch.models.gnn import NBodyGNN
 from nbody_gnn_hpc_torch.ops.knn import (fully_connected_edge_index,
                                          knn_edge_index)
+from nbody_gnn_hpc_torch.utils.profiling import annotate
 
 
 class Predictor:
@@ -129,13 +130,17 @@ class Predictor:
         forward = self._forward_fn()
         ps, vs = [pos], [vel]
         for _ in range(n_steps):
-            norm_pos = (pos - mean[:3]) / std[:3]
-            norm_vel = (vel - mean[3:6]) / std[3:6]
-            x = torch.cat([norm_pos, norm_vel, mass_feat], dim=-1)
-            edges = knn_edge_index(norm_pos, k) if use_knn else static_edges
-            pred = forward(x, edges, norm_pos)
-            pos = pred[..., :3] * std[:3] + mean[:3]
-            vel = pred[..., 3:6] * std[3:6] + mean[3:6]
+            with annotate("predict.step"):
+                norm_pos = (pos - mean[:3]) / std[:3]
+                norm_vel = (vel - mean[3:6]) / std[3:6]
+                x = torch.cat([norm_pos, norm_vel, mass_feat], dim=-1)
+                with annotate("predict.knn"):
+                    edges = knn_edge_index(norm_pos, k) if use_knn \
+                        else static_edges
+                with annotate("predict.forward"):
+                    pred = forward(x, edges, norm_pos)
+                pos = pred[..., :3] * std[:3] + mean[:3]
+                vel = pred[..., 3:6] * std[3:6] + mean[3:6]
             if trajectory:
                 ps.append(pos)
                 vs.append(vel)
@@ -162,8 +167,10 @@ class Predictor:
         convention; serving passes float32 (the compute dtype)."""
         ps, vs = self._rollout(initial_positions, initial_velocities,
                                masses, int(n_steps), trajectory)
-        return {"positions": ps.cpu().numpy().astype(out_dtype, copy=False),
-                "velocities": vs.cpu().numpy().astype(out_dtype, copy=False),
+        with annotate("predict.readback"):
+            ps = ps.cpu().numpy().astype(out_dtype, copy=False)
+            vs = vs.cpu().numpy().astype(out_dtype, copy=False)
+        return {"positions": ps, "velocities": vs,
                 "n_steps": int(n_steps),
                 "n_particles": len(masses) if np.ndim(masses) == 1
                 else np.shape(masses)[-1]}

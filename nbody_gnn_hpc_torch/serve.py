@@ -8,7 +8,9 @@ Endpoints (JSON over HTTP):
   GET  /healthz        -> {"status": "ok", "device": <CUDA device name>,
                            "model": ...}
   GET  /metrics        -> Prometheus text: request counters by endpoint and
-                          status, latency histograms, uptime
+                          status, latency histograms, JSON decode and encode
+                          seconds, the micro-batcher's queue wait and
+                          requests a dispatch, uptime
   POST /rollout        -> {"positions": (N,3), "velocities": (N,3),
                            "masses": (N,), "n_steps": int,
                            "trajectory": bool = true,
@@ -43,6 +45,7 @@ models/best_rollout_model.pt -c models/config.json [--micro-batch 8]
 """
 
 import argparse
+import contextlib
 import itertools
 import json
 import threading
@@ -52,6 +55,10 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from nbody_gnn_hpc_torch.utils.profiling import (NEW_REQUEST, annotate,
+                                                 clock_ns, current_span,
+                                                 record_span)
 
 DEFAULT_MODEL_CONFIG = {"node_input_dim": 7, "hidden_dim": 256,
                         "n_layers": 6, "output_dim": 6, "dropout": 0.1}
@@ -131,7 +138,7 @@ class RolloutService:
     def rollout(self, positions, velocities, masses, n_steps: int,
                 trajectory: bool = True):
         """``trajectory=False`` returns only the final (N, 3) state."""
-        with self._lock:
+        with self._lock, self._rollout_span(1, n_steps):
             out = self.predictor.predict_rollout(
                 np.asarray(positions, np.float32),
                 np.asarray(velocities, np.float32),
@@ -142,7 +149,7 @@ class RolloutService:
 
     def rollout_batch(self, positions, velocities, masses, n_steps: int,
                       trajectory: bool = True):
-        with self._lock:
+        with self._lock, self._rollout_span(len(positions), n_steps):
             out = self.predictor.predict_rollout_batch(
                 np.asarray(positions, np.float32),
                 np.asarray(velocities, np.float32),
@@ -166,11 +173,30 @@ class RolloutService:
     def rollout_chunk(self, pos, vel, masses, chunk: int):
         """One stream chunk under the device lock: (chunk+1, N, 3)
         position and velocity arrays."""
-        with self._lock:
+        with self._lock, self._rollout_span(1, chunk):
             out = self.predictor.predict_rollout(
                 pos, vel, masses, n_steps=chunk, trajectory=True,
                 out_dtype=np.float32)
         return out["positions"], out["velocities"]
+
+    @staticmethod
+    def _rollout_span(bucket: int, n_steps: int):
+        """Under the device lock, at the start of a rollout: ends the queue
+        wait of the micro-batched jobs this thread dispatches, and opens
+        the ``serve.rollout`` span with their request ids."""
+        dispatch = getattr(_dispatching, "jobs", None)
+        if dispatch is None:
+            span = current_span()
+            requests = [span.request] if span is not None else []
+            batch = bucket
+        else:
+            batcher, jobs = dispatch
+            _dispatching.jobs = None
+            batcher._queue_ended(jobs)
+            requests = [j.request for j in jobs]
+            batch = len(jobs)
+        return annotate("serve.rollout", requests=requests, batch=batch,
+                        bucket=bucket, steps=int(n_steps))
 
     def simulate_stream(self, positions, velocities, masses, n_steps: int,
                         dt: float = 0.001, save_interval: int = 1):
@@ -265,16 +291,29 @@ class RolloutService:
 class Metrics:
     """In-process request metrics in Prometheus text format (``GET
     /metrics``): counters by endpoint/status, latency histograms by
-    endpoint, uptime. Thread-safe; one instance per server."""
+    endpoint, JSON decode and encode seconds, uptime, and the series of
+    ``batcher`` (a :class:`MicroBatcher`) where there is one. Thread-safe;
+    one instance per server."""
 
     BUCKETS = (0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+    JSON_STAGES = ("decode", "encode")
 
-    def __init__(self):
+    def __init__(self, batcher: Optional["MicroBatcher"] = None):
         self._lock = threading.Lock()
         self._requests = {}    # (endpoint, status) -> count
         self._hist = {}        # endpoint -> [bucket counts..., +Inf]
         self._sum = {}         # endpoint -> total seconds
+        # stage -> [seconds, count]: decode is json.loads + validation of a
+        # compute request's body, encode the reply's tolist/dumps/write.
+        self.json = {stage: [0.0, 0] for stage in self.JSON_STAGES}
+        self.batcher = batcher
         self._started = time.time()
+
+    def observe_json(self, stage: str, seconds: float) -> None:
+        with self._lock:
+            entry = self.json[stage]
+            entry[0] += seconds
+            entry[1] += 1
 
     def observe(self, endpoint: str, status: int, seconds: float) -> None:
         with self._lock:
@@ -319,12 +358,26 @@ class Metrics:
                              f'"{endpoint}"}} {cum}')
                 lines.append(f'nbody_request_seconds_sum{{endpoint='
                              f'"{endpoint}"}} {self._sum[endpoint]:.6f}')
+            lines += [
+                "# HELP nbody_json_seconds JSON decode (json.loads and "
+                "validation) and encode (tolist, dumps, write) of compute "
+                "requests.",
+                "# TYPE nbody_json_seconds summary",
+            ]
+            for stage, (seconds, n) in self.json.items():
+                lines.append(f'nbody_json_seconds_sum{{stage="{stage}"}} '
+                             f'{seconds:.6f}')
+                lines.append(f'nbody_json_seconds_count{{stage="{stage}"}} '
+                             f'{n}')
             lines.append("# HELP nbody_uptime_seconds Seconds since server "
                          "construction.")
             lines.append("# TYPE nbody_uptime_seconds gauge")
             lines.append(f"nbody_uptime_seconds "
                          f"{time.time() - self._started:.1f}")
-            return "\n".join(lines) + "\n"
+        text = "\n".join(lines) + "\n"
+        if self.batcher is not None:
+            text += self.batcher.render()
+        return text
 
 
 def _stream_rollout_chunks(run_chunk, positions, velocities, masses,
@@ -449,10 +502,12 @@ class ReplicaPool:
 
 
 class _Job:
-    """One queued single-system rollout awaiting a coalesced dispatch."""
+    """One queued single-system rollout awaiting a coalesced dispatch:
+    when it was queued (:func:`clock_ns`), and the span it waits in, whose
+    request id and thread its ``serve.queue`` span takes."""
 
     __slots__ = ("pos", "vel", "masses", "trajectory", "event", "result",
-                 "error")
+                 "error", "queued_ns", "waiter")
 
     def __init__(self, pos, vel, masses, trajectory=True):
         self.pos, self.vel, self.masses = pos, vel, masses
@@ -460,6 +515,17 @@ class _Job:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.queued_ns = clock_ns()
+        self.waiter = current_span()
+
+    @property
+    def request(self) -> Optional[int]:
+        return self.waiter.request if self.waiter is not None else None
+
+
+# (batcher, jobs) of the micro-batched dispatch this thread is running, for
+# the service to end the jobs' queue wait once it holds the device lock.
+_dispatching = threading.local()
 
 
 class MicroBatcher:
@@ -487,6 +553,11 @@ class MicroBatcher:
             {2 ** i for i in range(max(1, max_batch).bit_length())
              if 2 ** i <= max_batch} | {max_batch}))
         self.dispatches = 0  # rollout_batch calls made, for the metrics
+        self.requests_dispatched = 0  # requests those dispatches held
+        # Queue wait, enqueue to the start of the dispatch's rollout under
+        # the device lock: seconds summed over the requests that started.
+        self.queue_seconds = 0.0
+        self.queue_count = 0
         self._lock = threading.Lock()
         self._pending = {}  # (n_particles, n_steps) -> list[_Job]
 
@@ -550,14 +621,19 @@ class MicroBatcher:
         take = jobs + [jobs[-1]] * (bucket - len(jobs))
         with self._lock:
             self.dispatches += 1
+            self.requests_dispatched += len(jobs)
         try:
             # If nobody in this batch wants the trajectory, none is kept.
             want_traj = any(j.trajectory for j in jobs)
-            out = self.service.rollout_batch(
-                np.stack([j.pos for j in take]),
-                np.stack([j.vel for j in take]),
-                np.stack([j.masses for j in take]), n_steps,
-                trajectory=want_traj)
+            _dispatching.jobs = (self, jobs)
+            try:
+                out = self.service.rollout_batch(
+                    np.stack([j.pos for j in take]),
+                    np.stack([j.vel for j in take]),
+                    np.stack([j.masses for j in take]), n_steps,
+                    trajectory=want_traj)
+            finally:
+                _dispatching.jobs = None
             for i, j in enumerate(jobs):
                 sel = (slice(None) if j.trajectory or not want_traj
                        else -1)
@@ -568,6 +644,30 @@ class MicroBatcher:
                 j.error = e
         for j in jobs:
             j.event.set()
+
+    def _queue_ended(self, jobs) -> None:
+        """The jobs' dispatch starts its rollout: their queue wait ends."""
+        now = clock_ns()
+        with self._lock:
+            self.queue_seconds += sum(now - j.queued_ns for j in jobs) / 1e9
+            self.queue_count += len(jobs)
+        for j in jobs:
+            record_span("serve.queue", j.queued_ns, now, parent=j.waiter)
+
+    def render(self) -> str:
+        """The batcher's series in Prometheus text."""
+        with self._lock:
+            return "\n".join([
+                "# HELP nbody_batch_queue_seconds Micro-batched /rollout "
+                "requests' wait from enqueue to their dispatch's rollout.",
+                "# TYPE nbody_batch_queue_seconds summary",
+                f"nbody_batch_queue_seconds_sum {self.queue_seconds:.6f}",
+                f"nbody_batch_queue_seconds_count {self.queue_count}",
+                "# HELP nbody_batch_requests Requests a micro-batch "
+                "dispatch.",
+                "# TYPE nbody_batch_requests summary",
+                f"nbody_batch_requests_sum {self.requests_dispatched}",
+                f"nbody_batch_requests_count {self.dispatches}"]) + "\n"
 
 
 def _short_repr(val, limit: int = 80) -> str:
@@ -697,6 +797,18 @@ def make_handler(service: RolloutService,
             self.end_headers()
             self.wfile.write(body)
 
+        @contextlib.contextmanager
+        def _json_stage(self, stage: str):
+            """A ``serve.<stage>`` span, its seconds counted in
+            ``nbody_json_seconds``."""
+            t0 = time.perf_counter()
+            try:
+                with annotate("serve." + stage):
+                    yield
+            finally:
+                if metrics is not None:
+                    metrics.observe_json(stage, time.perf_counter() - t0)
+
         def _reply(self, code: int, obj: dict) -> None:
             self._send(code, json.dumps(obj).encode(), "application/json")
 
@@ -757,7 +869,8 @@ def make_handler(service: RolloutService,
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
-            with inflight:
+            with inflight, annotate("serve.request", request=NEW_REQUEST,
+                                    path=self.path):
                 self._gated_post()
 
         def _gated_post(self):
@@ -785,9 +898,11 @@ def make_handler(service: RolloutService,
                 return
             try:
                 length = int(self.headers.get("Content-Length", 0))
-                payload = json.loads(self.rfile.read(length))
+                body = self.rfile.read(length)
                 batched = self.path == "/rollout_batch"
-                pos, vel, masses, n_steps = _validate(payload, batched)
+                with self._json_stage("decode"):
+                    payload = json.loads(body)
+                    pos, vel, masses, n_steps = _validate(payload, batched)
                 fmt = payload.get("format", "json")
                 if fmt not in ("json", "npz"):
                     raise ValueError(f"format must be 'json' or 'npz', "
@@ -845,11 +960,12 @@ def make_handler(service: RolloutService,
                     else:
                         run = service.rollout
                     out = run(pos, vel, masses, n_steps, trajectory=traj)
-                if fmt == "npz":
-                    self._reply_npz(out)
-                else:
-                    self._reply(200,
-                                {k: v.tolist() for k, v in out.items()})
+                with self._json_stage("encode"):
+                    if fmt == "npz":
+                        self._reply_npz(out)
+                    else:
+                        self._reply(200, {k: v.tolist()
+                                          for k, v in out.items()})
             except ValueError as e:
                 self._reply(400, {"error": str(e)})
             except Exception as e:  # keep the server alive on bad input
@@ -869,7 +985,7 @@ def serve(service: RolloutService, host: str = "127.0.0.1",
     replica count or the micro-batch cap), the excess is shed with 503.
     ``httpd.metrics`` is its :class:`Metrics` registry; ``httpd.inflight``
     counts requests in progress, for a graceful drain."""
-    metrics = Metrics()
+    metrics = Metrics(batcher)
     handler = make_handler(service, batcher, metrics,
                            max_inflight=max_inflight)
     httpd = ThreadingHTTPServer((host, port), handler)

@@ -17,6 +17,7 @@ import torch
 from nbody_gnn_hpc_torch.models.gnn import draw_rows
 from nbody_gnn_hpc_torch.ops.knn import is_row_regular
 from nbody_gnn_hpc_torch.train.loss import PhysicsInformedLoss, mse_loss
+from nbody_gnn_hpc_torch.utils.profiling import annotate
 
 GRAD_CLIP_NORM = 1.0  # reference train.py:429
 
@@ -78,8 +79,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         masses = as_dev(masses).float()
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def compute_loss(states, targets, generator=None, deterministic=False,
-                     rows=None):
+    def forward(states, targets, generator, deterministic, rows):
+        """(prediction, normalised targets)."""
         model.train(not deterministic)
         s_norm = (states - mean) / std
         t_norm = (targets - mean) / std
@@ -91,12 +92,20 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         pos = s_norm[..., :3]
         x = torch.cat([s_norm, mass_feat.expand(*s_norm.shape[:2], 1)], -1)
         pred = model(x, edge_index, pos, generator=generator, rows=rows)
+        return pred, t_norm
+
+    def score(pred, t_norm):
         if criterion is not None:
             return criterion(pred, t_norm, masses)
         total = mse_loss(pred, t_norm)
         zero = torch.zeros((), dtype=pred.dtype, device=dev)
         return total, {"total": total, "position": zero, "velocity": zero,
                        "energy": zero, "momentum": zero}
+
+    def compute_loss(states, targets, generator=None, deterministic=False,
+                     rows=None):
+        return score(*forward(states, targets, generator, deterministic,
+                              rows))
 
     def update():
         clip_by_global_norm_([p.grad for p in params], GRAD_CLIP_NORM)
@@ -107,10 +116,17 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         step.count += 1
 
     def step(states, targets, generator=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = compute_loss(states, targets, generator)
-        loss.backward()
-        update()
+        with annotate("train.step"):
+            with annotate("train.forward"):
+                optimizer.zero_grad(set_to_none=True)
+                pred, t_norm = forward(states, targets, generator, False,
+                                       None)
+            with annotate("train.loss"):
+                loss, _ = score(pred, t_norm)
+            with annotate("train.backward"):
+                loss.backward()
+            with annotate("train.update"):
+                update()
         return loss.detach()
 
     step.count = 0

@@ -1,0 +1,9 @@
+"""idle_backward.train: device-idle time inside the program's
+``train.backward`` spans of the training step, over the traced span, in %
+(complete traces only)."""
+
+from perfbench import spans
+
+
+def read(reading):
+    return spans.idle_inside(reading, "train.backward")

@@ -1,0 +1,9 @@
+"""idle_update.train: device-idle time inside the program's
+``train.update`` spans of the training step, over the traced span, in %
+(complete traces only)."""
+
+from perfbench import spans
+
+
+def read(reading):
+    return spans.idle_inside(reading, "train.update")
