@@ -3132,9 +3132,11 @@ def dp_steps(dev, problem, edge_impl, mesh, split: int = 0,
              dtype: str = "float32"):
     """Two train steps at the production width (hidden 256, 6 layers,
     dropout 0.1, noise 0.003) on ``problem``'s batches from a seeded model
-    computing in ``dtype``, through ``make_train_step`` (``mesh`` None),
-    the ``gspmd`` DP step, or (``split`` > 0) ``split`` ranks' arithmetic
-    in this one process:
+    computing in ``dtype``, through ``make_train_step``'s ``compute_loss``
+    and ``update`` (``mesh`` None: the eager arithmetic the DP step shares;
+    the step itself replays a CUDA graph with a capturable AdamW), the
+    ``gspmd`` DP step, or (``split`` > 0) ``split`` ranks' arithmetic in
+    this one process:
     (losses, parameters on the host, synchronised step walls, the first
     step's clipped gradients and the parameters after it on the host)."""
     import torch
@@ -3153,9 +3155,7 @@ def dp_steps(dev, problem, edge_impl, mesh, split: int = 0,
     if mesh is not None:
         step = make_dp_train_step(*args, mesh=mesh, **kw)
     else:
-        step = make_train_step(*args, **kw)
-        if split:
-            step = _split_step(step, split)
+        step = _split_step(make_train_step(*args, **kw), split or 1)
     gen = torch.Generator(dev).manual_seed(12)
     losses, walls, grads, first = [], [], None, None
     for s, t in zip(problem["states"], problem["targets"]):
@@ -3291,6 +3291,9 @@ def phase_parallel(dev):
         results = []
         for m in (None, mesh):
             t = trainer(m)
+            # One device under remat: its step stays eager, the arithmetic
+            # the DP step shares (the graphed step's AdamW is capturable).
+            t.model.remat = m is None
             val_batches = -(-val.n_samples // cfg.batch_size)
             _zero_counts()
             _sync(rank_dev)
@@ -3315,7 +3318,8 @@ def phase_parallel(dev):
                                             for a, b in zip(pm, p1))
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lm + [vm],
                                                             l1 + [v1]))
-        print(f"  world one: Trainer(mesh=make_mesh()) vs Trainer(mesh=None), "
+        print(f"  world one: Trainer(mesh=make_mesh()) vs Trainer(mesh=None) "
+              f"under remat, "
               f"{DP_STEPS} steps + validation: step losses max relative "
               f"difference {loss_rel:.3e}, validation {vm:.6f} vs {v1:.6f}, "
               f"parameters max error / scale {rel:.3e} (tolerance "
@@ -3704,7 +3708,9 @@ def _edge_launches(c: dict) -> str:
 
 def _same_training_state(a, b) -> bool:
     """Whether two trainers hold bit-equal parameters and AdamW states
-    (step, both moments)."""
+    (step, both moments).  A trainer that has stepped on the card keeps
+    AdamW's step counts there (the graphed step's AdamW is capturable), one
+    that has only loaded a checkpoint on the host: the values are held."""
     import torch
 
     sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
@@ -3713,8 +3719,8 @@ def _same_training_state(a, b) -> bool:
                                                   b.model.parameters()))
             and len(sa) == len(sb) == len(list(a.model.parameters()))
             and all(set(sa[i]) == set(sb[i])
-                    and all(torch.equal(v, sb[i][k]) for k, v in
-                            sa[i].items()) for i in sa))
+                    and all(torch.equal(v, sb[i][k].to(v.device))
+                            for k, v in sa[i].items()) for i in sa))
 
 
 def phase_checkpoint(dev):
@@ -4279,6 +4285,10 @@ BF16_FULL_MAX_OF_SCALE, BF16_FULL_SHARE = 2.0 ** -6, 0.2
 # reads 3.0 against the bf16 plain path (H100; held in every run).
 BF16_MODEL_GRAD_RTOL, BF16_LOSS_RTOL = 5e-2, 1e-3
 BF16_FIXED_STEPS = 12  # optimizer steps on one batch a dtype, 2 warm-up
+# --remat's validation loss after one update against the graphed run's:
+# capturable AdamW's rounding moved it by 9.9e-6 (bf16, one card run);
+# bf16 against float32 moves it by 6.6e-4.
+REMAT_VAL_RTOL = 1e-4
 BF16_CLI_SAMPLES = 24  # train_model --max-samples: one step of B=24
 
 
@@ -4934,14 +4944,22 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
     # and changes no loss.  The zero-initialised decoder_out zeroes every
     # gradient upstream of it in a first step, so these losses do not read
     # the recomputed backward: (b) holds remat's gradients to the kernel
-    # path's on the production checkpoint.
-    same = [history["remat"][key][0] == history["default"][key][0]
-            for key in ("train_loss", "val_loss")]
+    # path's on the production checkpoint.  The run without remat steps
+    # through the step's CUDA graph, whose AdamW is capturable (its bias
+    # correction rounds on the device), and --remat stays eager: the first
+    # step's loss is the same bit for bit, the validation after its update
+    # the same to that rounding (REMAT_VAL_RTOL).
+    same = history["remat"]["train_loss"][0] == \
+        history["default"]["train_loss"][0]
+    val = [history[name]["val_loss"][0] for name in ("remat", "default")]
+    val_gap = abs(val[0] - val[1]) / abs(val[1])
     print(f"  --remat: first step's loss equal to the run without it: "
-          f"{same[0]}; validation loss after that step equal: {same[1]} "
-          f"(float32: {history['no_bf16']['val_loss'][0]!r})", flush=True)
-    check(all(same), "--remat changed the first step's loss or its "
-                     "validation loss")
+          f"{same}; validation loss after that step {val[0]!r} vs "
+          f"{val[1]!r}, relative gap {val_gap:.3e} (tolerance "
+          f"{REMAT_VAL_RTOL:g}; float32: "
+          f"{history['no_bf16']['val_loss'][0]!r})", flush=True)
+    check(same and val_gap <= REMAT_VAL_RTOL,
+          "--remat changed the first step's loss or its validation loss")
     check(all(np.isfinite(history["fused_full"][key][0])
               for key in ("train_loss", "val_loss")),
           "train_model --edge-impl fused_full gave a loss that is not finite")

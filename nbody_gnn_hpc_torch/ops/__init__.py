@@ -1,14 +1,16 @@
 """Graph ops, the fused edge-stream and whole-layer kernels, the
 direct-force kernels and the card's rate probes."""
 
+import contextlib
 import json
 from typing import Dict
 
 from nbody_gnn_hpc_torch.ops.edges import aggregate_to_targets, edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import (
-    SourceCSR, TargetCSR, dropout_keep, fused_edge_backward,
-    fused_edge_backward_reference, fused_edge_layer, fused_edge_layer_plain,
-    fused_edge_layer_reference, source_csr, target_csr)
+    SourceCSR, TargetCSR, arrival_counters, arrivals_from, dropout_keep,
+    fused_edge_backward, fused_edge_backward_reference, fused_edge_layer,
+    fused_edge_layer_plain, fused_edge_layer_reference, source_csr,
+    target_csr)
 from nbody_gnn_hpc_torch.ops.fused_edge_full import (
     fused_full_layer, fused_full_layer_backward_reference,
     fused_full_layer_plain, fused_full_layer_reference)
@@ -31,22 +33,59 @@ from nbody_gnn_hpc_torch.ops.probes import (fma_probe, fma_probe_reference,
 LAUNCH_LINE = "Kernel launches: "
 
 
+# Each counter of :func:`launch_counts`: the wrapper that holds it and the
+# attribute it is kept in.
+_COUNTERS = {
+    "fused_edge_fwd": (fused_edge_layer, "launches"),
+    "fused_edge_bwd": (fused_edge_backward, "launches"),
+    "fused_edge_fwd_bf16": (fused_edge_layer, "bf16_launches"),
+    "fused_edge_bwd_bf16": (fused_edge_backward, "bf16_launches"),
+    "pairwise_tiled": (accelerations_tiled, "launches"),
+    "pairwise_small": (accelerations_small, "launches"),
+    "pairwise_symmetric": (accelerations_symmetric, "launches"),
+    "fused_full_fwd": (fused_full_layer, "launches"),
+    "fused_full_fwd_bf16": (fused_full_layer, "bf16_launches"),
+    "pairwise_symmetric_mxu": (accelerations_symmetric_mxu, "launches"),
+    "probe_fma": (fma_probe, "launches"),
+    "probe_rsqrt": (rsqrt_probe, "launches")}
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of each hand-written kernel in this process so far, by its
     name in the kernel table (each wrapper counts its own; the bf16 forms
-    of kernels 1, 2 and 7 apart from their float32 ones)."""
-    return {"fused_edge_fwd": fused_edge_layer.launches,
-            "fused_edge_bwd": fused_edge_backward.launches,
-            "fused_edge_fwd_bf16": fused_edge_layer.bf16_launches,
-            "fused_edge_bwd_bf16": fused_edge_backward.bf16_launches,
-            "pairwise_tiled": accelerations_tiled.launches,
-            "pairwise_small": accelerations_small.launches,
-            "pairwise_symmetric": accelerations_symmetric.launches,
-            "fused_full_fwd": fused_full_layer.launches,
-            "fused_full_fwd_bf16": fused_full_layer.bf16_launches,
-            "pairwise_symmetric_mxu": accelerations_symmetric_mxu.launches,
-            "probe_fma": fma_probe.launches,
-            "probe_rsqrt": rsqrt_probe.launches}
+    of kernels 1, 2 and 7 apart from their float32 ones; the replays of a
+    captured CUDA graph as :class:`CapturedLaunches` credits them)."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
+
+
+class CapturedLaunches:
+    """The launches a CUDA graph's capture counted, credited again at each
+    later replay.
+
+    A capture runs the wrappers' Python once, so the counters rise by the
+    graph's launches once, and the replay that follows the capture is
+    that rise; a replay runs no Python, so :meth:`replayed` adds the rise
+    again.  Every launch the device runs is then counted once, whether its
+    step ran eagerly, was captured, or was replayed.
+    """
+
+    def __init__(self):
+        self.rise: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Record the counters' rise over the ``with`` block."""
+        before = launch_counts()
+        yield
+        after = launch_counts()
+        self.rise = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    def replayed(self) -> None:
+        """Count one replay's launches."""
+        for name, n in self.rise.items():
+            fn, attr = _COUNTERS[name]
+            setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def launch_line() -> str:
@@ -65,9 +104,10 @@ def read_launch_line(output: str) -> Dict[str, int]:
     return json.loads(lines[0][len(LAUNCH_LINE):])
 
 
-__all__ = ["LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX", "SMALL_MAX_N",
-           "SourceCSR",
+__all__ = ["CapturedLaunches", "LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX",
+           "SMALL_MAX_N", "SourceCSR",
            "TargetCSR", "accelerations_small", "aggregate_to_targets",
+           "arrival_counters", "arrivals_from",
            "accelerations_small_reference", "accelerations_symmetric",
            "accelerations_symmetric_mxu",
            "accelerations_symmetric_mxu_reference",

@@ -42,8 +42,9 @@ counted apart, in ``fused_edge_layer.bf16_launches`` and
 ``fused_edge_backward.bf16_launches``.
 """
 
+import contextlib
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
@@ -403,14 +404,46 @@ def bwd_schedule(b: int, e: int, sm_count: int) -> tuple:
 # belong to this process: data-parallel ranks that share one card are
 # processes, each with counters of its own.
 _ARRIVALS = {}
+# (device index, stream) -> the counters of the CUDA graph being captured
+# on that stream (:func:`arrivals_from`).
+_CAPTURED = {}
+
+
+def arrival_counters(b: int, e: int, device: torch.device) -> torch.Tensor:
+    """Zeroed arrival counters for every launch of kernels 1 and 2 over B
+    graphs of E edges on ``device``, for a CUDA graph to own."""
+    sms = sm_count(device.index)
+    size = max(b * -(-e // schedule(b, e, sms)[0])
+               for schedule in (fwd_schedule, bwd_schedule))
+    return torch.zeros(size, dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def arrivals_from(counters: torch.Tensor, stream) -> Iterator[None]:
+    """Launches of kernels 1 and 2 on ``stream`` (a ``torch.cuda.Stream``)
+    inside the ``with`` block use ``counters``
+    (:func:`arrival_counters`): a graph captured there replays with
+    counters that no other graph and no eager launch shares."""
+    key = (counters.device.index, stream.cuda_stream)
+    _CAPTURED[key] = counters
+    try:
+        yield
+    finally:
+        del _CAPTURED[key]
 
 
 def _arrivals(device: torch.device, stream: int, size: int) -> torch.Tensor:
     """The walks' arrival counters (kernels 1 and 2) for launches on
     ``stream``: zero before and after every launch (the kernels reset what
     they count), so they are made once; launches on one stream never
-    overlap."""
+    overlap.  A graph being captured on ``stream`` has its own."""
     key = (device.index, stream)
+    buf = _CAPTURED.get(key)
+    if buf is not None:
+        if buf.numel() < size:
+            raise RuntimeError(f"a captured launch needs {size} arrival "
+                               f"counters, its graph holds {buf.numel()}")
+        return buf
     buf = _ARRIVALS.get(key)
     if buf is None or buf.numel() < size:
         buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)

@@ -296,3 +296,89 @@ def test_train_step_spans_tile_the_step():
         "train.forward", "train.loss", "train.backward", "train.update"]
     assert all(outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
                for s in phases)
+
+
+def _cpu_step():
+    torch.manual_seed(0)
+    model = NBodyGNN(**{**KW, "dropout": 0.1})
+    step = make_train_step(model, make_optimizer(model, 1e-3, 1e-4),
+                           knn_edge_index(torch.randn(N, 3), K),
+                           torch.zeros(6), torch.ones(6), torch.ones(N, 1))
+    return model, step
+
+
+def test_train_step_stays_eager_off_cuda():
+    _, step = _cpu_step()
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randn(2, N, 6), torch.randn(2, N, 6))
+               for _ in range(3)]
+    with _session():
+        for s, t in batches:
+            step(s, t, gen)
+    assert (step.count, step.eager_steps, step.captures,
+            step.graph_replays) == (3, 3, 0, 0)
+    spans = recorded_spans()
+    outers = _by_name(spans, "train.step")
+    assert [s.attrs for s in outers] == [{"graph": "eager"}] * 3
+    for outer in outers:
+        assert sorted(s.name for s in spans if s.parent == outer.id) == [
+            "train.backward", "train.forward", "train.loss", "train.update"]
+
+
+def test_train_step_returns_a_loss_of_its_own_each_call():
+    _, step = _cpu_step()
+    gen = torch.Generator().manual_seed(2)
+    s, t = torch.randn(2, N, 6), torch.randn(2, N, 6)
+    losses = [step(s * (i + 1), t, gen) for i in range(3)]
+    values = [float(x) for x in losses]
+    assert len({id(x) for x in losses}) == 3
+    assert len({x.data_ptr() for x in losses}) == 3
+    assert len(set(values)) == 3
+    step(s, t, gen)
+    assert [float(x) for x in losses] == values
+
+
+@pytest.mark.parametrize("replays", [0, 1, 5])
+def test_captured_launches_count_each_replay_once(monkeypatch, replays):
+    """One eager step, one captured step and ``replays`` replays count
+    ``replays + 2`` steps' launches: the capture's rise stands for the
+    replay that follows it, and each later replay is credited with it."""
+    from nbody_gnn_hpc_torch import ops
+
+    monkeypatch.setattr(ops.fused_edge_layer, "bf16_launches", 0)
+    monkeypatch.setattr(ops.fused_edge_backward, "bf16_launches", 0)
+
+    def step_launches():  # what one step's Python counts: 6 layers
+        ops.fused_edge_layer.bf16_launches += 6
+        ops.fused_edge_backward.bf16_launches += 6
+
+    before = ops.launch_counts()
+    step_launches()  # the eager step
+    captured = ops.CapturedLaunches()
+    with captured.capturing():
+        step_launches()
+    assert captured.rise == {"fused_edge_fwd_bf16": 6,
+                             "fused_edge_bwd_bf16": 6}
+    for _ in range(replays):
+        captured.replayed()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"fused_edge_fwd_bf16": 6 * (replays + 2),
+                  "fused_edge_bwd_bf16": 6 * (replays + 2)}
+
+
+def test_a_captured_stream_launches_on_its_graphs_arrival_counters():
+    from nbody_gnn_hpc_torch.ops import arrivals_from, fused_edge
+
+    class Stream:  # what arrivals_from reads of a torch.cuda.Stream
+        cuda_stream = 7
+
+    cpu = torch.device("cpu")
+    eager = fused_edge._arrivals(cpu, 7, 10)
+    owned = torch.zeros(16, dtype=torch.int32)
+    with arrivals_from(owned, Stream()):
+        assert fused_edge._arrivals(cpu, 7, 16) is owned
+        assert fused_edge._arrivals(cpu, 8, 16) is not owned
+        with pytest.raises(RuntimeError, match="arrival counters"):
+            fused_edge._arrivals(cpu, 7, 17)
+    assert fused_edge._arrivals(cpu, 7, 10) is eager
