@@ -8,10 +8,11 @@ serving; the upper readings), and the program's with a fault planted.
         [--control-seeds 1,2,3] [--faults frozen,half_batch]
         [--fault-seeds 1,2,3] [--seconds 6]
 
-Training cells need no window: set-up drives the step through the first
-steps the reference follows.  Serving cells run a short window of the
-cell's own traffic a seed through one service.  Prints one JSON line a
-reading.
+Training cells (whose driver defines ``reference_readings``,
+:mod:`perfbench.drivers`) need no window: set-up drives the step through
+the first steps the reference follows, through the cell's own driver.
+Serving cells run a short window of the cell's own traffic a seed through
+one service.  Prints one JSON line a reading.
 """
 
 import argparse
@@ -36,8 +37,7 @@ def emit(**row):
 
 
 def train_readings(cell, args, device):
-    from perfbench.drivers import train_loop as drv
-
+    drv = cell.driver()
     prec = cell.config["model_config"]["dtype"]
     for seed in sorted(set(args.seeds) | set(args.control_seeds)
                        | set(args.fault_seeds)):
@@ -122,11 +122,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     import torch
 
-    from perfbench import harness
+    from perfbench import drivers, harness
 
     cell = harness.Cell(harness.load_manifest(), args.workload)
     device = torch.device("cuda")
-    if cell.traffic["driver"] == "train_loop":
+    if drivers.is_training(cell.driver()):
         train_readings(cell, args, device)
     else:
         serve_readings(cell, args, device)

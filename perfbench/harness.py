@@ -7,6 +7,29 @@ module under ``perfbench/drivers/`` that runs it), its limits are
 ``perfbench/cells/<cell>.json`` and each per-layer metric is read by
 ``perfbench/metrics/<metric>.py``.  Adding a cell or a metric is adding
 files and manifest entries.
+
+A training cell of another architecture than ``NBodyGNN`` is added so,
+every part a new file or a new manifest entry:
+
+1. its configuration, ``perfbench/configs/<config>.json``, whose
+   ``model_config`` has an ``architecture`` key, and its ``configs`` entry;
+2. its driver, ``perfbench/drivers/<driver>.py``, to the contract of
+   :mod:`perfbench.drivers` (``reference_readings`` and ``compare`` make
+   it a training driver); it may import ``Feed``, ``window``, ``release``
+   and ``compare`` from :mod:`perfbench.drivers.train_loop`;
+3. its plain-PyTorch reference under ``perfbench/reference/``, which
+   imports nothing of the program;
+4. its work counts (operations and bytes from the shapes alone), a module
+   of their own beside :mod:`perfbench.workcount`;
+5. its traffic mix, ``perfbench/workloads/<traffic>.json``, naming the
+   driver, and its limits, ``perfbench/cells/<cell>.json``, set from the
+   readings of ``perfbench/control.py``;
+6. its per-layer metrics' readers, ``perfbench/metrics/<metric>.py``, and
+   their ``per_layer`` entries listing the cell;
+7. each new hand-written kernel's file, ``perfbench/kernels/<kernel>.json``
+   (:mod:`perfbench.tracing`);
+8. the cell's ``workloads`` entry, and its name appended to the
+   ``workloads`` list of ``train_samples_per_s``.
 """
 
 import importlib

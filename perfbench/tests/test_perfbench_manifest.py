@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from perfbench import harness
+from perfbench import drivers, harness
 
 M = harness.load_manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -117,7 +117,8 @@ def test_one_layer_one_name():
 @pytest.mark.parametrize("cell", [w["name"] for w in M["workloads"]])
 def test_every_cell_reports_enough(cell):
     """setup_s, one more end-to-end metric and one per-layer metric, each
-    per-layer metric beside the end-to-end metric it moves."""
+    per-layer metric beside the end-to-end metric it moves, and a driver
+    that keeps the drivers' contract (perfbench/drivers/__init__.py)."""
     c = harness.Cell(M, cell)
     e2e = {m["name"] for m in c.end_to_end()}
     assert "setup_s" in e2e and len(e2e) >= 2
@@ -126,7 +127,7 @@ def test_every_cell_reports_enough(cell):
     assert all(m["moves"] in e2e for m in layers)
     for m in layers:
         harness.metric_reader(m["name"])
-    assert c.traffic["driver"] in ("train_loop", "open_loop", "closed_loop")
+    assert drivers.missing(c.driver()) == []
     assert set(c.limits) and all(v >= 0 for v in c.limits.values())
 
 

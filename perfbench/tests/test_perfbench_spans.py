@@ -90,8 +90,7 @@ def test_every_reader_is_none_on_an_incomplete_trace(monkeypatch):
     assert spans.device_ms_per_span(incomplete, "predict.knn",
                                     "predict.step") is None
     for name in ("idle_in_rollout.largen", "idle_outside_rollout.largen",
-                 "knn_ms.largen", "idle_forward.train", "idle_loss.train",
-                 "idle_backward.train", "idle_update.train"):
+                 "knn_ms.largen"):
         assert harness.metric_reader(name)(incomplete) is None, name
 
 
@@ -103,8 +102,7 @@ def test_readers_are_none_without_the_programs_spans(monkeypatch):
                              "httpd": SimpleNamespace()}, {},
                       _trace(SERVE_OPS))
     for name in ("idle_in_rollout.largen", "idle_outside_rollout.largen",
-                 "knn_ms.largen", "queue_wait_ms.largen", "json_ms.largen",
-                 "idle_forward.train"):
+                 "knn_ms.largen", "queue_wait_ms.largen", "json_ms.largen"):
         assert harness.metric_reader(name)(reading) is None, name
 
 
@@ -128,7 +126,7 @@ def test_train_phases_tile_the_idle_time(monkeypatch):
     monkeypatch.setattr(profiling, "recorded_spans", lambda: phases)
     ops = [("k", 2, 4), ("k", 30, 40), ("k", 52, 60), ("k", 47, 48)]
     reading = Reading(None, {}, {}, _trace(ops))
-    got = {name: harness.metric_reader(f"idle_{name}.train")(reading)
+    got = {name: spans.idle_inside(reading, f"train.{name}")
            for name in ("forward", "loss", "backward", "update")}
     assert got == pytest.approx({"forward": 30.0, "loss": 10.0,
                                  "backward": 30.0, "update": 9.0})

@@ -10,30 +10,52 @@ into what the per-layer metrics need.
   was idle;
 - the delta of the program's own launch counters over the window, which
   :meth:`Trace.complete` holds against the kernels the trace saw.
+
+The program's hand-written kernels are declared one a file,
+``perfbench/kernels/<kernel>.json``:
+
+    {"counters": {"<launch counter>": {"bf16": false}, ...},
+     "pattern": "<the device kernel each launch runs once>",
+     "time": ["<device kernels whose time is this kernel's>", ...]}
+
+``counters`` names each form's counter in ``ops.launch_counts()`` and
+whether that form's device kernel carries the bf16 type in its name;
+``time`` is optional.  A new kernel is a new file.
 """
 
+import json
 import re
 import time
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
+
+KERNELS = Path(__file__).resolve().parent / "kernels"
+
+
+def kernel_tables(folder: Path = KERNELS):
+    """(counted, kernel_time) merged from the kernel files in ``folder``:
+    {launch counter: (pattern, bf16)} and {kernel (the file's stem):
+    (pattern, ...)}.  A counter declared twice is refused."""
+    counted: Dict[str, Tuple[str, bool]] = {}
+    kernel_time: Dict[str, Tuple[str, ...]] = {}
+    for path in sorted(folder.glob("*.json")):
+        spec = json.loads(path.read_text())
+        for counter, form in spec["counters"].items():
+            if counter in counted:
+                raise ValueError(f"{path.name}: counter {counter!r} is "
+                                 f"declared by another kernel file")
+            counted[counter] = (spec["pattern"], bool(form["bf16"]))
+        if "time" in spec:
+            kernel_time[path.stem] = tuple(spec["time"])
+    return counted, kernel_time
+
 
 # The program's hand-written kernels: its launch counter's name -> (a
 # pattern of the device kernel that each launch runs once, whether the
-# kernel's name carries the bf16 type).  Each launch of kernel 2 also runs
-# a target pass and a parameter sum (``KERNEL_TIME``).
-COUNTED = {
-    "fused_edge_fwd": (r"fused_edge_fwd_kernel", False),
-    "fused_edge_fwd_bf16": (r"fused_edge_fwd_kernel", True),
-    "fused_edge_bwd": (r"fused_edge_bwd_source_kernel", False),
-    "fused_edge_bwd_bf16": (r"fused_edge_bwd_source_kernel", True),
-    "fused_full_fwd": (r"fused_full_fwd_kernel", False),
-    "fused_full_fwd_bf16": (r"fused_full_fwd_kernel", True),
-}
-# The device kernels whose time is a hand-written kernel's time.
-KERNEL_TIME = {
-    "edge_fwd": (r"fused_edge_fwd_kernel",),
-    "edge_bwd": (r"fused_edge_bwd_source_kernel",
-                 r"fused_edge_bwd_target_kernel", r"reduce_rows_kernel"),
-}
+# kernel's name carries the bf16 type); and the device kernels whose time
+# is a hand-written kernel's time (each launch of kernel 2 also runs a
+# target pass and a parameter sum).
+COUNTED, KERNEL_TIME = kernel_tables()
 LAUNCH_CALLS = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|"
                           r"cudaLaunchCooperativeKernel|cuLaunchKernel|"
                           r"cuLaunchKernelEx|cuLaunchCooperativeKernel)")
