@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, simulator, deployed-serving,
 ceilings, rollout fine-tune, one-command pipeline, data-parallel,
-simulator-surface and checkpoint paths, its last commands and bf16
-training on one NVIDIA GPU and check them.
+simulator-surface and checkpoint paths, its last commands, bf16
+training and GNS's training on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --full-finetune   # the production curriculum
     python3 chip_smoke.py --large-n         # the large-N pipeline
+    python3 chip_smoke.py --gns             # phase 16 alone
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -308,11 +309,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``"dtype": "bfloat16"`` and ``"edge_impl": "fused_full"``.  A JSON
    line ``{"bf16": ...}`` gives the step walls, busy shares and losses.
 
+16. GNS (``architecture: "gns"``, ``models/gns.py``), the second
+   architecture, at the benchmark cell ``gns-n5000-train-bf16-b2``'s shape
+   (B=2, N=5,000, k=40, latent 128).  (a) The receiver sum
+   (``csrc/edge_sum.cu``, counted as ``edge_sum``) and the backward of
+   the receiver gather, which is the same kernel, against
+   ``receiver_sum_plain`` in float64 within 1e-5 of scale, each twice and
+   bit-equal; timed by CUDA events beside the plain ``scatter_add_`` and
+   the bound (211.6 MB over HBM bandwidth).  (b) GNS at its published
+   widths (1,588,998 parameters) in bf16 through ``make_train_step`` for
+   6 steps, counts zeroed just before and read just after: ``edge_sum``
+   exactly 20 a step and no other hand-written kernel, one eager step,
+   one capture, then replays, losses finite; the replayed step's wall.
+
 Then it prints the kernel table as one JSON line, the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``.
 
 The kernels line's ``launches_by_path`` has ``bf16`` (phase 15's two
-Trainers and its four processes).
+Trainers and its four processes) and ``gns`` (phase 16's steps; its
+kernel comparisons count under ``oracle``).
+
+``--gns`` runs phases 1, 2 and 16 and prints a JSON line ``{"gns": ...,
+"edge_sum": ...}`` (the summary and the kernel's timed row), the
+nvidia-smi line and the same last line.
 
 ``--full-finetune`` runs phases 1 and 2, simulates the datagen states and
 fine-tunes ``models/best_model.pt`` with the production curriculum
@@ -3017,7 +3036,7 @@ def _zero_counts() -> None:
                ops.accelerations_tiled, ops.accelerations_small,
                ops.accelerations_symmetric, ops.fused_full_layer,
                ops.accelerations_symmetric_mxu, ops.fma_probe,
-               ops.rsqrt_probe):
+               ops.rsqrt_probe, ops.receiver_sum):
         fn.launches = 0
     ops.fused_edge_layer.bf16_launches = 0
     ops.fused_edge_backward.bf16_launches = 0
@@ -4971,6 +4990,170 @@ def phase_bf16(dev, model, norm_stats) -> tuple:
     return rows, errs, launches, summary
 
 
+# Phase 16: GNS (models/gns.py, architecture "gns") and its receiver sum
+# (csrc/edge_sum.cu) at the benchmark cell gns-n5000-train-bf16-b2's shape:
+# GNS's batch of 2 graphs of N=5,000, k=40, latent 128, 10 message-passing
+# steps, bf16 products.
+GNS_CONFIG = dict(architecture="gns", latent_size=128, mlp_hidden_size=128,
+                  mlp_num_hidden_layers=2, num_message_passing_steps=10,
+                  output_dim=6, dtype="bfloat16")
+GNS_PARAMETERS = 1_588_998
+GNS_B, GNS_N, GNS_K = 2, 5000, 40
+GNS_SHAPE = f"B={GNS_B} N={GNS_N} k={GNS_K} F=128"
+# Graphed steps: the first eager, the second captured, the rest replays.
+GNS_STEPS = 6
+# The receiver sum against the plain sum in float64, of the output's scale:
+# float32 adds of a target's ~k=40 terms in CSR order (a 40-term float32 sum
+# of unit normals is off by a few 1e-7 of its scale).
+EDGE_SUM_RTOL_OF_SCALE = 1e-5
+
+
+def edge_sum_bound_ms(b: int, n: int, e: int, f: int) -> tuple:
+    """Least H100 time for one receiver sum: the (b, e, f) float32 messages
+    and the target-major CSR (perm (b, e), offsets (b, n + 1), int32) read
+    once and the (b, n, f) float32 sums written once, over HBM bandwidth
+    (211.6 MB at GNS's shape); one float32 add a message element."""
+    n_bytes = 4 * (b * e * f + b * e + b * (n + 1) + b * n * f)
+    return _bound(n_bytes, b * e * f)
+
+
+def phase_gns(dev) -> tuple:
+    """Phase 16, GNS's training path.  (a) The receiver sum
+    (``ops.receiver_sum``, ``edge_sum`` in ``launch_counts()``) and the
+    backward of ``ops.receiver_gather`` (the same kernel) on the card at
+    B=2, N=5,000, k=40, F=128 (a k-NN graph of uniform positions in the box
+    of 10) against ``receiver_sum_plain`` in float64 within
+    ``EDGE_SUM_RTOL_OF_SCALE`` of scale, each call twice and bit-equal;
+    the kernel and the gather's forward and backward timed by CUDA events
+    beside the plain version's ``scatter_add_`` (float atomics) and the
+    bound.  (b) GNS at its published widths
+    (1,588,998 parameters) in bf16 through ``make_train_step`` for
+    ``GNS_STEPS`` steps at that shape, counts zeroed just before and read
+    just after: ``edge_sum`` exactly 20 a step (10 layers forward and
+    backward) and no other hand-written kernel; one eager step, one
+    capture, then replays; losses finite; the replayed step's wall by CUDA
+    events.  Returns (timed rows, the largest error of scale, the steps'
+    launches, (a)'s launches, a summary)."""
+    import gc
+
+    import torch
+
+    from nbody_gnn_hpc_torch.models import model_from_config
+    from nbody_gnn_hpc_torch.ops import (knn_edge_index, receiver_gather,
+                                         receiver_sum, receiver_sum_plain,
+                                         target_csr)
+    from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
+
+    b, n, k, f = GNS_B, GNS_N, GNS_K, GNS_CONFIG["latent_size"]
+    e = n * k
+    gen = torch.Generator(dev).manual_seed(2002)
+    pos = 10.0 * torch.rand(b, n, 3, generator=gen, device=dev)
+    edges = target_csr(knn_edge_index(pos, k), n)
+    max_in_degree = int((edges.offsets[:, 1:] - edges.offsets[:, :-1]).max())
+    msg = torch.randn(b, e, f, generator=gen, device=dev)
+    x = torch.randn(b, n, f, generator=gen, device=dev, requires_grad=True)
+    g_edge = torch.randn(b, e, f, generator=gen, device=dev)
+    _sync(dev)
+    _zero_counts()
+    with torch.no_grad():
+        sums = [receiver_sum(msg, edges) for _ in range(2)]
+    grads = [torch.autograd.grad(receiver_gather(x, edges), x, g_edge)[0]
+             for _ in range(2)]
+    _sync(dev)
+    check(_counts()["edge_sum"] == 4, f"four receiver sums launched "
+                                      f"{_counts()['edge_sum']} kernels")
+    worst = 0.0
+    for name, (got, again), operand in (("receiver_sum", sums, msg),
+                                         ("receiver_gather's backward",
+                                          grads, g_edge)):
+        want = receiver_sum_plain(operand.double(), edges)
+        err = ((got.double() - want).abs().max()
+               / want.abs().max()).item()
+        same = torch.equal(got, again)
+        print(f"  {name} {GNS_SHAPE} (largest in-degree {max_in_degree}): "
+              f"{err:.3e} of scale from the float64 sum (tolerance "
+              f"{EDGE_SUM_RTOL_OF_SCALE:g}), rerun bit-equal: {same}",
+              flush=True)
+        check(same, f"{name} gave other bits on a second call")
+        check(err <= EDGE_SUM_RTOL_OF_SCALE, f"{name} is {err:.3e} of scale "
+                                             f"from the float64 sum")
+        worst = max(worst, err)
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: receiver_sum(msg, edges))
+        plain_ms = cuda_time_ms(lambda: receiver_sum_plain(msg, edges))
+    gather_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        receiver_gather(x, edges), x, g_edge))
+    bound = edge_sum_bound_ms(b, n, e, f)
+    row = {"kernel": "edge_sum", "form": "training", "B": b, "N": n, "k": k,
+           "shape": GNS_SHAPE, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": plain_ms, "bound_ms": bound[0],
+           "bound_by": bound[1], "gather_and_backward_ms": gather_ms,
+           "max_in_degree": max_in_degree}
+    print(f"  edge_sum {GNS_SHAPE}: kernel {ms:.5f} ms, receiver_gather "
+          f"forward and backward {gather_ms:.5f} ms, plain (scatter_add_, "
+          f"float atomics; the library's call) {plain_ms:.5f} ms, bound "
+          f"{bound[0]:.6f} ms ({bound[1]}), {100 * bound[0] / ms:.1f} % of "
+          f"it", flush=True)
+    _sync(dev)
+    oracle = _counts()
+    del msg, x, g_edge, sums, grads, edges, pos
+
+    model = model_from_config(GNS_CONFIG).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == GNS_PARAMETERS, f"GNS at the published widths has "
+                                      f"{n_params} parameters, expected "
+                                      f"{GNS_PARAMETERS}")
+    states = 2 * torch.randn(b * GNS_STEPS, n, 6, generator=gen, device=dev)
+    targets = states + 0.01 * torch.randn(b * GNS_STEPS, n, 6, generator=gen,
+                                          device=dev)
+    masses = 1 + torch.rand(n, generator=gen, device=dev)
+    edge_index = knn_edge_index(states[0, :, :3], k)
+    flat = states.reshape(-1, 6)
+    optimizer = make_optimizer(model, 1e-4, 0.0)
+    step = make_train_step(model, optimizer, edge_index, flat.mean(0),
+                           flat.std(0), (masses / masses.mean())[:, None],
+                           noise_std=6.7e-4, masses=masses)
+    run_gen = torch.Generator(dev).manual_seed(3)
+    _sync(dev)
+    _zero_counts()
+    losses = [step(states[b * i:b * (i + 1)], targets[b * i:b * (i + 1)],
+                   run_gen) for i in range(GNS_STEPS)]
+    _sync(dev)
+    launched = {key: v for key, v in _counts().items() if v}
+    ran = (step.eager_steps, step.captures, step.graph_replays)
+    losses = [float(v) for v in losses]
+    print(f"  GNS ({n_params:,} parameters, {GNS_CONFIG['dtype']}) through "
+          f"make_train_step, "
+          f"{GNS_STEPS} steps at {GNS_SHAPE}: launches {launched} (20 a "
+          f"step: {launched.get('edge_sum', 0) / GNS_STEPS:g}); eager, "
+          f"captures, replays {ran}; losses {losses}", flush=True)
+    check(launched == {"edge_sum": 20 * GNS_STEPS},
+          f"GNS's steps launched {launched}, expected only edge_sum, 20 a "
+          f"step")
+    check(ran == (1, 1, GNS_STEPS - 2), f"GNS's step ran (eager, captures, "
+                                        f"replays) {ran}")
+    check(all(np.isfinite(losses)), "a GNS loss is not finite")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(GNS_STEPS):
+        step(states[b * i:b * (i + 1)], targets[b * i:b * (i + 1)], run_gen)
+    end.record()
+    _sync(dev)
+    step_ms = start.elapsed_time(end) / GNS_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  GNS replayed step {step_ms:.3f} ms ({1e3 * b / step_ms:.2f} "
+          f"samples/s); the process's peak allocation so far "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    summary = {"n_params": n_params, "launches": launched, "ran": ran,
+               "losses": losses, "step_ms": step_ms, "edge_sum_ms": ms,
+               "edge_sum_bound_ms": bound[0], "err_of_scale": worst}
+    del step, optimizer, model, states, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [row], worst, launched, oracle, summary
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4985,6 +5168,10 @@ def main(argv=None) -> int:
                              "nbody_gnn_hpc_torch.largen_pipeline (N=2,085 "
                              "and 5,000, the production width) on the npz "
                              "store (instead of phases 3-14)")
+    parser.add_argument("--gns", action="store_true",
+                        help="build, then run phase 16 alone: the receiver "
+                             "sum and GNS's graphed training step at B=2, "
+                             "N=5,000, k=40 (instead of phases 3-16)")
     args = parser.parse_args(argv)
     # 1. Environment
     import torch
@@ -5008,7 +5195,7 @@ def main(argv=None) -> int:
     # 2. Build
     t0 = time.perf_counter()
     sources = ["fused_edge", "fused_edge_bf16", "pairwise", "fused_edge_full",
-               "fused_edge_full_bf16", "probes"]
+               "fused_edge_full_bf16", "probes", "edge_sum"]
     built = build(sources)
     print(f"[2] built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -5030,6 +5217,18 @@ def main(argv=None) -> int:
         f"kernel 7's SASS: the bf16 form must hold tensor-core instructions "
         f"and the float32 form none ({tensor_core})")
     dev = torch.device("cuda")
+    if args.gns:
+        print("[16] GNS: the receiver sum and the graphed training step",
+              flush=True)
+        rows, _, _, _, summary = phase_gns(dev)
+        print(f"  chip_smoke --gns took {time.perf_counter() - t_start:.1f} "
+              f"s after the imports", flush=True)
+        print(json.dumps({"gns": summary, "edge_sum": rows[0]}), flush=True)
+        print(smi[0], flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.large_n:
         print("[14] the large-N pipeline: largen_pipeline --trajectory-format "
               "npz", flush=True)
@@ -5183,6 +5382,15 @@ def main(argv=None) -> int:
                                                           norm_stats)
     mxu_by_path["bf16"] = bf16.get("pairwise_symmetric_mxu", 0)
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # 16. GNS, the second architecture: its receiver sum against the plain
+    # sum, then its graphed training step (counts zeroed just before).
+    print("[16] GNS: the receiver sum and the graphed training step",
+          flush=True)
+    t16 = time.perf_counter()
+    gns_rows, gns_err, gns, gns_oracle, _ = phase_gns(dev)
+    mxu_by_path["gns"] = gns.get("pairwise_symmetric_mxu", 0)
+    print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
     print(f"  kernel 5 (pairwise_symmetric_mxu) launches by path: "
           f"{mxu_by_path} (every entry-point path must read 0)", flush=True)
     check(all(v == 0 for k, v in mxu_by_path.items() if k != "oracle"),
@@ -5229,7 +5437,10 @@ def main(argv=None) -> int:
             ("probe_fma", "probes", "benchmarks/roofline.py:184",
              probe_rows[0]["shape"], probe_rows, probe_errs),
             ("probe_rsqrt", "probes", "benchmarks/roofline.py:214",
-             probe_rows[1]["shape"], probe_rows, probe_errs)):
+             probe_rows[1]["shape"], probe_rows, probe_errs),
+            ("edge_sum", "edge_sum",
+             "none: the JAX package has no model with per-edge latents",
+             GNS_SHAPE, gns_rows, {"edge_sum": gns_err})):
         mine = [r for r in kernel_rows if r["kernel"] == name]
         if shape is None:  # the bf16 and edge kernels: training at B=24
             row = next(r for r in mine
@@ -5255,7 +5466,8 @@ def main(argv=None) -> int:
                  "checkpoint": checkpoint.get(name, 0),
                  "commands": commands.get(name, 0),
                  "bf16": bf16.get(name, 0),
-                 "oracle": oracle.get(name, 0)}
+                 "gns": gns.get(name, 0),
+                 "oracle": oracle.get(name, 0) + gns_oracle.get(name, 0)}
         if name == "pairwise_symmetric_mxu":
             paths = {key: mxu_by_path.get(key, 0) for key in paths}
         table["kernels"].append({
@@ -5265,7 +5477,8 @@ def main(argv=None) -> int:
             "launches_by_path": paths, "max_abs_err": err[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shape": shape, "by_shape": mine,
+            "library_ms": row.get("library_ms"), "shape": shape,
+            "by_shape": mine,
             **({"composed_ms": row["composed_ms"]}
                if "composed_ms" in row else {}),
             **({"ms_float32": row["ms_float32"]}
@@ -5307,6 +5520,9 @@ def main(argv=None) -> int:
           "launched no bf16 kernel 1 or 2")
     check(bf16.get("fused_full_fwd_bf16", 0) > 0, "the bf16 path launched "
                                                   "no bf16 kernel 7")
+    check(gns.get("edge_sum", 0) == 20 * GNS_STEPS, "the GNS path did not "
+                                                    "launch edge_sum 20 "
+                                                    "times a step")
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s after "
           f"the imports", flush=True)
     print(json.dumps(table), flush=True)

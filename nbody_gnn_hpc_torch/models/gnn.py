@@ -374,8 +374,12 @@ class NBodyGNN(nn.Module):
 
 
 def model_from_config(config: dict,
-                      dtype_override: Optional[str] = None) -> NBodyGNN:
-    """NBodyGNN from a persisted ``model_config`` dict (models/config.json).
+                      dtype_override: Optional[str] = None) -> nn.Module:
+    """The model of a persisted ``model_config`` dict (models/config.json):
+    ``architecture`` ``"gns"`` builds
+    :class:`~nbody_gnn_hpc_torch.models.gns.GNS` from its other keys (with
+    ``dtype`` and ``dtype_override`` read as below), a missing key builds
+    NBodyGNN, anything else raises.
 
     ``dtype`` ("float32" or "bfloat16", float32 where missing) and
     ``remat`` are read as the JAX ``model_from_config`` reads them;
@@ -387,9 +391,19 @@ def model_from_config(config: dict,
     one edge stream; anything else raises.  ``gather_mode`` (an XLA choice)
     chooses nothing here.
     """
+    architecture = config.get("architecture")
+    dtype = dtype_override or config.get("dtype", "float32")
+    if architecture == "gns":
+        from nbody_gnn_hpc_torch.models.gns import GNS
+
+        return GNS(dtype=dtype, **{k: v for k, v in config.items()
+                                   if k not in ("architecture", "dtype")})
+    if architecture is not None:
+        raise ValueError(f"model_config names architecture "
+                         f"{architecture!r}; the port has 'gns' (and "
+                         f"NBodyGNN where the key is missing)")
     cfg = {k: v for k, v in config.items()
            if k not in ("dtype", "remat", "edge_impl", "gather_mode")}
-    dtype = dtype_override or config.get("dtype", "float32")
     edge_impl = config.get("edge_impl", "fused")
     if edge_impl in ("auto", "xla"):
         edge_impl = "fused"

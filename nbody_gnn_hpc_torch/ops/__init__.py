@@ -1,10 +1,12 @@
-"""Graph ops, the fused edge-stream and whole-layer kernels, the
-direct-force kernels and the card's rate probes."""
+"""Graph ops, the fused edge-stream and whole-layer kernels, the receiver
+sum, the direct-force kernels and the card's rate probes."""
 
 import contextlib
 import json
 from typing import Dict
 
+from nbody_gnn_hpc_torch.ops.edge_sum import (receiver_gather, receiver_sum,
+                                              receiver_sum_plain)
 from nbody_gnn_hpc_torch.ops.edges import aggregate_to_targets, edge_features
 from nbody_gnn_hpc_torch.ops.fused_edge import (
     SourceCSR, TargetCSR, arrival_counters, arrivals_from, dropout_keep,
@@ -47,7 +49,8 @@ _COUNTERS = {
     "fused_full_fwd_bf16": (fused_full_layer, "bf16_launches"),
     "pairwise_symmetric_mxu": (accelerations_symmetric_mxu, "launches"),
     "probe_fma": (fma_probe, "launches"),
-    "probe_rsqrt": (rsqrt_probe, "launches")}
+    "probe_rsqrt": (rsqrt_probe, "launches"),
+    "edge_sum": (receiver_sum, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -122,5 +125,6 @@ __all__ = ["CapturedLaunches", "LAUNCH_LINE", "KNN_BLOCK", "KNN_DENSE_MAX",
            "fused_full_layer_reference",
            "is_row_regular", "knn_edge_index", "launch_counts",
            "launch_line", "mma_schedule", "read_launch_line",
+           "receiver_gather", "receiver_sum", "receiver_sum_plain",
            "rsqrt_probe", "rsqrt_probe_reference", "small_schedule",
            "source_csr", "sym_schedule", "target_csr"]

@@ -322,6 +322,9 @@ class Trainer:
 
     @property
     def _model_config(self) -> Dict:
+        own = getattr(self.model, "model_config", None)
+        if own is not None:  # a model that states its own (GNS)
+            return own
         return {
             "node_input_dim": self.model.node_input_dim,
             "hidden_dim": self.model.hidden_dim,

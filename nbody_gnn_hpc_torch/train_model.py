@@ -19,6 +19,12 @@ pass.  Reads the windowed
 ``train_dataset.h5`` / ``val_dataset.h5`` or, where a ``--no-windows``
 datagen left only ``dataset_manifest.json``, the trajectory files it names.
 
+``--architecture gns`` trains GNS (:mod:`nbody_gnn_hpc_torch.models.gns`)
+through the same ``Trainer`` and step, at its published widths and recipe
+(latent 128, 10 message-passing steps, batch 2, LR 1e-4, noise 6.7e-4,
+weight decay 0) where the flags do not set them: ``--hidden-dim`` is its
+latent and MLP width, ``--n-layers`` its number of steps.
+
 ``--data-parallel`` joins the process group that torchrun describes (one
 rank a GPU, NCCL; gloo with ``--device cpu``), or forms a world of one on
 the chosen device without torchrun, and trains with each batch split over
@@ -50,6 +56,13 @@ CONFIG_FLAGS = (
     ("--weight-decay", None, float),
     ("--k-neighbors", None, int),
 )
+
+
+# The published GNS recipe (learning_to_simulate/train.py), the defaults of
+# ``--architecture gns`` before the flags override them.
+GNS_RECIPE = {"batch_size": 2, "learning_rate": 1e-4, "weight_decay": 0.0,
+              "noise_std": 6.7e-4, "hidden_dim": 128, "n_layers": 10,
+              "dropout": 0.0}
 
 
 def remaining_epochs_auto(budget: int, current_epoch: int,
@@ -103,6 +116,11 @@ def build_parser():
                              "projections and node MLP, or the whole layer "
                              "as one kernel (same parameters; written to "
                              "config.json)")
+    parser.add_argument("--architecture", choices=("gnn", "gns"),
+                        default="gnn",
+                        help="the N-body GNN, or GNS (encode-process-decode "
+                             "with per-edge latents; written to "
+                             "config.json)")
     parser.add_argument("--ckpt-backend", choices=("pickle", "orbax"),
                         default="pickle",
                         help="Checkpoint backend: pickle .pt files (the "
@@ -153,6 +171,14 @@ def _train(args, device=None) -> int:
                                            datasets_from_manifest)
 
     config = TrainingConfig()
+    gns = args.architecture == "gns"
+    if gns:
+        if args.remat or args.edge_impl != "fused":
+            print("Error: --remat and --edge-impl are the N-body GNN's; GNS "
+                  "takes neither")
+            return 2
+        for field, value in GNS_RECIPE.items():
+            setattr(config, field, value)
     for flag, _, _ in CONFIG_FLAGS:
         field = flag.lstrip("-").replace("-", "_")
         override = getattr(args, field)
@@ -192,7 +218,9 @@ def _train(args, device=None) -> int:
     say("=" * 60)
     say("N-BODY GNN TRAINING (PyTorch)")
     say("=" * 60)
-    for label, v in (("Device", device), ("Epochs", config.epochs),
+    for label, v in (("Device", device),
+                     ("Architecture", args.architecture),
+                     ("Epochs", config.epochs),
                      ("Batch Size", config.batch_size),
                      ("Learning Rate", config.learning_rate),
                      ("Hidden Dim", config.hidden_dim),
@@ -241,6 +269,14 @@ def _train(args, device=None) -> int:
         "dtype": dtype,
         "remat": args.remat,
         "edge_impl": args.edge_impl,
+    } if not gns else {
+        "architecture": "gns",
+        "latent_size": config.hidden_dim,
+        "mlp_hidden_size": config.hidden_dim,
+        "mlp_num_hidden_layers": 2,
+        "num_message_passing_steps": config.n_layers,
+        "output_dim": 6,
+        "dtype": dtype,
     }
     say(f"\n  Train samples: {len(train_dataset)}")
     if val_dataset:
@@ -248,7 +284,8 @@ def _train(args, device=None) -> int:
     model = model_from_config(model_config)
     if say is print:
         with open(model_dir / "config.json", "w") as f:
-            json.dump({"model_type": "gnn", "model_config": model_config,
+            json.dump({"model_type": args.architecture,
+                       "model_config": model_config,
                        "training_config": config.to_dict()}, f, indent=2,
                       default=str)
     if mesh is not None:
