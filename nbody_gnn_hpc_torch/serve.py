@@ -9,8 +9,9 @@ Endpoints (JSON over HTTP):
                            "model": ...}
   GET  /metrics        -> Prometheus text: request counters by endpoint and
                           status, latency histograms, JSON decode and encode
-                          seconds, the micro-batcher's queue wait and
-                          requests a dispatch, uptime
+                          seconds, the micro-batcher's queue wait, requests
+                          a dispatch and requests of dispatches held for a
+                          replica, uptime
   POST /rollout        -> {"positions": (N,3), "velocities": (N,3),
                            "masses": (N,), "n_steps": int,
                            "trajectory": bool = true,
@@ -32,7 +33,9 @@ between chunks so long streams interleave with other requests.
 
 As it is deployed, the service sits behind three more pieces:
 :class:`MicroBatcher` coalesces concurrent single-system ``/rollout``
-requests into one batched rollout; :func:`build_replica_pool` puts one
+requests into one batched rollout, and while every replica is busy it keeps
+them queued, so that the next free replica takes them together;
+:func:`build_replica_pool` puts one
 replica of the model on each GPU behind the single-service interface, so
 independent requests run on different cards; and ``max_inflight`` sheds
 compute requests beyond a bound with 503 + ``Retry-After`` while ``/healthz``
@@ -45,6 +48,7 @@ models/best_rollout_model.pt -c models/config.json [--micro-batch 8]
 """
 
 import argparse
+import collections
 import contextlib
 import itertools
 import json
@@ -183,8 +187,10 @@ class RolloutService:
     def _rollout_span(bucket: int, n_steps: int):
         """Under the device lock, at the start of a rollout: ends the queue
         wait of the micro-batched jobs this thread dispatches, and opens
-        the ``serve.rollout`` span with their request ids."""
+        the ``serve.rollout`` span with their request ids (and ``held``:
+        whether their leader found every replica busy)."""
         dispatch = getattr(_dispatching, "jobs", None)
+        attrs = {}
         if dispatch is None:
             span = current_span()
             requests = [span.request] if span is not None else []
@@ -195,8 +201,9 @@ class RolloutService:
             batcher._queue_ended(jobs)
             requests = [j.request for j in jobs]
             batch = len(jobs)
+            attrs["held"] = jobs[0].held  # the dispatch's leader
         return annotate("serve.rollout", requests=requests, batch=batch,
-                        bucket=bucket, steps=int(n_steps))
+                        bucket=bucket, steps=int(n_steps), **attrs)
 
     def simulate_stream(self, positions, velocities, masses, n_steps: int,
                         dt: float = 0.001, save_interval: int = 1):
@@ -504,10 +511,14 @@ class ReplicaPool:
 class _Job:
     """One queued single-system rollout awaiting a coalesced dispatch:
     when it was queued (:func:`clock_ns`), and the span it waits in, whose
-    request id and thread its ``serve.queue`` span takes."""
+    request id and thread its ``serve.queue`` span takes.  ``event`` is set
+    when the job is answered or elected to lead its key's queue; a leader's
+    ``slot`` is set when a replica is its to take, and ``held`` says that
+    it found every replica busy when it was elected.  A leader is always
+    the oldest job, so the first of the jobs it dispatches."""
 
     __slots__ = ("pos", "vel", "masses", "trajectory", "event", "result",
-                 "error", "queued_ns", "waiter")
+                 "error", "queued_ns", "waiter", "slot", "held")
 
     def __init__(self, pos, vel, masses, trajectory=True):
         self.pos, self.vel, self.masses = pos, vel, masses
@@ -517,6 +528,8 @@ class _Job:
         self.error = None
         self.queued_ns = clock_ns()
         self.waiter = current_span()
+        self.slot = None
+        self.held = False
 
     @property
     def request(self) -> Optional[int]:
@@ -534,12 +547,22 @@ class MicroBatcher:
 
     Without it concurrent requests serialise on the device lock: B clients
     pay B rollouts one after the other.  With it, requests of one
-    (n_particles, n_steps) key that arrive within ``max_wait_s`` of each
-    other run as one ``rollout_batch`` (per-system masses), so B clients
-    pay about one rollout of batch B.  Batches are padded up to fixed
-    buckets (1, 2, 4, ... and ``max_batch`` itself) by repeating the last
-    system, and the padding is sliced off the results: a bounded set of
-    batch shapes, which :meth:`warmup` runs once each.
+    (n_particles, n_steps) key queue under one leader, the key's oldest
+    request, and run as one ``rollout_batch`` (per-system masses) of at
+    most ``max_batch`` systems.  The leader takes a replica before it takes
+    its queue; the replicas are the ``ReplicaPool``'s services, or the one
+    service otherwise.  A leader that finds a replica free waits at most
+    ``max_wait_s`` for followers (or until ``max_batch`` have come), then
+    dispatches: a lone request on an idle service pays that window and a
+    rollout of one.  While every replica is busy, leaders wait for one in
+    the order they came, and what arrives meanwhile joins their queues; the
+    first replica to free takes the oldest ``max_batch`` of the longest
+    waiting leader's key at once, with no second window.  The jobs beyond
+    ``max_batch`` elect their oldest as the next leader, which waits for
+    the next free replica.  Batches are padded up to fixed buckets (1, 2,
+    4, ... and ``max_batch`` itself) by repeating the last system, and the
+    padding is sliced off the results: a bounded set of batch shapes, which
+    :meth:`warmup` runs once each.
     """
 
     def __init__(self, service, max_batch: int = 8,
@@ -558,8 +581,17 @@ class MicroBatcher:
         # the device lock: seconds summed over the requests that started.
         self.queue_seconds = 0.0
         self.queue_count = 0
+        # Dispatches whose leader found every replica busy, and the
+        # requests they took.
+        self.held_dispatches = 0
+        self.held_requests = 0
         self._lock = threading.Lock()
         self._pending = {}  # (n_particles, n_steps) -> list[_Job]
+        # Replicas no leader holds, and the slot events of the leaders
+        # waiting for one, oldest first.
+        self._free = (len(service.services)
+                      if isinstance(service, ReplicaPool) else 1)
+        self._waiting = collections.deque()
 
     def warmup(self, n_particles: int, n_steps: int) -> None:
         """Run every bucket size once for a (N, n_steps) shape."""
@@ -576,45 +608,59 @@ class MicroBatcher:
         with self._lock:
             queue = self._pending.setdefault(key, [])
             queue.append(job)
-            leader = len(queue) == 1
-        if leader:
-            self._lead(key, int(n_steps))
+            first = len(queue) == 1
+            if first:
+                self._elect(job)
         job.event.wait()
+        if job.slot is not None:
+            # Elected: it leads its key's queue and dispatches itself with
+            # the first chunk.  Only a leader that found a replica free
+            # keeps the window: a held queue gathered followers meanwhile.
+            self._lead(key, int(n_steps), job,
+                       window=first and not job.held)
         if job.error is not None:
             raise job.error
         return job.result
 
-    def _lead(self, key, n_steps: int) -> None:
-        # A short window for followers to join (they pile up by themselves
-        # while the device is busy with an earlier batch).
+    def _elect(self, job) -> None:
+        """Under the lock: make ``job`` its key's leader and wake its
+        thread.  It takes a free replica, or queues for the next."""
+        job.slot = threading.Event()
+        if self._free:
+            self._free -= 1
+            job.slot.set()
+        else:
+            job.held = True
+            self._waiting.append(job.slot)
+        job.event.set()
+
+    def _lead(self, key, n_steps: int, leader, window: bool) -> None:
+        leader.slot.wait()
         deadline = time.monotonic() + self.max_wait_s
-        while time.monotonic() < deadline:
+        while window and time.monotonic() < deadline:
             with self._lock:
-                # .get: an earlier leader's drain may have taken this
-                # leader's job and popped the key already.
-                if len(self._pending.get(key, ())) >= self.max_batch:
+                if len(self._pending[key]) >= self.max_batch:
                     break
             time.sleep(0.0005)
-        # The key is popped whole, so a long-lived server keeps no empty
-        # list per request shape; arrivals after the pop elect their own
-        # leader.  Requests beyond the cap run as further bucketed batches.
+        # The key is popped once drained, so a long-lived server keeps no
+        # empty list per request shape.
         with self._lock:
-            queue = self._pending.pop(key, [])
-        chunks = [queue[i:i + self.max_batch]
-                  for i in range(0, len(queue), self.max_batch)]
-        if len(chunks) <= 1:
-            for chunk in chunks:
-                self._dispatch(chunk, n_steps)
-            return
-        # Overflow chunks dispatch at once: on one device they serialise on
-        # the service lock, on a ReplicaPool each takes its own replica.
-        threads = [threading.Thread(target=self._dispatch,
-                                    args=(chunk, n_steps))
-                   for chunk in chunks]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+            queue = self._pending.pop(key)
+            jobs, rest = queue[:self.max_batch], queue[self.max_batch:]
+            if rest:
+                self._pending[key] = rest
+                self._elect(rest[0])
+            if leader.held:
+                self.held_dispatches += 1
+                self.held_requests += len(jobs)
+        try:
+            self._dispatch(jobs, n_steps)
+        finally:
+            with self._lock:
+                if self._waiting:
+                    self._waiting.popleft().set()
+                else:
+                    self._free += 1
 
     def _dispatch(self, jobs, n_steps: int) -> None:
         bucket = next(b for b in self.buckets if b >= len(jobs))
@@ -667,7 +713,14 @@ class MicroBatcher:
                 "dispatch.",
                 "# TYPE nbody_batch_requests summary",
                 f"nbody_batch_requests_sum {self.requests_dispatched}",
-                f"nbody_batch_requests_count {self.dispatches}"]) + "\n"
+                f"nbody_batch_requests_count {self.dispatches}",
+                "# HELP nbody_batch_held_requests Requests a micro-batch "
+                "dispatch whose leader found every replica busy and held "
+                "its queue.",
+                "# TYPE nbody_batch_held_requests summary",
+                f"nbody_batch_held_requests_sum {self.held_requests}",
+                f"nbody_batch_held_requests_count {self.held_dispatches}"]) \
+                + "\n"
 
 
 def _short_repr(val, limit: int = 80) -> str:
@@ -1015,8 +1068,8 @@ def main(argv=None):
                              "batched rollouts of up to B systems (padded "
                              "to power-of-two buckets; 0 = off)")
     parser.add_argument("--micro-batch-wait-ms", type=float, default=5.0,
-                        help="how long a micro-batch leader waits for "
-                             "followers to join")
+                        help="how long a micro-batch leader that finds a "
+                             "replica free waits for followers to join")
     parser.add_argument("--quantize", choices=("bf16", "int8"), default=None,
                         help="weight-only quantized weights on the device "
                              "(a smaller resident model; compute stays "

@@ -8,6 +8,7 @@ against the JAX service on the same checkpoint.
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -485,6 +486,236 @@ def test_micro_batcher_counts_dispatches_and_warms_every_bucket():
     _fire(batcher, [_job(s) for s in range(3)])
     batcher.rollout(*_job(5), 2)
     assert batcher.dispatches == len(stub.calls) == 2
+
+
+# -- the port's micro-batcher under load ---------------------------------------
+# A dispatch holds its replica until the test opens the stub's gate, so
+# which requests queue behind it is set by the test, not by the clock.
+
+class _GatedStub(_StubService):
+    """Each rollout_batch waits for ``gate``; ``entered`` counts the
+    dispatches that reached the stub, and ``batches`` keeps each one's
+    (n_steps, positions, padding included).  Dispatches whose index is in
+    ``fail_calls`` raise."""
+
+    def __init__(self, fail_calls=()):
+        super().__init__()
+        self.gate = threading.Event()
+        self.entered = threading.Semaphore(0)
+        self.fail_calls = set(fail_calls)
+        self.batches = []
+
+    def rollout_batch(self, pos, vel, masses, n_steps, trajectory=True):
+        self.entered.release()
+        assert self.gate.wait(30), "the test never opened the gate"
+        with self._lock:
+            self.fail = len(self.batches) in self.fail_calls
+            self.batches.append((n_steps, pos.copy()))
+        return super().rollout_batch(pos, vel, masses, n_steps, trajectory)
+
+
+def _start(batcher, job, n_steps=3):
+    """``batcher.rollout`` of one job on a thread of its own: (thread,
+    box), the box getting "result" or "error"."""
+    box = {}
+
+    def work():
+        try:
+            box["result"] = batcher.rollout(*job, n_steps)
+        except Exception as e:  # noqa: BLE001 - recorded for assertions
+            box["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    return t, box
+
+
+def _until(cond):
+    """Wait (30 s at most) for a condition the batcher's threads make
+    true."""
+    deadline = time.monotonic() + 30
+    while not cond():
+        assert time.monotonic() < deadline, "condition never held"
+        time.sleep(0.001)
+
+
+def _queue_up(batcher, jobs, n_steps=3):
+    """Start each job once the one before it is queued, so the queue's
+    order is the jobs' order; the started runs."""
+    key = (jobs[0][0].shape[0], n_steps)
+
+    def queued():
+        with batcher._lock:
+            return len(batcher._pending.get(key, ()))
+
+    runs = []
+    for job in jobs:
+        want = queued() + 1
+        runs.append(_start(batcher, job, n_steps))
+        _until(lambda: queued() == want)
+    return runs
+
+
+def _finish(runs):
+    for t, _ in runs:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t, _ in runs)
+    return [box for _, box in runs]
+
+
+def _busy(stub, batcher, job, n_steps=3):
+    """A lone job's dispatch, held at the stub: the replica is busy."""
+    run = _start(batcher, job, n_steps)
+    assert stub.entered.acquire(timeout=30)
+    return run
+
+
+def _rows(batch):
+    """The job seeds of a dispatch's systems (``_job`` draws distinct
+    first coordinates)."""
+    firsts = {_job(s)[0][0, 0]: s for s in range(16)}
+    return [firsts[p[0, 0]] for p in batch]
+
+
+def test_micro_batcher_busy_replica_coalesces_arrivals():
+    """Three requests that arrive while a dispatch holds the one replica
+    ride the next dispatch together, padded to the 4-bucket, not three
+    dispatches of one; the held dispatch is counted."""
+    from nbody_gnn_hpc_torch.serve import MicroBatcher
+
+    stub = _GatedStub()
+    batcher = MicroBatcher(stub, max_batch=8, max_wait_s=0.01)
+    jobs = [_job(s) for s in range(4)]
+    runs = [_busy(stub, batcher, jobs[0])]
+    runs += _queue_up(batcher, jobs[1:])
+    assert batcher.dispatches == 1  # the arrivals started no dispatch
+    stub.gate.set()
+    boxes = _finish(runs)
+    assert stub.calls == [1, 4]
+    assert _rows(stub.batches[1][1]) == [1, 2, 3, 3]
+    for job, box in zip(jobs, boxes):
+        np.testing.assert_array_equal(box["result"]["positions"][-1],
+                                      job[0] + 3)
+    assert (batcher.held_dispatches, batcher.held_requests) == (1, 3)
+    assert batcher.requests_dispatched == 4
+
+
+def test_micro_batcher_held_queue_drains_oldest_first_in_capped_chunks():
+    from nbody_gnn_hpc_torch.serve import MicroBatcher
+
+    stub = _GatedStub()
+    batcher = MicroBatcher(stub, max_batch=4, max_wait_s=0.01)
+    jobs = [_job(s) for s in range(12)]
+    runs = [_busy(stub, batcher, jobs[0])]
+    runs += _queue_up(batcher, jobs[1:])
+    stub.gate.set()
+    boxes = _finish(runs)
+    assert stub.calls == [1, 4, 4, 4]
+    assert [_rows(b) for _, b in stub.batches] == [
+        [0], [1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 11]]
+    for job, box in zip(jobs, boxes):
+        assert "error" not in box
+        np.testing.assert_array_equal(box["result"]["positions"][-1],
+                                      job[0] + 3)
+    assert batcher.requests_dispatched == 12
+    assert (batcher.held_dispatches, batcher.held_requests) == (3, 11)
+    assert batcher._pending == {}
+
+
+def test_micro_batcher_keys_held_behind_a_busy_replica_are_all_served():
+    """Leaders of two keys wait for the one replica in the order they came;
+    a later request of the first key still joins its queue."""
+    from nbody_gnn_hpc_torch.serve import MicroBatcher
+
+    stub = _GatedStub()
+    batcher = MicroBatcher(stub, max_batch=4, max_wait_s=0.01)
+    runs = [_busy(stub, batcher, _job(0))]
+    runs += _queue_up(batcher, [_job(1)], n_steps=5)
+    runs += _queue_up(batcher, [_job(2)], n_steps=7)
+    runs += _queue_up(batcher, [_job(3)], n_steps=5)
+    stub.gate.set()
+    boxes = _finish(runs)
+    assert [(s, _rows(b)) for s, b in stub.batches] == [
+        (3, [0]), (5, [1, 3]), (7, [2])]
+    for seed, steps, box in ((0, 3, boxes[0]), (1, 5, boxes[1]),
+                             (2, 7, boxes[2]), (3, 5, boxes[3])):
+        np.testing.assert_array_equal(box["result"]["positions"][-1],
+                                      _job(seed)[0] + steps)
+    assert batcher._pending == {}
+
+
+def test_micro_batcher_failed_dispatch_under_load_fails_only_its_jobs():
+    from nbody_gnn_hpc_torch.serve import MicroBatcher
+
+    stub = _GatedStub(fail_calls={1})
+    batcher = MicroBatcher(stub, max_batch=2, max_wait_s=0.01)
+    jobs = [_job(s) for s in range(5)]
+    runs = [_busy(stub, batcher, jobs[0])]
+    runs += _queue_up(batcher, jobs[1:])
+    stub.gate.set()
+    boxes = _finish(runs)
+    assert stub.calls == [1, 2, 2]
+    assert [_rows(b) for _, b in stub.batches] == [[0], [1, 2], [3, 4]]
+    for i, (job, box) in enumerate(zip(jobs, boxes)):
+        if i in (1, 2):
+            assert isinstance(box["error"], RuntimeError)
+        else:
+            np.testing.assert_array_equal(box["result"]["positions"][-1],
+                                          job[0] + 3)
+
+
+def test_micro_batcher_busy_pool_queues_arrivals():
+    """With both replicas of a pool busy, three arrivals queue under one
+    leader and the first replica to free takes them together."""
+    from nbody_gnn_hpc_torch.serve import MicroBatcher, ReplicaPool
+
+    stubs = [_GatedStub(), _GatedStub()]
+    for i, s in enumerate(stubs):
+        s.STREAM_CHUNK, s.device, s.model_info = 64, f"cpu:{i}", {}
+    batcher = MicroBatcher(ReplicaPool(stubs), max_batch=8,
+                           max_wait_s=0.01)
+    jobs = [_job(s) for s in range(5)]
+    runs = [_busy(stubs[0], batcher, jobs[0]),
+            _busy(stubs[1], batcher, jobs[1])]
+    runs += _queue_up(batcher, jobs[2:])
+    assert batcher.dispatches == 2
+    for s in stubs:
+        s.gate.set()
+    boxes = _finish(runs)
+    assert sorted(stubs[0].calls + stubs[1].calls) == [1, 1, 4]
+    for job, box in zip(jobs, boxes):
+        np.testing.assert_array_equal(box["result"]["positions"][-1],
+                                      job[0] + 3)
+    assert (batcher.held_dispatches, batcher.held_requests) == (1, 3)
+
+
+def test_micro_batcher_stress_answers_every_job_once_and_frees_slots():
+    """48 threads over three keys and a pool of two, with the interpreter
+    switching threads every microsecond: every job gets its own answer,
+    each is dispatched once, and both replicas are free at the end."""
+    import sys
+
+    from nbody_gnn_hpc_torch.serve import MicroBatcher, ReplicaPool
+
+    stubs = [_StubService(), _StubService()]
+    for i, s in enumerate(stubs):
+        s.STREAM_CHUNK, s.device, s.model_info = 64, f"cpu:{i}", {}
+    batcher = MicroBatcher(ReplicaPool(stubs), max_batch=4,
+                           max_wait_s=0.001)
+    jobs = [_job(s % 16) for s in range(48)]
+    steps = [1 + s % 3 for s in range(48)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        results, errors = _fire(batcher, jobs, n_steps=steps)
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == [None] * 48
+    for job, n, res in zip(jobs, steps, results):
+        np.testing.assert_array_equal(res["positions"][-1], job[0] + n)
+    assert batcher.requests_dispatched == 48
+    assert batcher._free == 2 and not batcher._waiting
+    assert batcher._pending == {}
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ rollout and training layers, and the counters' counts."""
 import json
 import re
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -17,7 +18,7 @@ from nbody_gnn_hpc_torch.io.model_io import params_to_jax, save_checkpoint
 from nbody_gnn_hpc_torch.models import NBodyGNN
 from nbody_gnn_hpc_torch.ops.knn import knn_edge_index
 from nbody_gnn_hpc_torch.serve import (MicroBatcher, build_replica_pool,
-                                       serve)
+                                       build_service, serve)
 from nbody_gnn_hpc_torch.train import make_optimizer, make_train_step
 from nbody_gnn_hpc_torch.utils import device_trace, profiling
 from nbody_gnn_hpc_torch.utils.profiling import (NEW_REQUEST, annotate,
@@ -274,6 +275,67 @@ def test_serving_spans_share_request_ids(paths):
         assert len(children) == len(steps)
         assert all(c.parent in ids for c in children)
     assert len(_by_name(spans, "predict.readback")) == len(rollouts)
+
+
+def _until(cond):
+    deadline = time.monotonic() + 60
+    while not cond():
+        assert time.monotonic() < deadline, "condition never held"
+        time.sleep(0.001)
+
+
+def test_held_dispatch_counter_and_span(paths):
+    """``nbody_batch_held_requests`` reads 0 after a lone request; with the
+    device lock held (as the benchmark pauses a service) under one
+    request's dispatch, the three requests that arrive meanwhile are one
+    held dispatch of 3, whose serve.rollout span says ``held``."""
+    service = build_service(*paths, device="cpu")
+    batcher = MicroBatcher(service, max_batch=8, max_wait_s=0.01)
+    httpd = serve(service, host="127.0.0.1", port=0, batcher=batcher)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def metrics():
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            return resp.read().decode()
+
+    def client(i):
+        t = threading.Thread(target=_post, args=(url + "/rollout",
+                                                 _system(i)))
+        t.start()
+        return t
+
+    def queued():
+        with batcher._lock:
+            return len(batcher._pending.get((N, 3), ()))
+
+    try:
+        with _session():
+            _post(url + "/rollout", _system(0))
+            for text in (batcher.render(), metrics()):
+                assert _series(text, "nbody_batch_held_requests_sum") == 0
+                assert _series(text, "nbody_batch_held_requests_count") == 0
+            with service._lock:
+                clients = [client(1)]
+                _until(lambda: batcher.dispatches == 2)
+                for i in (2, 3, 4):
+                    clients.append(client(i))
+                    _until(lambda: queued() == i - 1)
+            for c in clients:
+                c.join(timeout=120)
+            assert not any(c.is_alive() for c in clients)
+            for text in (batcher.render(), metrics()):
+                assert _series(text, "nbody_batch_held_requests_sum") == 3
+                assert _series(text, "nbody_batch_held_requests_count") == 1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    rollouts = sorted(_by_name(recorded_spans(), "serve.rollout"),
+                      key=lambda s: s.start_ns)
+    assert [(s.attrs["batch"], s.attrs["held"]) for s in rollouts] == [
+        (1, False), (1, False), (3, True)]
 
 
 def test_train_step_spans_tile_the_step():
