@@ -8,27 +8,25 @@ The batch is one (B, N, 7) forward through the edge kernels' batch axis
 ``torch.optim.AdamW`` with optax's defaults (betas 0.9/0.999, eps 1e-8,
 decoupled weight decay on every parameter, as ``optax.adamw`` with no
 mask); the clip is written as ``optax.clip_by_global_norm`` writes it.
+On CUDA it is capturable, so every training path there runs one AdamW.
 
 On CUDA the step is one CUDA graph.  The first call with an input
 signature (the batch's shapes, dtypes and device, and the generator
 object) runs eagerly, on the stream that signature's graph is captured on;
 the second captures the whole step (zero_grad, normalise, noise, the
 forward with every draw, loss, backward, clip, AdamW) and replays it;
-every later call copies the batch into the graph's inputs, writes the
-update's LR into the tensor AdamW reads, and replays.  The generator is
+every later call writes the update's LR into the tensor AdamW reads,
+copies the batch into the graph's inputs and replays.  The generator is
 registered with the graph, which reads its seed and offset at each
-replay, so the draws are the eager step's.  AdamW runs there with
-``capturable=True``: its bias correction on the device is the only
-numerical change.  The step stays eager off CUDA, under ``remat``, with
-``edge_impl="fused_full"`` (kernel 7's cooperative launch) and with an
-optimizer that cannot be captured.  A signature starts again from an
-eager step when a parameter's storage, an optimizer state tensor or a
-hyperparameter other than the LR changes (``optimizer.load_state_dict``,
-a resume).
+replay, so the draws are the eager step's.  The step stays eager off
+CUDA, under ``remat``, with ``edge_impl="fused_full"`` (kernel 7's
+cooperative launch) and with an optimizer not in ``make_optimizer``'s
+CUDA form (capturable, its LR a device tensor).  A signature starts
+again from an eager step when a parameter's storage, an optimizer state
+or LR tensor, or another hyperparameter changes
+(``optimizer.load_state_dict``, a resume).
 """
 
-import contextlib
-import warnings
 from typing import Callable, Optional
 
 import torch
@@ -45,10 +43,43 @@ GRAD_CLIP_NORM = 1.0  # reference train.py:429
 
 def make_optimizer(model: torch.nn.Module, learning_rate: float,
                    weight_decay: float) -> torch.optim.AdamW:
-    """``optax.adamw(lr, weight_decay=wd)`` over every parameter."""
-    return torch.optim.AdamW(model.parameters(), lr=learning_rate,
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+    """``optax.adamw(lr, weight_decay=wd)`` over every parameter.  On CUDA
+    capturable (its bias correction in float32 on the device), its LR a
+    float32 tensor there for its whole life: the one AdamW of every CUDA
+    training path, graphed or eager.  Files hold the CPU form."""
+    dev = next(model.parameters()).device
+    cuda = dev.type == "cuda"
+    optimizer = torch.optim.AdamW(
+        model.parameters(), betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=weight_decay, capturable=cuda,
+        lr=torch.tensor(learning_rate, dtype=torch.float32, device=dev)
+        if cuda else learning_rate)
+    # torch warns once that a capturable optimizer steps outside a capture:
+    # every eager CUDA step does, on purpose.
+    optimizer._warned_capturable_if_run_uncaptured = True
+    return optimizer
+
+
+def file_state(optimizer: torch.optim.Optimizer) -> dict:
+    """``optimizer.state_dict()`` as files hold it from every device: each
+    group's LR a float and ``capturable`` False; the state as it is."""
+    state = optimizer.state_dict()
+    return {**state, "param_groups": [
+        {**g, "lr": float(g["lr"]), "capturable": False}
+        for g in state["param_groups"]]}
+
+
+def load_file_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """Load ``file_state``'s form, written on any device, into
+    ``optimizer``, which keeps its own: its ``capturable`` flags, its LR
+    tensors (filled) and, if capturable, its step counts on the device."""
+    live = optimizer.param_groups
+    optimizer.load_state_dict({**state, "param_groups": [
+        {**g, "capturable": own["capturable"]}
+        for g, own in zip(state["param_groups"], live)]})
+    for g, own in zip(optimizer.param_groups, live):
+        if torch.is_tensor(own["lr"]):
+            g["lr"] = own["lr"].fill_(g["lr"])
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
@@ -64,15 +95,13 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 class _StepGraph:
     """One input signature's graph: the stream it is warmed up and
-    captured on, its static inputs and loss, the LR tensors its AdamW
-    reads, its kernels' arrival counters, the gradients it computes, the
-    launches its capture counted and what it was built on."""
+    captured on, its static inputs and loss, its kernels' arrival
+    counters, the gradients it computes, the launches its capture counted
+    and what it was built on."""
 
-    def __init__(self, generator, device: torch.device, n_groups: int):
+    def __init__(self, generator, device: torch.device):
         self.generator = generator  # held, as its id is in the signature
         self.stream = torch.cuda.Stream(device)
-        self.lrs = [torch.zeros((), dtype=torch.float32, device=device)
-                    for _ in range(n_groups)]
         self.launches = CapturedLaunches()
         self.graph = self.built_on = None
         self.states = self.targets = self.loss = self.arrivals = None
@@ -154,10 +183,15 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
                               rows))
 
     def set_lr():
-        """Each group's LR for update ``step.count``."""
+        """Each group's LR for update ``step.count``, written into the
+        group's tensor where the LR is one (a graph reads it there)."""
         if schedule is not None:
+            lr = schedule(step.count)
             for group in optimizer.param_groups:
-                group["lr"] = schedule(step.count)
+                if torch.is_tensor(group["lr"]):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
 
     def clip_and_step():
         clip_by_global_norm_([p.grad for p in params], GRAD_CLIP_NORM)
@@ -184,50 +218,23 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
     def graphable(states) -> bool:
         return (states.is_cuda and not getattr(model, "remat", False)
                 and not full_layer
-                and all("capturable" in g for g in optimizer.param_groups))
+                and all(g.get("capturable") and torch.is_tensor(g["lr"])
+                        for g in optimizer.param_groups))
 
     def built_on() -> tuple:
         """What a graph reads by address or holds as a constant: each
-        parameter's storage, each optimizer state tensor, and every
-        hyperparameter but the LR."""
-        state = optimizer.state
+        parameter's storage, each optimizer state tensor and LR tensor,
+        and every other hyperparameter."""
+        state, groups = optimizer.state, optimizer.param_groups
         return ([p.data_ptr() for p in params],
-                [t for p in params for t in state.get(p, {}).values()],
+                [t for p in params for t in state.get(p, {}).values()]
+                + [g["lr"] for g in groups],
                 [[(k, v) for k, v in g.items() if k not in ("params", "lr")]
-                 for g in optimizer.param_groups])
+                 for g in groups])
 
     def same(a: tuple, b: tuple) -> bool:
         return (a[0] == b[0] and a[2] == b[2] and len(a[1]) == len(b[1])
                 and all(x is y for x, y in zip(a[1], b[1])))
-
-    def fill_lrs(entry: _StepGraph) -> None:
-        for t, group in zip(entry.lrs, optimizer.param_groups):
-            t.fill_(group["lr"])
-
-    @contextlib.contextmanager
-    def capturable(entry: _StepGraph):
-        """AdamW as a graph replays it: its bias correction on the device,
-        each group's LR read from ``entry.lrs``, each parameter's step
-        count on the parameter's device; the groups as they were after."""
-        for p in params:
-            st = optimizer.state.get(p)
-            if st and "step" in st and st["step"].device != p.device:
-                st["step"] = st["step"].to(p.device, torch.float32)
-        groups = optimizer.param_groups
-        kept = [(g["lr"], g["capturable"]) for g in groups]
-        for g, lr in zip(groups, entry.lrs):
-            g["lr"], g["capturable"] = lr, True
-        try:
-            with warnings.catch_warnings():
-                # the warning that a capturable step runs eagerly: the
-                # signature's first step does, on purpose
-                warnings.filterwarnings(
-                    "ignore", message="This instance was constructed with "
-                                      "capturable=True")
-                yield
-        finally:
-            for g, (lr, cap) in zip(groups, kept):
-                g["lr"], g["capturable"] = lr, cap
 
     def warm(entry: _StepGraph, states, targets, generator):
         """The signature's first step, eager, on the stream its graph is
@@ -236,9 +243,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         current = torch.cuda.current_stream(states.device)
         entry.stream.wait_stream(current)
         with torch.cuda.stream(entry.stream):
-            fill_lrs(entry)
-            with capturable(entry):
-                loss = run(states, targets, generator)
+            loss = run(states, targets, generator)
         current.wait_stream(entry.stream)
         entry.built_on = built_on()
         return loss
@@ -250,13 +255,11 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
         b = states.shape[0] if states.dim() == 3 else 1
         entry.arrivals = arrival_counters(b, edge_index.shape[-1],
                                           states.device)
-        fill_lrs(entry)
         optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with capturable(entry), \
-                arrivals_from(entry.arrivals, entry.stream), \
+        with arrivals_from(entry.arrivals, entry.stream), \
                 entry.launches.capturing(), \
                 torch.cuda.graph(graph, stream=entry.stream,
                                  capture_error_mode="thread_local"):
@@ -270,7 +273,6 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
     def replay(entry: _StepGraph, states, targets):
         entry.states.copy_(states)
         entry.targets.copy_(targets)
-        fill_lrs(entry)
         # The graph computes the gradients into its own tensors; hand them
         # to the parameters, as an eager step leaves its gradients there.
         for p, g in zip(params, entry.grads):
@@ -293,8 +295,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, edge_index,
             if entry is not None and not same(entry.built_on, built_on()):
                 entry = None  # a tensor it reads was replaced
             if entry is None:
-                entry = graphs[key] = _StepGraph(
-                    generator, states.device, len(optimizer.param_groups))
+                entry = graphs[key] = _StepGraph(generator, states.device)
                 with annotate("train.step", graph="eager"):
                     loss = warm(entry, states, targets, generator)
                 step.eager_steps += 1

@@ -44,7 +44,8 @@ from nbody_gnn_hpc_torch.models.gnn import NBodyGNN, count_parameters
 from nbody_gnn_hpc_torch.train.loss import PhysicsInformedLoss
 from nbody_gnn_hpc_torch.train.schedule import (cosine_warm_restarts,
                                                 make_step_schedule)
-from nbody_gnn_hpc_torch.train.steps import make_optimizer, make_train_step
+from nbody_gnn_hpc_torch.train.steps import (file_state, load_file_state,
+                                             make_optimizer, make_train_step)
 from nbody_gnn_hpc_torch.utils.watchdog import maybe_watchdog
 
 # The loss details every step reports, in the order validation sums them.
@@ -360,9 +361,10 @@ class Trainer:
     def _flat_state(self) -> Dict:
         """What an async save writes: the parameters and each AdamW moment
         as one flat tensor (the optimizer's parameter order), every
-        parameter's AdamW step, and the param groups.  DCP's Python costs
-        ~1 ms a tensor in the writer thread, which takes the GIL from the
-        training loop: five entries instead of ~320.  Zeros and step 0
+        parameter's AdamW step, and the param groups in their file form.
+        DCP's Python costs ~1 ms a tensor in the writer thread, which takes
+        the GIL from the training loop: five entries instead of ~320.
+        Zeros and step 0
         (what AdamW's first step starts from) before any step."""
         params = self._params()
         state = [self.optimizer.state.get(p) or {
@@ -376,7 +378,7 @@ class Trainer:
                 "exp_avg": flat(s["exp_avg"] for s in state),
                 "exp_avg_sq": flat(s["exp_avg_sq"] for s in state),
                 "step": torch.stack([s["step"] for s in state]),
-                "param_groups": self.optimizer.state_dict()["param_groups"]}
+                "param_groups": file_state(self.optimizer)["param_groups"]}
 
     def _save_orbax(self, filename: str) -> str:
         """Queue an async save of the parameters and the AdamW state at the
@@ -424,7 +426,7 @@ class Trainer:
         moments = [flat[k].split(sizes) for k in ("exp_avg", "exp_avg_sq")]
         for p, value in zip(params, flat["params"].split(sizes)):
             p.copy_(value.view_as(p))
-        self.optimizer.load_state_dict({
+        load_file_state(self.optimizer, {
             "state": {i: {"step": flat["step"][i].clone(),
                           "exp_avg": moments[0][i].view_as(p).clone(),
                           "exp_avg_sq": moments[1][i].view_as(p).clone()}
@@ -446,7 +448,7 @@ class Trainer:
         return save_checkpoint(
             self.model_dir / filename,
             params=params_to_jax(self.model.state_dict()),
-            opt_state=self.optimizer.state_dict(),
+            opt_state=file_state(self.optimizer),
             scheduler_state=dict(epoch=self.current_epoch),
             best_val_loss=self.best_val_loss,
             history=self.history,
@@ -465,7 +467,7 @@ class Trainer:
                 params_from_jax(ckpt["model_state_dict"]))
             opt = ckpt.get("optimizer_state_dict")
             if isinstance(opt, dict) and {"state", "param_groups"} <= set(opt):
-                self.optimizer.load_state_dict(_to_torch(opt))
+                load_file_state(self.optimizer, _to_torch(opt))
             elif opt is not None:
                 print("  (optimizer state not in the port's format; "
                       "starting the optimizer afresh)")

@@ -343,24 +343,14 @@ def test_kernel_refuses_a_wider_or_misaligned_message(cuda):
         receiver_sum(shifted, edges)
 
 
-def _capturable(step, opt):
-    """The graphed step's arithmetic run eagerly (AdamW capturable, its LR
-    a device tensor)."""
-    from nbody_gnn_hpc_torch.train.steps import (GRAD_CLIP_NORM,
-                                                 clip_by_global_norm_)
-
-    lrs = [torch.full((), g["lr"], device=step.params[0].device)
-           for g in opt.param_groups]
-
+def _eager(step, opt):
+    """The step without its graph: ``compute_loss``, ``backward`` and
+    ``update``, as the data-parallel step takes it."""
     def run(s, t, gen):
-        for group, lr in zip(opt.param_groups, lrs):
-            group["lr"], group["capturable"] = lr, True
         opt.zero_grad(set_to_none=True)
         loss, _ = step.compute_loss(s, t, gen)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in step.params], GRAD_CLIP_NORM)
-        opt.step()
-        step.count += 1
+        step.update()
         return loss.detach()
     return run
 
@@ -385,7 +375,7 @@ def test_graphed_step_equals_the_eager_arithmetic_bitwise(cuda, dtype):
         step = make_train_step(model, opt, edge_index, flat.mean(0),
                                flat.std(0), (masses / masses.mean())[:, None],
                                noise_std=6.7e-4, masses=masses)
-        fn = step if side == "graphed" else _capturable(step, opt)
+        fn = step if side == "graphed" else _eager(step, opt)
         run_gen = torch.Generator(cuda).manual_seed(3)
         before = launch_counts()
         losses = [fn(states[2 * i:2 * i + 2], targets[2 * i:2 * i + 2],

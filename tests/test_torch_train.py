@@ -27,6 +27,7 @@ from nbody_gnn_hpc_torch.train import (GNNDataset, PhysicsInformedLoss,
                                        Trainer, cosine_warm_restarts,
                                        make_optimizer, make_step_schedule,
                                        make_train_step, mse_loss)
+from nbody_gnn_hpc_torch.train.steps import file_state, load_file_state
 from nbody_gnn_hpc_tpu import config as jconfig
 from nbody_gnn_hpc_tpu.io import model_io as jmodel_io
 from nbody_gnn_hpc_tpu.models import NBodyGNN as JaxGNN
@@ -309,6 +310,31 @@ def test_train_step_refuses_irregular_edges():
                         ds.state_std, mass_feat)
 
 
+def _adamw(model, lr, **kw):
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4, **kw)
+
+
+def test_cpu_optimizer_is_the_plain_adamw_in_file_form():
+    """On the CPU ``make_optimizer`` builds the AdamW the JAX package's
+    optax.adamw is held to, in the form files hold; ``file_state`` writes
+    the CUDA form (capturable, a tensor LR) in that form, and
+    ``load_file_state`` fills that form's own LR tensor."""
+    model = NBodyGNN(**KW)
+    opt, want = make_optimizer(model, 3e-4, 1e-4), _adamw(model, 3e-4)
+    assert opt.state_dict() == want.state_dict() == file_state(opt)
+    assert opt.defaults == want.defaults
+    cuda_form = _adamw(model, torch.tensor(5e-4), capturable=True)
+    assert file_state(cuda_form)["param_groups"] == [
+        {**g, "lr": float(np.float32(5e-4))}
+        for g in want.state_dict()["param_groups"]]
+    lr = cuda_form.param_groups[0]["lr"]
+    load_file_state(cuda_form, file_state(opt))
+    (group,) = cuda_form.param_groups
+    assert group["lr"] is lr and lr.item() == np.float32(3e-4)
+    assert group["capturable"] is True
+
+
 # -- checkpoints and the trainer ---------------------------------------------
 
 
@@ -356,6 +382,8 @@ def test_trainer_run_writes_jax_history_and_checkpoints(trained):
     assert set(ckpt) >= {"model_state_dict", "optimizer_state_dict",
                          "best_val_loss", "history", "norm_stats",
                          "model_config"}
+    assert all(type(g["lr"]) is float and g["capturable"] is False
+               for g in ckpt["optimizer_state_dict"]["param_groups"])
 
 
 def test_port_checkpoint_loads_in_jax(trained):
